@@ -1,17 +1,20 @@
 """multirate_tpu_torch: the PyTorch and CUDA port of multirate_tpu.
 
-Streaming polyphase FIR filtering and rational sample-rate conversion on an
-NVIDIA Hopper GPU, with the API and semantics of the JAX package
+Streaming polyphase FIR filtering and sample-rate conversion on an NVIDIA
+Hopper GPU, with the API and semantics of the JAX package
 ``multirate_tpu`` (which stays the reference): the single-rate FIR, the
-L//1 interpolator, the 1//M decimator and the L//M rational resampler,
-the windowed-sinc designer, the length and phase algebra, and streaming
-``FIRFilter`` state whose chunked output equals the whole-vector output.
+L//1 interpolator, the 1//M decimator, the L//M rational resampler, the
+arbitrary-rate resampler and the Farrow resampler, the windowed-sinc
+designer, the length and phase algebra, and streaming ``FIRFilter`` state
+whose chunked output equals the whole-vector output.
 
-All four filter types run through one hand-written CUDA kernel
-(``ops/cuda/polyphase.py``, ``csrc/polyphase.cu``) on CUDA tensors, and
-through its plain PyTorch version on CPU tensors. Arbitrary-rate and
-Farrow resampling, the quantized modes, complex and float64 signals,
-streaming I/O and sharding are not ported yet (ROADMAP.md, queue 1).
+The four rational-family filter types run through one hand-written CUDA
+kernel (``ops/cuda/polyphase.py``, ``csrc/polyphase.cu``) and the
+arbitrary-rate and Farrow resamplers, channel-major (``filt_block``) or
+time-major (``filt_block_tm``), through another (``ops/cuda/resample.py``,
+``csrc/resample.cu``) on CUDA tensors; CPU tensors run their plain PyTorch
+versions. The quantized modes, complex and float64 signals, streaming I/O
+and sharding are not ported yet (ROADMAP.md, queue 1).
 
 This package imports torch and numpy only, never JAX.
 """
@@ -39,9 +42,13 @@ from .ops import (
     FIRInterpolator,
     FIRDecimator,
     FIRRational,
+    FIRArbitrary,
+    FIRFarrow,
     FilterState,
+    PHASE_FRAC_BITS,
     filt,
     filt_block,
+    filt_block_tm,
     init_state,
     inputlength,
     max_outputs,
@@ -53,6 +60,7 @@ from .ops import (
     reset,
     setphase,
     taps2pfb,
+    tapsforphase,
 )
 
 __version__ = "0.1.0"
@@ -63,9 +71,10 @@ __all__ = [
     "kaiser", "hanning", "hamming", "blackman", "rect",
     "make_kernel",
     "FIRFilter", "FIRStandard", "FIRInterpolator", "FIRDecimator",
-    "FIRRational", "FilterState",
-    "filt", "filt_block", "init_state",
+    "FIRRational", "FIRArbitrary", "FIRFarrow", "FilterState",
+    "PHASE_FRAC_BITS",
+    "filt", "filt_block", "filt_block_tm", "init_state",
     "inputlength", "max_outputs",
     "nextphase", "outputlength", "polyfit", "polyval", "pfb2pnfb", "reset",
-    "setphase", "taps2pfb",
+    "setphase", "taps2pfb", "tapsforphase",
 ]

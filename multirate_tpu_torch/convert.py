@@ -12,7 +12,9 @@ A JAX rational kernel may carry a longer history than the filter math
 needs (its zero-copy TPU kernel keeps ZC_S whole stream rows); the port
 keeps the trailing ``h_min`` samples, which are all any output depends on.
 ``state_to_jax`` goes back, zero-padding the history on the left to the
-JAX kernel's ``history_len``.
+JAX kernel's ``history_len``. For the arbitrary/Farrow kernels the phase
+is the accumulator u and the histories have the same length on both
+sides.
 """
 
 from __future__ import annotations
@@ -20,26 +22,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.params import (FIRDecimator, FIRInterpolator, FIRRational,
-                         FIRStandard, FilterState)
+from .ops.params import (FIRArbitrary, FIRDecimator, FIRFarrow,
+                         FIRInterpolator, FIRRational, FIRStandard,
+                         FilterState)
 
 __all__ = ["params_from_jax", "state_from_jax", "state_to_jax"]
 
 
 def params_from_jax(fields, device=None):
-    """The port's kernel from a JAX rational-family kernel's fields.
+    """The port's kernel from a JAX kernel's fields.
 
-    ``fields`` maps field names to numpy arrays or ints: ``taps_rev`` (with
-    ``decimation`` for a decimator) or ``pfb`` with ``interpolation`` (and
-    ``decimation`` for a rational kernel). Other fields (the TPU K stacks,
-    ``sc_group``) are ignored. The class follows the fields present, as
-    the JAX classes' fields do.
+    ``fields`` maps field names to numpy arrays, ints or floats:
+    ``taps_rev`` (with ``decimation`` for a decimator); ``pfb`` with
+    ``interpolation`` (and ``decimation`` for a rational kernel); ``pfb``
+    and ``dpfb`` with ``nphi``, ``rate`` and ``delta_fx`` for an arbitrary
+    kernel; ``pfb`` and ``coeffs`` with ``nphi``, ``rate`` and
+    ``delta_fx`` for a Farrow kernel. ``delta_fx`` is taken as given, so
+    both packages step the same accumulator. Other fields (the TPU K
+    stacks, ``sc_group``, the gridsel/ratgrid plans) are ignored. The
+    class follows the fields present, as the JAX classes' fields do.
     """
     dev = torch.device("cpu") if device is None else torch.device(device)
 
     def bank(name):
         return torch.as_tensor(np.array(fields[name], np.float32),
                                device=dev)
+
+    if "dpfb" in fields or "coeffs" in fields:
+        nphi, rate = int(fields["nphi"]), float(fields["rate"])
+        dfx = int(fields["delta_fx"])
+        pfb = np.array(fields["pfb"], np.float32)
+        if "coeffs" in fields:
+            return FIRFarrow.from_fit(pfb, fields["coeffs"], nphi, rate, dfx,
+                                      dev)
+        table = np.stack([pfb, np.array(fields["dpfb"], np.float32)])
+        return FIRArbitrary(table=torch.as_tensor(table, device=dev),
+                            nphi=nphi, taps_per_phi=pfb.shape[0], rate=rate,
+                            delta_fx=dfx)
 
     if "taps_rev" in fields:
         taps = bank("taps_rev")

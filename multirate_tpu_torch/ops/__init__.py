@@ -1,11 +1,14 @@
-"""Rational-family operations: kernels, index algebra, block compute, API."""
+"""Operations: kernels, index algebra, block compute, API."""
 
 from .params import (
     FIRStandard,
     FIRInterpolator,
     FIRDecimator,
     FIRRational,
+    FIRArbitrary,
+    FIRFarrow,
     FilterState,
+    PHASE_FRAC_BITS,
     init_state,
     make_kernel,
 )
@@ -13,9 +16,11 @@ from .pfb import taps2pfb, polyfit, polyval, pfb2pnfb
 from .api import (
     filt,
     filt_block,
+    filt_block_tm,
     FIRFilter,
     setphase,
     reset,
+    tapsforphase,
     outputlength,
     inputlength,
     nextphase,
@@ -24,8 +29,10 @@ from .api import (
 
 __all__ = [
     "FIRStandard", "FIRInterpolator", "FIRDecimator", "FIRRational",
-    "FilterState", "init_state", "make_kernel",
+    "FIRArbitrary", "FIRFarrow", "FilterState", "PHASE_FRAC_BITS",
+    "init_state", "make_kernel",
     "taps2pfb", "polyfit", "polyval", "pfb2pnfb",
-    "filt", "filt_block", "FIRFilter", "setphase", "reset",
+    "filt", "filt_block", "filt_block_tm", "FIRFilter", "setphase", "reset",
+    "tapsforphase",
     "outputlength", "inputlength", "nextphase", "max_outputs",
 ]

@@ -1,9 +1,10 @@
-"""User API for the rational family: stateless ``filt``, streaming
-``FIRFilter``, phase and reset control.
+"""User API: stateless ``filt``, streaming ``FIRFilter``, phase and reset
+control, taps for a phase, and the time-major block step.
 
 Counterpart of ``multirate_tpu/ops/api.py`` (the reference's surface:
-stateless filt, Filters.jl:858-861; FIRFilter, Filters.jl:150-198;
-setphase :207-232; reset :244-260) on top of the block step:
+stateless filt, Filters.jl:858-873; FIRFilter, Filters.jl:150-198;
+setphase :207-232; reset :244-260; tapsforphase :677-690, 764-775) on top
+of the block step:
 
     params = make_kernel(h, ratio=Fraction(147, 160), device="cuda")
     state  = init_state(params, batch_shape)
@@ -22,13 +23,14 @@ from fractions import Fraction
 import torch
 
 from . import indexing as _idx
-from .compute import filt_block_raw
-from .params import (FIRInterpolator, FIRRational, FilterState, init_state,
-                     make_kernel)
+from .compute import filt_block_raw, filt_block_tm_raw
+from .params import (PHASE_ONE, FIRArbitrary, FIRFarrow, FIRInterpolator,
+                     FIRRational, FilterState, init_state, make_kernel)
 
 __all__ = [
-    "filt", "filt_block", "FIRFilter", "setphase", "reset",
-    "outputlength", "inputlength", "nextphase", "max_outputs",
+    "filt", "filt_block", "filt_block_tm", "FIRFilter", "setphase", "reset",
+    "tapsforphase", "outputlength", "inputlength", "nextphase",
+    "max_outputs",
 ]
 
 outputlength = _idx.outputlength
@@ -37,6 +39,16 @@ nextphase = _idx.nextphase
 max_outputs = _idx.max_outputs
 
 filt_block = filt_block_raw
+filt_block_tm = filt_block_tm_raw
+
+
+def _kernel_for(h, ratio_or_rate, nphi, polyorder, device):
+    """The kernel for a ratio (Fraction, int or (L, M)) or a float rate,
+    as JAX ``filt`` and ``FIRFilter`` dispatch (``api.py:83``)."""
+    if isinstance(ratio_or_rate, float):
+        return make_kernel(h, rate=ratio_or_rate, nphi=nphi,
+                           polyorder=polyorder, device=device)
+    return make_kernel(h, ratio=ratio_or_rate, device=device)
 
 
 def _as_signal(x, device) -> torch.Tensor:
@@ -51,17 +63,23 @@ def _as_signal(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
-def filt(h, x, ratio=Fraction(1, 1), device=None):
-    """One-shot stateless filtering / rational resampling.
+def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
+         polyorder=None, device=None):
+    """One-shot stateless filtering and resampling.
 
-    ``filt(h, x, L_over_M)`` with a Fraction, int or (L, M) tuple runs the
-    single-rate, interpolating, decimating or rational polyphase resampler
-    (reference: Filters.jl:858-861). ``x`` is float32 with leading
-    channel dims; time is the last axis. Returns a float32 tensor on x's
-    device.
+    - ``filt(h, x, L_over_M)`` with a Fraction, int or (L, M) tuple: the
+      single-rate, interpolating, decimating or rational polyphase
+      resampler (reference: Filters.jl:858-861).
+    - ``filt(h, x, rate: float, nphi=32)``: arbitrary-rate resampling with
+      derivative-bank linear interpolation (Filters.jl:864-867).
+    - ``filt(h, x, rate: float, nphi, polyorder)``: Farrow polynomial
+      resampling (Filters.jl:870-873).
+
+    ``x`` is float32 with leading channel dims; time is the last axis.
+    Returns a float32 tensor on x's device.
     """
     x = _as_signal(x, device)
-    params = make_kernel(h, ratio=ratio, device=x.device)
+    params = _kernel_for(h, ratio_or_rate, nphi, polyorder, x.device)
     state = init_state(params, x.shape[:-1], x.dtype)
     y, _, _ = filt_block(params, state, x)
     return y
@@ -73,7 +91,9 @@ class FIRFilter:
 
     ``FIRFilter(h)`` or ``FIRFilter(h, Fraction(L, M))`` picks the
     single-rate, interpolator, decimator or rational kernel by the shape of
-    the ratio. ``filt(x)`` consumes a chunk and returns exactly the
+    the ratio; ``FIRFilter(h, rate: float, nphi=32)`` the arbitrary-rate
+    resampler and ``FIRFilter(h, rate, nphi, polyorder)`` the Farrow
+    resampler. ``filt(x)`` consumes a chunk and returns exactly the
     producible outputs; history, phase and deficit carry to the next
     chunk, so the concatenated chunked output equals the whole-vector
     output (index decisions exactly; values to float32 reduction order).
@@ -83,8 +103,9 @@ class FIRFilter:
     chunk lies. A numpy chunk needs a ``device``.
     """
 
-    def __init__(self, h, ratio=Fraction(1, 1), device=None):
-        self.params = make_kernel(h, ratio=ratio, device=device)
+    def __init__(self, h, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
+                 polyorder=None, device=None):
+        self.params = _kernel_for(h, ratio_or_rate, nphi, polyorder, device)
         # the device the stream is pinned to, if the caller named one
         # (explicitly or through torch taps); else its first chunk's
         self.device = (torch.device(device) if device is not None
@@ -144,16 +165,51 @@ class FIRFilter:
 def setphase(params, state: FilterState, phi) -> FilterState:
     """Set the kernel phase; valid input is [0, 1] (Filters.jl:207-232).
 
-    Interpolator/rational: 1-based phase index floor(phi * nphi) + 1,
-    clamped to [1, nphi] (the bug-fixed semantics of the JAX package).
+    - interpolator/rational: 1-based phase index floor(phi * nphi) + 1,
+      clamped to [1, nphi] (the bug-fixed semantics of the JAX package);
+    - arbitrary: accumulator u = round(phi * nphi * 2^32)
+      (Filters.jl:216-222);
+    - Farrow: u = round(phi * (nphi - 1) * 2^32) (Filters.jl:224-229).
     """
     if not 0.0 <= phi <= 1.0:
         raise ValueError("phase must be in [0, 1]")
     if isinstance(params, (FIRInterpolator, FIRRational)):
         p = min(int(math.floor(phi * params.nphi)) + 1, params.nphi)
-        return FilterState(history=state.history, phase=p,
-                           deficit=state.deficit)
-    raise TypeError(f"setphase not supported for {type(params).__name__}")
+    elif isinstance(params, FIRArbitrary):
+        p = round(phi * params.nphi * PHASE_ONE)
+    elif isinstance(params, FIRFarrow):
+        p = round(phi * (params.nphi - 1) * PHASE_ONE)
+    else:
+        raise TypeError(
+            f"setphase not supported for {type(params).__name__}")
+    return FilterState(history=state.history, phase=p, deficit=state.deficit)
+
+
+def tapsforphase(params, phase: float) -> torch.Tensor:
+    """Taps for a (possibly fractional) 1-based phase index.
+
+    Arbitrary kernel: pfb[:, p] + alpha * dpfb[:, p] in float32, for phase
+    in [1, nphi + 1] (Filters.jl:677-690); Farrow kernel: the polynomial
+    fit evaluated in float64, for phase in [0, nphi + 1]
+    (Filters.jl:764-775). On the kernel's device.
+    """
+    if isinstance(params, FIRArbitrary):
+        if not 1 <= phase <= params.nphi + 1:
+            raise ValueError("phase must be in [1, nphi + 1]")
+        alpha, pidx = math.modf(phase)
+        pidx = int(pidx)
+        if pidx == params.nphi + 1:  # the right edge: bank nphi at alpha 1
+            pidx, alpha = params.nphi, 1.0
+        return params.pfb[:, pidx - 1] + alpha * params.dpfb[:, pidx - 1]
+    if isinstance(params, FIRFarrow):
+        if not 0 <= phase <= params.nphi + 1:
+            raise ValueError("phase must be in [0, nphi + 1]")
+        powers = float(phase) ** torch.arange(
+            params.polyorder + 1, dtype=torch.float64,
+            device=params.device)
+        return powers @ params.coeffs
+    raise TypeError(
+        f"tapsforphase not supported for {type(params).__name__}")
 
 
 def reset(filt_or_params, state: FilterState | None = None):

@@ -26,7 +26,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load_polyphase"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load_polyphase",
+           "load_resample"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -77,6 +78,21 @@ def load_polyphase() -> ctypes.CDLL:
     lib.mr_polyphase_f32.argtypes = [p, p, p, p, i64, i64, i32, i32, i32,
                                      i32, i64, i64, p]
     lib.mr_polyphase_f32.restype = i32
+    lib.mr_error_string.argtypes = [i32]
+    lib.mr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_resample() -> ctypes.CDLL:
+    """The arbitrary/Farrow kernel library (built at first use), argtypes
+    set."""
+    lib = ctypes.CDLL(str(build("resample")))
+    p, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
+                        ctypes.c_int)
+    lib.mr_resample_f32.argtypes = [p, p, p, p, i64, i64, i32, i32, i32,
+                                    u64, u64, i64, i64, i32, p]
+    lib.mr_resample_f32.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p
     return lib

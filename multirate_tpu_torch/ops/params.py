@@ -1,26 +1,29 @@
-"""Rational-family kernel parameters and the streaming FilterState.
+"""Kernel parameters and the streaming FilterState.
 
 Counterpart of ``multirate_tpu/ops/params.py``. The reference holds mutable
-kernel objects (Filters.jl:15-80) plus a ``FIRFilter`` wrapper with a
+kernel objects (Filters.jl:15-147) plus a ``FIRFilter`` wrapper with a
 mutable ``history`` vector (Filters.jl:151-155). Here a kernel is a frozen
-dataclass of one float32 filter-bank tensor plus static integers, and all
+dataclass of float32 filter-bank tensors plus static numbers, and all
 cross-call streaming state lives in a small ``FilterState``:
 
     y, count, state' = filt_block(params, state, x_block)
 
 What the JAX kernels carry only to feed TPU kernels is left out: the
 banded matrix ``k_super``, the zero-copy K stacks ``k_zc_hi``/``k_zc_lo``
-(441x264x640 bf16, twice, at the 147//160 headline) and the MXU grouping
-``sc_group``. The Hopper kernel computes every output straight from the
-polyphase bank, so nothing else is needed.
+(441x264x640 bf16, twice, at the 147//160 headline), the MXU grouping
+``sc_group`` and the arbitrary/Farrow tile plans ``gridsel_meta``,
+``ratgrid_meta`` and ``k_ratgrid``. The Hopper kernels compute every output
+straight from a polyphase bank, so nothing else is needed.
 
-Taps are stored as float32. Float64 and complex taps, the bf16/int8
-quantized modes and ``store_dtype`` are later slices (ROADMAP queue 1).
+Taps are stored as float32 (the Farrow fit also in float64). Complex taps,
+the bf16/int8 quantized modes and ``store_dtype`` are later slices
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -29,23 +32,34 @@ import torch
 from . import pfb as _pfb
 
 __all__ = [
+    "PHASE_FRAC_BITS", "PHASE_ONE",
     "FIRStandard", "FIRInterpolator", "FIRDecimator", "FIRRational",
+    "FIRArbitrary", "FIRFarrow",
     "FilterState", "init_state", "make_kernel",
 ]
 
-_ARB_TODO = ("arbitrary-rate and Farrow resampling are not ported yet "
-             "(ROADMAP queue 1, item 1: the arbitrary/Farrow slice)")
+# Fixed-point scale of the arbitrary/Farrow phase accumulator u: 32
+# fractional bits, so the interpolation factor alpha is exact to 2^-32.
+# indexing._muladd_divmod keeps every accumulator product exact, so the
+# only static bound is nphi << 32 and delta_fx below 2^44 (_delta_fx).
+PHASE_FRAC_BITS = 32
+PHASE_ONE = 1 << PHASE_FRAC_BITS
 
 
-def _host_taps(h) -> np.ndarray:
-    """Taps as a real float32 host array (the port's only tap dtype)."""
+def _real_taps(h) -> np.ndarray:
+    """Taps as a real host array in their own dtype."""
     if isinstance(h, torch.Tensor):
         h = h.detach().cpu().numpy()
     h = np.asarray(h)
     if np.iscomplexobj(h):
         raise NotImplementedError(
             "complex taps are not ported yet (ROADMAP queue 1, item 3)")
-    return h.astype(np.float32)
+    return h
+
+
+def _host_taps(h) -> np.ndarray:
+    """Taps as a real float32 host array (the port's bank dtype)."""
+    return _real_taps(h).astype(np.float32)
 
 
 def _device_of(h, device):
@@ -68,9 +82,11 @@ class _Kernel:
         return self.bank.device
 
     def to(self, device):
-        name = "pfb" if hasattr(self, "pfb") else "taps_rev"
-        return dataclasses.replace(
-            self, **{name: _to(getattr(self, name), device)})
+        """A copy with every tensor field on ``device``."""
+        moved = {f.name: _to(getattr(self, f.name), device)
+                 for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **moved)
 
     @property
     def h_min(self) -> int:
@@ -185,6 +201,137 @@ class FIRRational(_Kernel):
         return self.pfb
 
 
+def _delta_fx(nphi: int, rate: float) -> int:
+    """Phase step nphi/rate in exact int64 fixed point (Filters.jl:113)."""
+    from .indexing import ACCUM_OPERAND_BITS
+
+    dfx = round(nphi / rate * PHASE_ONE)
+    if dfx <= 0:
+        raise ValueError(f"rate {rate} too large for nphi {nphi}")
+    if (nphi << PHASE_FRAC_BITS) >= (1 << ACCUM_OPERAND_BITS) or \
+            dfx >= (1 << ACCUM_OPERAND_BITS):
+        raise ValueError(
+            f"nphi={nphi}, rate={rate} out of the exact-arithmetic range "
+            f"(need nphi <= 2048 and nphi/rate < 4096)")
+    return dfx
+
+
+def _check_rate(rate) -> float:
+    rate = float(rate)
+    if not rate > 0:
+        raise ValueError("rate must be greater than 0")
+    return rate
+
+
+@dataclasses.dataclass(frozen=True)
+class FIRArbitrary(_Kernel):
+    """Arbitrary real-rate resampler with a derivative filter bank
+    (reference: Filters.jl:84-117, after Harris sec. 7.6.1).
+
+    ``table`` stacks two (taps_per_phi, nphi) banks: ``pfb`` from h and
+    ``dpfb`` from dh = [diff(h); 0]. An output at phase p with fraction
+    alpha takes taps pfb[:, p] + alpha * dpfb[:, p]: first-order
+    interpolation that never needs the next input sample.
+    """
+
+    table: torch.Tensor  # (2, taps_per_phi, nphi): pfb, dpfb
+    nphi: int = 32
+    taps_per_phi: int = 0
+    rate: float = 1.0
+    delta_fx: int = 0  # nphi/rate in PHASE_FRAC_BITS fixed point
+
+    @classmethod
+    def create(cls, h, rate: float, nphi: int = 32,
+               device=None) -> "FIRArbitrary":
+        rate = _check_rate(rate)
+        dev = _device_of(h, device)
+        h = _real_taps(h)
+        dh = np.concatenate([np.diff(h), np.zeros(1, dtype=h.dtype)])
+        table = np.stack([_pfb.taps2pfb(h, nphi), _pfb.taps2pfb(dh, nphi)])
+        return cls(table=_to(table.astype(np.float32), dev), nphi=nphi,
+                   taps_per_phi=table.shape[1], rate=rate,
+                   delta_fx=_delta_fx(nphi, rate))
+
+    @property
+    def pfb(self) -> torch.Tensor:
+        return self.table[0]
+
+    @property
+    def dpfb(self) -> torch.Tensor:
+        return self.table[1]
+
+    @property
+    def bank(self) -> torch.Tensor:
+        return self.table
+
+
+def farrow_table(coeffs: np.ndarray, nphi: int) -> np.ndarray:
+    """The Farrow tap polynomials re-centred at each phase, in float64.
+
+    ``coeffs`` (P+1, T) gives tap t at the 1-based fractional phase psi as
+    sum_k coeffs[k, t] * psi^k. Returns (P+1, T, nphi) with
+    table[p, t, phi] = sum_{k >= p} coeffs[k, t] * binom(k, p) * (phi+1)^(k-p),
+    so tap t at psi = phi + 1 + alpha is sum_p table[p, t, phi] * alpha^p
+    for alpha in [0, 1): a short, well-conditioned polynomial the kernel
+    evaluates in float32 (Horner over psi up to nphi + 1 would cancel
+    terms of size psi^P).
+    """
+    coeffs = np.asarray(coeffs, np.float64)
+    P1 = coeffs.shape[0]
+    psi0 = np.arange(1, nphi + 1, dtype=np.float64)
+    table = np.zeros((P1, coeffs.shape[1], nphi))
+    for p in range(P1):
+        for k in range(p, P1):
+            table[p] += (math.comb(k, p) * coeffs[k][:, None]
+                         * psi0[None, :] ** (k - p))
+    return table
+
+
+@dataclasses.dataclass(frozen=True)
+class FIRFarrow(_Kernel):
+    """Farrow polynomial-interpolation resampler (reference:
+    Filters.jl:123-147).
+
+    Each bank tap row is fitted with a degree-``polyorder`` polynomial
+    across phases (pfb2pnfb, Filters.jl:311-321): ``coeffs`` (P+1, T),
+    kept in float64 as JAX keeps it. The kernel reads ``table``, the same
+    polynomials re-centred at each phase (``farrow_table``) in float32.
+    """
+
+    pfb: torch.Tensor     # (taps_per_phi, nphi) float32
+    coeffs: torch.Tensor  # (polyorder+1, taps_per_phi) float64 fit
+    table: torch.Tensor   # (polyorder+1, taps_per_phi, nphi) float32
+    nphi: int = 32
+    taps_per_phi: int = 0
+    rate: float = 1.0
+    delta_fx: int = 0
+    polyorder: int = 4
+
+    @classmethod
+    def create(cls, h, rate: float, nphi: int, polyorder: int,
+               device=None) -> "FIRFarrow":
+        rate = _check_rate(rate)
+        dev = _device_of(h, device)
+        bank = _pfb.taps2pfb(_real_taps(h), nphi)
+        return cls.from_fit(bank, _pfb.pfb2pnfb(bank, polyorder), nphi,
+                            rate, _delta_fx(nphi, rate), dev)
+
+    @classmethod
+    def from_fit(cls, pfb, coeffs, nphi: int, rate: float, delta_fx: int,
+                 device) -> "FIRFarrow":
+        """The kernel from a bank and its fit (the JAX kernel's fields)."""
+        coeffs = np.array(coeffs, np.float64)  # a copy: JAX's are read-only
+        table = farrow_table(coeffs, nphi).astype(np.float32)
+        return cls(pfb=_to(np.asarray(pfb, np.float32), device),
+                   coeffs=_to(coeffs, device), table=_to(table, device),
+                   nphi=nphi, taps_per_phi=coeffs.shape[1], rate=rate,
+                   delta_fx=delta_fx, polyorder=coeffs.shape[0] - 1)
+
+    @property
+    def bank(self) -> torch.Tensor:
+        return self.table
+
+
 @dataclasses.dataclass(frozen=True)
 class FilterState:
     """All cross-call streaming state.
@@ -193,7 +340,10 @@ class FilterState:
       zeros initially, shape (..., h_min) with the leading dims the
       channel dims (the reference's FIRFilter.history, Filters.jl:151-155).
     - ``phase``: Python int. For FIRRational the 1-based phase index of the
-      next output (Filters.jl:68); carried unchanged (0) otherwise.
+      next output (Filters.jl:68); for FIRArbitrary/FIRFarrow the
+      fixed-point accumulator u = (acc - 1) * 2^PHASE_FRAC_BITS in
+      [0, nphi << PHASE_FRAC_BITS) (Filters.jl:97, 131); carried
+      unchanged (0) otherwise.
     - ``deficit``: Python int, the 1-based index into the next input block
       of the first sample that produces an output (the reference's
       ``inputDeficit``, Filters.jl:543-547, 602-606).
@@ -222,19 +372,25 @@ def init_state(params, batch_shape=(), dtype=torch.float32,
                        deficit=1)
 
 
-def make_kernel(h, ratio=None, rate=None, device=None):
+def make_kernel(h, ratio=None, rate=None, nphi: int = 32, polyorder=None,
+                device=None):
     """Build the right kernel for a resampling spec.
 
     Dispatch mirrors the reference's FIRFilter constructors
     (Filters.jl:158-198): a rational ``ratio`` selects standard, decimator,
-    interpolator or rational by its shape. A real ``rate`` (arbitrary or
-    Farrow resampling) raises NotImplementedError until that slice is
-    ported. The bank lives on ``device``, by default the taps' device.
+    interpolator or rational by its shape; a real ``rate`` selects
+    FIRArbitrary, or FIRFarrow when ``polyorder`` is given. A float
+    ``ratio`` is a rate, as ``filt`` treats it. The banks live on
+    ``device``, by default the taps' device.
     """
     if (ratio is None) == (rate is None):
         raise ValueError("specify exactly one of ratio= or rate=")
-    if rate is not None or isinstance(ratio, float):
-        raise NotImplementedError(_ARB_TODO)
+    if isinstance(ratio, float):
+        ratio, rate = None, ratio
+    if rate is not None:
+        if polyorder is None:
+            return FIRArbitrary.create(h, rate, nphi, device=device)
+        return FIRFarrow.create(h, rate, nphi, polyorder, device=device)
     r = Fraction(*ratio) if isinstance(ratio, tuple) else Fraction(ratio)
     L, M = r.numerator, r.denominator
     if L == M == 1:

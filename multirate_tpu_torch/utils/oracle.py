@@ -3,8 +3,8 @@
 Behavioral reference: Multirate.jl src/NaiveResamplers.jl (the reference's
 own oracle module). Pure numpy on host, deliberately simple and slow:
 zero-stuff -> causal FIR -> downselect, plus the linear-interpolation walk for
-arbitrary rates. Copied from ``multirate_tpu/utils/oracle.py`` so the port
-needs no JAX; the Farrow-method oracle comes with the arbitrary/Farrow port.
+arbitrary rates, and the Farrow method in float64. Copied from
+``multirate_tpu/utils/oracle.py`` so the port needs no JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from fractions import Fraction
 
 import numpy as np
 
-__all__ = ["naivefilt", "causal_fir"]
+__all__ = ["naivefilt", "naivefilt_farrow", "causal_fir"]
 
 
 def causal_fir(h, x):
@@ -67,3 +67,35 @@ def naivefilt(h, x, resamplerate=Fraction(1, 1), numfilters: int = 32):
         xidx += int(math.floor(alpha)) + stride
         alpha = math.fmod(alpha, 1.0)
     return y[:yidx].copy()
+
+
+def naivefilt_farrow(h, x, rate: float, numfilters: int = 32,
+                     polyorder: int = 4):
+    """Float64 host oracle of the Farrow method itself.
+
+    The Farrow resampler evaluates a per-tap polynomial fit of the
+    filter bank (reference Filters.jl:123-147, 780-836); comparing its
+    output against the bank-interpolation oracle (``naivefilt``) measures
+    the polynomial fit error (~1e-3 for typical banks), not kernel
+    correctness. This oracle reproduces the polynomial method in float64
+    with the exact integer index walk, so kernels can be held to their
+    own numerical error.
+    """
+    from ..ops import indexing as idx
+    from ..ops import pfb as _pfb
+    from ..ops.params import _delta_fx
+
+    h64 = np.asarray(h, np.float64)
+    x64 = np.asarray(x, np.float64)
+    bank = _pfb.taps2pfb(h64, numfilters)
+    C = np.asarray(_pfb.pfb2pnfb(bank, polyorder), np.float64)  # (P1, T)
+    T = bank.shape[0]
+    dfx = _delta_fx(numfilters, float(rate))
+    n_max = idx.accum_count(numfilters, dfx, 0, 1, x64.shape[0])
+    inp, phi, frac = (v.numpy() for v in idx.accum_indices(
+        numfilters, dfx, 0, 1, n_max))
+    xext = np.concatenate([np.zeros(T - 1, np.float64), x64])
+    W = np.lib.stride_tricks.sliding_window_view(xext, T)[inp - 1]
+    psi = 1.0 + phi.astype(np.float64) + frac
+    powers = psi[:, None] ** np.arange(C.shape[0], dtype=np.float64)[None]
+    return np.sum(W * (powers @ C), axis=1)

@@ -1,4 +1,6 @@
-"""The CUDA polyphase kernel against its plain version on the card.
+"""The CUDA kernels against their plain versions on the card: polyphase
+(rational family) and resample (arbitrary rate and Farrow, channel-major
+and time-major).
 
 Marked ``gpu``: it skips without a CUDA device. It imports no JAX, so it
 runs on a machine with the card alone:
@@ -17,6 +19,7 @@ import torch
 
 import multirate_tpu_torch as mt
 from multirate_tpu_torch.ops.cuda import polyphase as pp
+from multirate_tpu_torch.ops.cuda import resample as rs
 
 TOL = 1e-5
 
@@ -45,6 +48,36 @@ def test_kernel_matches_plain_on_gpu(ratio, taps_per_phase):
     torch.cuda.synchronize()
     assert pp.launches == before + 1
     assert ck == cp == yk.shape[-1]
+    assert (sk.phase, sk.deficit) == (sp.phase, sp.deficit)
+    assert torch.equal(sk.history, sp.history)
+    assert float((yk - yp).abs().max()) <= TOL * float(yp.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("time_major", [False, True], ids=["cm", "tm"])
+@pytest.mark.parametrize("polyorder", [None, 4], ids=["arbitrary", "farrow"])
+@pytest.mark.parametrize("rate,nphi", [
+    (1 / 2.123456789, 32), (0.9173, 7), (1.0, 32), (2.5, 32),
+    (0.01, 32)])                 # spans that shrink the tile
+def test_resample_matches_plain_on_gpu(rate, nphi, polyorder, time_major):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(6)
+    h = rng.standard_normal(10 * nphi + 3).astype(np.float32)
+    p = mt.make_kernel(h, rate=rate, nphi=nphi, polyorder=polyorder,
+                       device="cuda")
+    x = torch.from_numpy(
+        rng.standard_normal((40, 30_011)).astype(np.float32)).cuda()
+    st = mt.setphase(p, mt.init_state(p, (40,)), 0.37)
+    _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
+    step = mt.filt_block_tm if time_major else mt.filt_block
+    xs = x.t().contiguous() if time_major else x
+    count = rs.launches_tm if time_major else rs.launches
+    yk, ck, sk = step(p, st, xs, path="kernel")
+    yp, cp, sp = step(p, st, xs, path="windows")
+    torch.cuda.synchronize()
+    assert (rs.launches_tm if time_major else rs.launches) == count + 1
+    assert ck == cp == yk.shape[0 if time_major else -1]
     assert (sk.phase, sk.deficit) == (sp.phase, sp.deficit)
     assert torch.equal(sk.history, sp.history)
     assert float((yk - yp).abs().max()) <= TOL * float(yp.abs().max())
