@@ -48,9 +48,40 @@ Then the same three steps for the arbitrary/Farrow path:
 5b. times of kernel and plain version for ``bench.py``'s six
    arbitrary/Farrow rows, as in phase 5.
 
-Then a JSON line of the kernels, the ``nvidia-smi`` name and power-limit
-line, and as the last line ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero without the last line. Imports nothing of JAX.
+Then the same three steps for the quantized modes of the rational family
+(``bench.py``'s rows ``rational_147_160_bf16``, ``rational_147_160_int8``
+and ``interp_4_1_bf16out``), which run the polyphase kernel's other
+instantiations:
+
+3c. each quantized entry point (bf16 in; int8 in; float32 in with bfloat16
+   or float16 stores; bf16 in with bfloat16 or float16 stores) against its
+   plain version, at the four filter types with the headline and short
+   taps, fresh and mid-phase, one channel and two channels at xlen 80007:
+   counts and states exact; bf16 outputs within 1e-5 * max|y|, int8
+   outputs equal, narrow stores within one ulp of the store type or
+   1e-5 * max|y| (float32 sums in another order, then rounded);
+4c. the three rows at full width: 8 M bf16 samples with bf16 headline
+   taps through ``filt`` (relative RMS against float64 ``naivefilt`` over
+   the same bf16 values <= 8e-5 on the first 200 000 outputs; the RMS
+   against the float64 design printed, no limit) and ``FIRFilter`` in
+   250 000-sample chunks; the same samples quantized to int8 through
+   ``filt`` (int32 outputs equal to the integer oracle on the first
+   200 000) and ``quant.QuantizedFIRFilter`` in chunks (bit-identical to
+   the whole block); ``firdes(147, 0.2, kaiser, beta=7.0)`` at 4//1 with
+   bfloat16 stores on the 8 M float32 samples (within one bf16 ulp of the
+   float32 kernel's output, chunked == whole); each entry point's launch
+   count around these runs equal to the number of blocks;
+5c. times of kernel and plain version for the three rows, as in phase 5
+   (the 4//1 row also with float32 stores), and of one PyTorch call
+   computing the same function where there is one
+   (``conv1d`` with TF32 off: the 4//1 row, and 1//1, 1//4 and 4//1 at
+   T = 24 beside phase 5's kernel times).
+
+Then a JSON line of the kernels (each with its bound: the larger of the
+bytes it must move over 3.35 TB/s and its multiply-adds over the card's
+peak for their type), the ``nvidia-smi`` name and power-limit line, and as
+the last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero without the last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -78,6 +109,10 @@ RATES = (R_REF, 0.4709, 0.9173, 1.0, 1.313, 2.5)
 N_CH, XLEN_CH = 64, 125_000  # bench.py's 64-channel rows: (64, 8 M / 64)
 TOL_ORACLE_ARB_REF = 1e-4    # arbitrary at R_REF: the dh wrap floor 7.8e-5
 TOL_TM = 1e-6                # time-major vs channel-major, rel. to max|y|
+# the H100 SXM's published rates (HBM3; dense float32, bf16 and int8
+# peaks), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 class SmokeFailure(Exception):
@@ -210,15 +245,16 @@ def phase_slice(mt, torch, dev, pp):
     x = torch.from_numpy(x_np).to(dev)
     n_want = mt.outputlength(N_HEAD, ratio)
 
-    pp.launches = 0
+    for k in pp.launches:
+        pp.launches[k] = 0
     y = mt.filt(h, x, ratio)
     f = mt.FIRFilter(h, ratio)
     parts = [f.filt(x[i:i + CHUNK]) for i in range(0, N_HEAD, CHUNK)]
     torch.cuda.synchronize()
-    launches = pp.launches
+    launches = pp.launches["f32"]
 
-    check(launches == 1 + len(parts),
-          f"kernel launched {launches} times, want {1 + len(parts)}")
+    check(launches == 1 + len(parts) == sum(pp.launches.values()),
+          f"kernel launched {pp.launches}, want f32 {1 + len(parts)}")
     check(y.device == x.device and y.dtype == torch.float32
           and tuple(y.shape) == (n_want,), f"filt gave {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "non-finite outputs")
@@ -243,7 +279,7 @@ def phase_slice(mt, torch, dev, pp):
           f"oracle rel RMS {rel:.3e} (limit {TOL_ORACLE}); FIRFilter "
           f"{len(parts)} chunks of {CHUNK}: chunked-vs-whole RMS "
           f"{rms_chunk:.3e} (limit {TOL_CHUNKED}); kernel launches {launches}")
-    return h, x, launches
+    return h, x, launches, ref
 
 
 def _time_ms(torch, fn, iters, reps=7, before=None):
@@ -304,7 +340,8 @@ def phase_times(mt, torch, h, x, pp, card):
           f"plain {plain_ms:.4f} ms ({N_HEAD / plain_ms / 1e3:.1f} Msps in);"
           f" max abs err {max_abs:.3e}; T=24 random taps: {'; '.join(geo)};"
           f" card: {card}")
-    return max_abs, ms, plain_ms
+    return max_abs, ms, plain_ms, _polyphase_bound(torch, args,
+                                                   torch.float32, "f32")
 
 
 def phase_resample_vs_plain(mt, torch, dev):
@@ -477,11 +514,346 @@ def phase_resample_times(mt, torch, x, x64, rs, card):
               f"{name}: kernel vs plain max abs err {max_abs:.3e}")
         ms = _time_ms(torch, lambda: kern(*args), iters=20)
         plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
-        out[name] = (max_abs, ms, plain_ms)
+        # x, history and table read once, outputs written once; each
+        # output takes T * (P + 1) multiply-adds (arbitrary: P = 1)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (xs, st.history, p.bank)) + C * n * 4
+        out[name] = (max_abs, ms, plain_ms,
+                     _bound(nbytes, C * n * p.bank.numel() // p.nphi,
+                            "f32"))
         notes.append(f"{name} kernel {ms:.4f} ms ({xs.numel() / ms / 1e3:.1f}"
                      f" Msps in), plain {plain_ms:.4f} ms, max abs err "
-                     f"{max_abs:.3e}")
+                     f"{max_abs:.3e}, bound {out[name][3][0]:.4f} ms "
+                     f"({out[name][3][1]})")
     print(f"[5b resample times] {'; '.join(notes)}; card: {card}")
+    return out
+
+
+def _bound(bytes_moved, mult_adds, kind):
+    """(bound_ms, bound_by): the least time for the work on the card, the
+    larger of the bytes over HBM_BYTES_PER_S and the operations (two per
+    multiply-add) over the peak rate of their type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * mult_adds / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _polyphase_bound(torch, args, out_dtype, kind):
+    """The bound of one polyphase call: x, hist and bank read once, the
+    output written once, T multiply-adds per output."""
+    x, hist, bank, *_, n = args
+    nbytes = sum(t.numel() * t.element_size() for t in (x, hist, bank))
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    return _bound(nbytes + x.shape[0] * n * out_size,
+                  x.shape[0] * n * bank.shape[0], kind)
+
+
+def _as_mode(mt, torch, a, dtype):
+    """Float32 samples or taps (numpy or a tensor) in a mode's storage
+    type: bf16 rounded, int8 quantized (max|a| -> 127), float32 as is."""
+    t = torch.as_tensor(a)
+    if dtype == torch.int8:
+        return mt.quant.quantize_signal(t)[0]
+    return t.to(dtype)
+
+
+def phase_quant_vs_plain(mt, torch, dev, pp):
+    from multirate_tpu_torch.utils.testing import ulps_apart
+
+    rng = np.random.default_rng(3)
+    h_head = headline_taps(mt)
+    h_short = (mt.firdes(24 * 5, 0.5 / 5, mt.kaiser, beta=7.8562) * 5
+               ).astype(np.float32)
+    specs = [("head", h_head, Fraction(147, 160)),
+             ("head", h_head, Fraction(1, 1)),
+             ("head", h_head, Fraction(4, 1)),
+             ("head", h_head, Fraction(1, 4)),
+             ("short", h_short, Fraction(3, 5)),
+             ("short", h_short, Fraction(1, 4)),
+             ("short", h_short, Fraction(4, 1)),
+             ("short", h_short, Fraction(1, 1))]
+    # entry point: (storage dtype of taps and signal, store_dtype)
+    modes = {"bf16": (torch.bfloat16, None),
+             "s8": (torch.int8, None),
+             "f32_bf16out": (torch.float32, torch.bfloat16),
+             "f32_f16out": (torch.float32, torch.float16),
+             "bf16_bf16out": (torch.bfloat16, torch.bfloat16),
+             "bf16_f16out": (torch.bfloat16, torch.float16)}
+    worst = dict.fromkeys(modes, 0.0)
+    n_cases = 0
+    for taps_name, h, ratio in specs:
+        for mode, (dtype, store) in modes.items():
+            params = mt.make_kernel(_as_mode(mt, torch, h, dtype),
+                                    ratio=ratio, device=dev,
+                                    store_dtype=store)
+            for lead, xlen in CASE_SHAPES:
+                x = _as_mode(mt, torch, rng.standard_normal(
+                    (*lead, xlen)).astype(np.float32), dtype).to(dev)
+                for entry in ("fresh", "mid"):
+                    case = f"{mode} {taps_name} {ratio} lead={lead} {entry}"
+                    st = mt.init_state(params, lead, dtype)
+                    if entry == "mid":
+                        if hasattr(params, "nphi"):
+                            st = mt.setphase(params, st, 0.37)
+                        _, _, st = mt.filt_block(params, st, x[..., :1237],
+                                                 path="windows")
+                    before = pp.launches[mode]
+                    yk, ck, sk = mt.filt_block(params, st, x, path="kernel")
+                    yp, cp, sp = mt.filt_block(params, st, x,
+                                               path="windows")
+                    torch.cuda.synchronize()
+                    check(pp.launches[mode] == before + 1,
+                          f"{case}: {mode} not launched once")
+                    check(ck == cp == yk.shape[-1] == yp.shape[-1]
+                          == mt.outputlength(params, xlen, state=st),
+                          f"{case}: counts differ")
+                    check((sk.phase, sk.deficit) == (sp.phase, sp.deficit)
+                          and torch.equal(sk.history, sp.history),
+                          f"{case}: states differ")
+                    check(yk.dtype == yp.dtype, f"{case}: dtypes differ")
+                    if dtype == torch.int8:
+                        err = float((yk - yp).abs().max())
+                        check(err == 0, f"{case}: int8 differs by {err}")
+                    elif store is None:
+                        check(bool(torch.isfinite(yk).all()),
+                              f"{case}: non-finite")
+                        err = (float((yk - yp).abs().max())
+                               / float(yp.abs().max()))
+                        check(err <= TOL_KERNEL, f"{case}: rel err {err:.3e}")
+                    else:  # float32 sums in another order, rounded
+                        err = ulps_apart(yk, yp, store, TOL_KERNEL
+                                         * float(yp.abs().max()))
+                        check(err <= 1, f"{case}: {err} ulps apart")
+                    worst[mode] = max(worst[mode], err)
+                    n_cases += 1
+    print(f"[3c quantized vs plain] {n_cases} cases, counts and states "
+          f"exact; worst: bf16 max|dy|/max|y| {worst['bf16']:.3e} (limit "
+          f"{TOL_KERNEL}), int8 max|dy| {worst['s8']:g} (limit 0), narrow "
+          f"stores in ulps of the store type: "
+          + ", ".join(f"{m} {worst[m]:g}" for m in modes
+                      if modes[m][1] is not None) + " (limit 1)")
+
+
+def phase_quant_slice(mt, torch, dev, pp, x, ref):
+    """bench.py's three quantized rows at full width; ``x`` is phase 4's
+    float32 block and ``ref`` its float64 oracle (the true design)."""
+    from multirate_tpu_torch.utils.oracle import naivefilt
+    from multirate_tpu_torch.utils.testing import ulps_apart
+
+    ratio = Fraction(147, 160)
+    h = headline_taps(mt)
+    hb = torch.from_numpy(h).bfloat16()
+    xb = x.bfloat16()
+    hq, s_h = mt.quant.quantize_taps(h)
+    xq, s_x = mt.quant.quantize_signal(x)
+    h147 = np.asarray(mt.firdes(147, 0.2, mt.kaiser, beta=7.0), np.float32)
+    p_out = mt.make_kernel(h147, ratio=Fraction(4, 1), device=dev,
+                           store_dtype=torch.bfloat16)
+    chunks = range(0, N_HEAD, CHUNK)
+
+    for k in pp.launches:
+        pp.launches[k] = 0
+    yb = mt.filt(hb, xb, ratio)
+    fb = mt.FIRFilter(hb, ratio, device=dev)
+    parts_b = [fb.filt(xb[i:i + CHUNK]) for i in chunks]
+    yq = mt.filt(hq, xq, ratio)
+    fq = mt.quant.QuantizedFIRFilter(h, ratio, x_scale=s_x, device=dev)
+    parts_q = [fq.filt(xq[i:i + CHUNK]) for i in chunks]
+    y16, _, _ = mt.filt_block(p_out, mt.init_state(p_out), x)
+    st, parts_o = mt.init_state(p_out), []
+    for i in chunks:
+        y, _, st = mt.filt_block(p_out, st, x[i:i + CHUNK])
+        parts_o.append(y)
+    torch.cuda.synchronize()
+    launches = dict(pp.launches)
+
+    blocks = 1 + len(chunks)
+    want = dict.fromkeys(pp.launches, 0)
+    want.update(bf16=blocks, s8=blocks, f32_bf16out=blocks)
+    check(launches == want, f"polyphase launches {launches}, want {want}")
+    n_want = mt.outputlength(N_HEAD, ratio)
+    t_end = n_want * 160
+    end = (t_end % 147 + 1, 1 + t_end // 147 - N_HEAD)
+    n_in = mt.inputlength(N_ORACLE, ratio)
+    notes = []
+
+    # rational_147_160_bf16
+    check(yb.dtype == torch.float32 and tuple(yb.shape) == (n_want,)
+          and bool(torch.isfinite(yb).all()), f"bf16 row: filt gave "
+          f"{yb.dtype} {tuple(yb.shape)}")
+    yc = torch.cat(parts_b)
+    check(tuple(yc.shape) == (n_want,) and (fb.state.phase, fb.state.deficit)
+          == end, "bf16 row: stream count or state")
+    d = yc.double() - yb.double()
+    rms_b = float(torch.sqrt(torch.mean(d * d)))
+    check(rms_b <= TOL_CHUNKED, f"bf16 row: chunked-vs-whole RMS {rms_b:.3e}")
+    ref_b = naivefilt(hb.double().numpy(), xb[:n_in].double().cpu().numpy(),
+                      ratio)[:N_ORACLE]
+    got_b = yb[:N_ORACLE].double().cpu().numpy()
+    rel_b = _rel_rms(got_b, ref_b)
+    check(rel_b <= TOL_ORACLE, f"bf16 row: oracle relative RMS {rel_b:.3e}")
+    notes.append(
+        f"rational_147_160_bf16 on {N_HEAD} -> {n_want}: oracle rel RMS "
+        f"{rel_b:.3e} (limit {TOL_ORACLE}) against the same bf16 values, "
+        f"{_rel_rms(got_b, ref):.3e} against the float64 design (the mode's "
+        f"quantization, no limit); {len(parts_b)} chunks: chunked-vs-whole "
+        f"RMS {rms_b:.3e}")
+
+    # rational_147_160_int8
+    check(yq.dtype == torch.int32 and tuple(yq.shape) == (n_want,),
+          f"int8 row: filt gave {yq.dtype} {tuple(yq.shape)}")
+    yqc = torch.cat(parts_q)
+    check(tuple(yqc.shape) == (n_want,) and (fq.state.phase,
+                                              fq.state.deficit) == end,
+          "int8 row: stream count or state")
+    check(torch.equal(yqc, yq.to(torch.float32) * fq.y_scale),
+          "int8 row: chunked QuantizedFIRFilter differs from the block")
+    ref_q = naivefilt(hq.astype(np.float64),
+                      xq[:n_in].double().cpu().numpy(), ratio)[:N_ORACLE]
+    got_q = yq[:N_ORACLE].cpu().numpy()
+    check(np.array_equal(got_q.astype(np.float64), ref_q),
+          "int8 row: int32 outputs differ from the integer oracle")
+    notes.append(
+        f"rational_147_160_int8 on {N_HEAD} -> {n_want}: int32 equal to the "
+        f"integer oracle on the first {N_ORACLE}; dequantized rel RMS "
+        f"{_rel_rms(got_q * (s_x * s_h), ref):.3e} against the float64 "
+        f"design (no limit); {len(parts_q)} chunks bit-identical")
+
+    # interp_4_1_bf16out
+    y32 = mt.filt(h147, x, Fraction(4, 1))
+    n_out = 4 * N_HEAD
+    check(y16.dtype == torch.bfloat16 and tuple(y16.shape) == (n_out,)
+          and bool(torch.isfinite(y16).all()),
+          f"bf16out row: gave {y16.dtype} {tuple(y16.shape)}")
+    ulps = ulps_apart(y16, y32, torch.bfloat16)
+    check(ulps <= 1, f"bf16out row: {ulps} bf16 ulps from float32")
+    n_diff = int((y16 != y32.to(torch.bfloat16)).sum())
+    check(torch.equal(torch.cat(parts_o), y16),
+          "bf16out row: chunked differs from the block")
+    notes.append(
+        f"interp_4_1_bf16out (T = {p_out.taps_per_phi}) on {N_HEAD} -> "
+        f"{n_out} bf16: {ulps:g} bf16 ulps at most from the float32 kernel "
+        f"(limit 1), {n_diff} outputs differ from its round to nearest; "
+        f"{len(parts_o)} chunks bit-identical")
+    print(f"[4c quantized slice] {'; '.join(notes)}; launches {launches}")
+    return {"bf16": launches["bf16"], "s8": launches["s8"],
+            "f32_bf16out": launches["f32_bf16out"]}
+
+
+def _conv_interp(torch, x2, bank, n):
+    """An L//1 interpolator on x2 (1, xlen) as one conv1d with L output
+    channels and an interleave (zero history): the PyTorch library
+    yardstick. Returns (1, n)."""
+    T, L = bank.shape
+    xext = torch.nn.functional.pad(x2, (T - 1, 0)).view(1, 1, -1)
+    w = bank.t().contiguous().view(L, 1, T)
+    y = torch.nn.functional.conv1d(xext, w)
+    return y[0].t().reshape(1, -1)[:, :n]
+
+
+def _conv_dec(torch, x2, bank, M, n):
+    """A 1//M decimator (or M = 1, the FIR) on x2 (1, xlen) as one strided
+    conv1d (zero history). Returns (1, n)."""
+    T = bank.shape[0]
+    xext = torch.nn.functional.pad(x2, (T - 1, 0)).view(1, 1, -1)
+    return torch.nn.functional.conv1d(xext, bank.view(1, 1, T),
+                                      stride=M).view(1, -1)[:, :n]
+
+
+def phase_quant_times(mt, torch, x, pp, card):
+    """bench.py's three quantized rows: kernel vs plain, and conv1d where
+    one PyTorch call computes the same function."""
+    from multirate_tpu_torch.ops.precision import fp32
+    from multirate_tpu_torch.utils.testing import ulps_apart
+
+    h = headline_taps(mt)
+    x1 = x.view(1, -1)
+    h147 = np.asarray(mt.firdes(147, 0.2, mt.kaiser, beta=7.0), np.float32)
+    p_b = mt.make_kernel(torch.from_numpy(h).bfloat16(), ratio=(147, 160),
+                         device=x.device)
+    p_q = mt.make_kernel(mt.quant.quantize_taps(h)[0], ratio=(147, 160),
+                         device=x.device)
+    p_o = mt.make_kernel(h147, ratio=4, device=x.device,
+                         store_dtype=torch.bfloat16)
+    xq = mt.quant.quantize_signal(x1)[0]
+    n_r = mt.outputlength(N_HEAD, Fraction(147, 160))
+    rows = (("rational_147_160_bf16", "bf16", x1.bfloat16(), p_b, 147, 160,
+             n_r, None),
+            ("rational_147_160_int8", "s8", xq, p_q, 147, 160, n_r, None),
+            ("interp_4_1_bf16out", "f32_bf16out", x1, p_o, 4, 1,
+             4 * N_HEAD, torch.bfloat16))
+    out, notes = {}, []
+    for name, entry, xs, p, L, M, n, store in rows:
+        hist = torch.zeros(1, p.h_min, dtype=xs.dtype, device=x.device)
+        args = (xs, hist, p.bank, L, M, 1, 1, n)
+        yk = pp.polyphase(*args, out_dtype=store)
+        yp = pp.polyphase_plain(*args, out_dtype=store)
+        torch.cuda.synchronize()
+        max_abs = float((yk.double() - yp.double()).abs().max())
+        if store is None:
+            check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
+                  f"{name}: kernel vs plain max abs err {max_abs:.3e}")
+        else:
+            check(ulps_apart(yk, yp, store, TOL_KERNEL
+                             * float(yp.abs().max())) <= 1,
+                  f"{name}: kernel vs plain beyond one ulp")
+        del yp
+        ms = _time_ms(torch, lambda: pp.polyphase(*args, out_dtype=store),
+                      iters=20)
+        plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(
+            *args, out_dtype=store), iters=2)
+        library_ms, wide = None, ""
+        if L == 4:
+            # the same row with float32 stores: what the narrow store saves
+            wide_ms = _time_ms(torch, lambda: pp.polyphase(*args), iters=20)
+            wide = f", with float32 stores {wide_ms:.4f} ms"
+
+            def lib():
+                with fp32():
+                    return _conv_interp(torch, x1, p.bank, n).to(store)
+            y_lib = lib()
+            check(ulps_apart(y_lib, yk, store, TOL_KERNEL * float(
+                yk.abs().max())) <= 1, f"{name}: conv1d disagrees")
+            del y_lib
+            library_ms = _time_ms(torch, lib, iters=5)
+        del yk
+        kind = {"bf16": "bf16", "s8": "int8"}.get(entry, "f32")
+        bound = _polyphase_bound(torch, args,
+                                 store or pp.ACCUMULATOR[xs.dtype], kind)
+        out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=library_ms)
+        notes.append(
+            f"{name} kernel {ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} Msps in)"
+            f"{wide}, plain {plain_ms:.4f} ms, library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+            f"bound {bound[0]:.4f} ms ({bound[1]}), max abs err {max_abs:.3e}")
+
+    # the library yardstick at phase 5's T = 24 geometries
+    g = torch.Generator(device=x.device).manual_seed(0)
+    lib_notes = []
+    for L, M in GEOMETRIES:
+        bank = torch.randn(24, L, generator=g, device=x.device)
+        hist = torch.zeros(1, 23, device=x.device)
+        n_g = mt.outputlength(N_HEAD, Fraction(L, M))
+        if L > 1:
+            def lib():
+                with fp32():
+                    return _conv_interp(torch, x1, bank, n_g)
+        else:
+            def lib():
+                with fp32():
+                    return _conv_dec(torch, x1, bank, M, n_g)
+        yk = pp.polyphase(x1, hist, bank, L, M, 1, 1, n_g)
+        err = float((lib() - yk).abs().max()) / float(yk.abs().max())
+        check(err <= TOL_KERNEL, f"conv1d {L}//{M} vs kernel {err:.3e}")
+        lib_ms = _time_ms(torch, lib, iters=5)
+        bound = _polyphase_bound(torch, (x1, hist, bank, L, M, 1, 1, n_g),
+                                 torch.float32, "f32")
+        lib_notes.append(f"{L}//{M} {lib_ms:.4f} ms (kernel bound "
+                         f"{bound[0]:.4f} ms, {bound[1]})")
+    print(f"[5c quantized times] {'; '.join(notes)}; conv1d (TF32 off) at "
+          f"T = 24 random taps: {'; '.join(lib_notes)}; card: {card}")
     return out
 
 
@@ -499,25 +871,33 @@ def main() -> int:
         phase_build()
         phase_kernel_vs_plain(mt, torch, dev)
         phase_resample_vs_plain(mt, torch, dev)
-        h, x, launches = phase_slice(mt, torch, dev, pp)
+        phase_quant_vs_plain(mt, torch, dev, pp)
+        h, x, launches, ref = phase_slice(mt, torch, dev, pp)
         xa, x64, rs_launches = phase_resample_slice(mt, torch, dev, rs)
-        max_abs, ms, plain_ms = phase_times(mt, torch, h, x, pp, card)
+        q_launches = phase_quant_slice(mt, torch, dev, pp, x, ref)
+        max_abs, ms, plain_ms, bound = phase_times(mt, torch, h, x, pp,
+                                                   card)
         rows = phase_resample_times(mt, torch, xa, x64, rs, card)
+        q_rows = phase_quant_times(mt, torch, x, pp, card)
         check("jax" not in sys.modules, "jax was imported")
     except Exception:  # the smoke's boundary: report and fail
         traceback.print_exc()
         print("FAIL", file=sys.stderr)
         return 1
     cm_rows = [r for r in rows if r != "farrow_64ch_tmajor"]
-    print(json.dumps({"kernels": [{
+    zc = "multirate_tpu/ops/pallas/rational2.py:836"
+    kernels = [{
         "name": "polyphase_f32",
         "route": "cuda",
         "source": "multirate_tpu_torch/csrc/polyphase.cu",
-        "replaces": "multirate_tpu/ops/pallas/rational2.py:836",
+        "replaces": zc,
         "launches": launches,
         "max_abs_err": max_abs,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
     }, {
         # times at the reference's harness rate; the other rows: phase 5b
         "name": "resample_f32",
@@ -533,6 +913,9 @@ def main() -> int:
         "max_abs_err": max(rows[r][0] for r in cm_rows),
         "ms": rows["arbitrary_refrate"][1],
         "plain_ms": rows["arbitrary_refrate"][2],
+        "bound_ms": rows["arbitrary_refrate"][3][0],
+        "bound_by": rows["arbitrary_refrate"][3][1],
+        "library_ms": None,
     }, {
         "name": "resample_tm_f32",
         "route": "cuda",
@@ -543,7 +926,20 @@ def main() -> int:
         "max_abs_err": rows["farrow_64ch_tmajor"][0],
         "ms": rows["farrow_64ch_tmajor"][1],
         "plain_ms": rows["farrow_64ch_tmajor"][2],
-    }]}))
+        "bound_ms": rows["farrow_64ch_tmajor"][3][0],
+        "bound_by": rows["farrow_64ch_tmajor"][3][1],
+        "library_ms": None,
+    }]
+    for entry, row, replaces in (
+            ("bf16", "rational_147_160_bf16",
+             f"{zc}, multirate_tpu/ops/pallas/rational2.py:181"),
+            ("s8", "rational_147_160_int8", zc),
+            ("f32_bf16out", "interp_4_1_bf16out", zc)):
+        kernels.append({"name": f"polyphase_{entry}", "route": "cuda",
+                        "source": "multirate_tpu_torch/csrc/polyphase.cu",
+                        "replaces": replaces,
+                        "launches": q_launches[entry], **q_rows[row]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

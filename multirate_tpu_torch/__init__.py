@@ -13,8 +13,14 @@ kernel (``ops/cuda/polyphase.py``, ``csrc/polyphase.cu``) and the
 arbitrary-rate and Farrow resamplers, channel-major (``filt_block``) or
 time-major (``filt_block_tm``), through another (``ops/cuda/resample.py``,
 ``csrc/resample.cu``) on CUDA tensors; CPU tensors run their plain PyTorch
-versions. The quantized modes, complex and float64 signals, streaming I/O
-and sharding are not ported yet (ROADMAP.md, queue 1).
+versions. The rational family also runs the quantized modes: bfloat16
+taps and signal (float32 outputs), int8 (exact int32 accumulators, with
+the helpers of ``quant``), and bfloat16 or float16 output stores
+(``make_kernel(..., store_dtype=)``). Complex and float64 signals,
+streaming I/O and sharding are not ported yet (ROADMAP.md, queue 1).
+
+Entry points run on the card unless the caller names the CPU
+(``device="cpu"``) or hands over CPU tensors.
 
 This package imports torch and numpy only, never JAX.
 """
@@ -55,6 +61,7 @@ from .ops import (
     nextphase,
     outputlength,
     polyfit,
+    quant,
     polyval,
     pfb2pnfb,
     reset,
@@ -76,5 +83,5 @@ __all__ = [
     "filt", "filt_block", "filt_block_tm", "init_state",
     "inputlength", "max_outputs",
     "nextphase", "outputlength", "polyfit", "polyval", "pfb2pnfb", "reset",
-    "setphase", "taps2pfb", "tapsforphase",
+    "setphase", "taps2pfb", "tapsforphase", "quant",
 ]

@@ -15,6 +15,12 @@ keeps the trailing ``h_min`` samples, which are all any output depends on.
 JAX kernel's ``history_len``. For the arbitrary/Farrow kernels the phase
 is the accumulator u and the histories have the same length on both
 sides.
+
+Rational-family banks and histories keep their bfloat16 or int8 type (the
+quantized modes), read through float32 where numpy holds bfloat16; any
+other type becomes float32. numpy has no bfloat16 of its own, so
+``state_to_jax`` hands a bfloat16 history back as float32 (exact), which
+a JAX block casts to its signal's type.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 
 from .ops.params import (FIRArbitrary, FIRDecimator, FIRFarrow,
                          FIRInterpolator, FIRRational, FIRStandard,
-                         FilterState)
+                         FilterState, default_device, storage_dtype,
+                         store_dtype_of, to_tensor)
 
 __all__ = ["params_from_jax", "state_from_jax", "state_to_jax"]
 
@@ -39,14 +46,17 @@ def params_from_jax(fields, device=None):
     kernel; ``pfb`` and ``coeffs`` with ``nphi``, ``rate`` and
     ``delta_fx`` for a Farrow kernel. ``delta_fx`` is taken as given, so
     both packages step the same accumulator. Other fields (the TPU K
-    stacks, ``sc_group``, the gridsel/ratgrid plans) are ignored. The
-    class follows the fields present, as the JAX classes' fields do.
+    stacks ``k_super``, ``k_zc_hi`` and ``k_zc_lo``, ``sc_group``, the
+    gridsel/ratgrid plans) are ignored. The class follows the fields
+    present, as the JAX classes' fields do. A rational-family bank keeps
+    its bfloat16 or int8 type, and ``store_dtype`` carries over. The
+    kernel lives on ``device``, by default the card.
     """
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = default_device() if device is None else torch.device(device)
 
     def bank(name):
-        return torch.as_tensor(np.array(fields[name], np.float32),
-                               device=dev)
+        t = to_tensor(fields[name], dev)
+        return t.to(storage_dtype(t.dtype)).contiguous()
 
     if "dpfb" in fields or "coeffs" in fields:
         nphi, rate = int(fields["nphi"]), float(fields["rate"])
@@ -60,38 +70,48 @@ def params_from_jax(fields, device=None):
                             nphi=nphi, taps_per_phi=pfb.shape[0], rate=rate,
                             delta_fx=dfx)
 
+    store = fields.get("store_dtype")
+    if isinstance(store, np.ndarray):  # np.asarray of None or of a dtype
+        store = store.item()
+    store = store_dtype_of(store)
     if "taps_rev" in fields:
         taps = bank("taps_rev")
         if "decimation" in fields:
             return FIRDecimator(taps_rev=taps, hlen=taps.shape[0],
-                                decimation=int(fields["decimation"]))
-        return FIRStandard(taps_rev=taps, hlen=taps.shape[0])
+                                decimation=int(fields["decimation"]),
+                                store_dtype=store)
+        return FIRStandard(taps_rev=taps, hlen=taps.shape[0],
+                           store_dtype=store)
     pfb = bank("pfb")
     L = int(fields["interpolation"])
     if "decimation" in fields:
         return FIRRational(pfb=pfb, interpolation=L,
                            decimation=int(fields["decimation"]),
-                           taps_per_phi=pfb.shape[0])
+                           taps_per_phi=pfb.shape[0], store_dtype=store)
     return FIRInterpolator(pfb=pfb, interpolation=L,
-                           taps_per_phi=pfb.shape[0])
+                           taps_per_phi=pfb.shape[0], store_dtype=store)
 
 
 def state_from_jax(params, history, phase, deficit) -> FilterState:
     """The port's state from a JAX state's (history, phase, deficit): the
-    trailing ``params.h_min`` history samples, on the kernel's device."""
-    history = np.asarray(history, np.float32)
+    trailing ``params.h_min`` history samples in their storage type
+    (bfloat16, int8, else float32), on the kernel's device."""
+    history = to_tensor(history)
     if history.shape[-1] < params.h_min:
         raise ValueError(f"history holds {history.shape[-1]} samples, the "
                          f"kernel needs {params.h_min}")
-    tail = np.array(history[..., history.shape[-1] - params.h_min:])
-    return FilterState(history=torch.as_tensor(tail, device=params.device),
+    tail = history[..., history.shape[-1] - params.h_min:]
+    tail = tail.to(params.device, storage_dtype(tail.dtype))
+    return FilterState(history=tail.contiguous(),
                        phase=int(phase), deficit=int(deficit))
 
 
 def state_to_jax(state: FilterState, history_len: int):
     """(history, phase, deficit) as numpy arrays for a JAX FilterState
-    whose kernel carries ``history_len`` samples."""
-    h = state.history.detach().cpu().numpy()
+    whose kernel carries ``history_len`` samples (a bfloat16 history as
+    float32)."""
+    h = state.history.detach().cpu()
+    h = (h.float() if h.dtype == torch.bfloat16 else h).numpy()
     if history_len < h.shape[-1]:
         raise ValueError(f"history_len {history_len} is shorter than the "
                          f"{h.shape[-1]} samples the filter needs")

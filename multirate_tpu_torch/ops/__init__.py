@@ -26,6 +26,7 @@ from .api import (
     nextphase,
     max_outputs,
 )
+from . import quant
 
 __all__ = [
     "FIRStandard", "FIRInterpolator", "FIRDecimator", "FIRRational",
@@ -34,5 +35,5 @@ __all__ = [
     "taps2pfb", "polyfit", "polyval", "pfb2pnfb",
     "filt", "filt_block", "filt_block_tm", "FIRFilter", "setphase", "reset",
     "tapsforphase",
-    "outputlength", "inputlength", "nextphase", "max_outputs",
+    "outputlength", "inputlength", "nextphase", "max_outputs", "quant",
 ]

@@ -11,8 +11,13 @@ of the block step:
     y, count, state = filt_block(params, state, x_block)
 
 The port runs where its tensors live. A torch input runs on its own
-device; a numpy input needs an explicit ``device=``. Nothing moves a GPU
-computation to the CPU.
+device; a numpy input runs on ``device=`` if one is given, else on the
+card. The CPU is used only when the caller names it (or hands over CPU
+tensors), and nothing moves a GPU computation to the CPU.
+
+Signals are float32, or bfloat16 and int8 for the quantized modes of the
+rational family (``ops/quant.py`` for the int8 helpers); ``make_kernel``'s
+``store_dtype`` narrows a rational-family kernel's outputs.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 from . import indexing as _idx
 from .compute import filt_block_raw, filt_block_tm_raw
 from .params import (PHASE_ONE, FIRArbitrary, FIRFarrow, FIRInterpolator,
-                     FIRRational, FilterState, init_state, make_kernel)
+                     FIRRational, FilterState, default_device, init_state,
+                     make_kernel, to_tensor)
 
 __all__ = [
     "filt", "filt_block", "filt_block_tm", "FIRFilter", "setphase", "reset",
@@ -52,15 +58,14 @@ def _kernel_for(h, ratio_or_rate, nphi, polyorder, device):
 
 
 def _as_signal(x, device) -> torch.Tensor:
-    """``x`` as a tensor on its device: a tensor stays where it is (and must
-    agree with ``device`` if one is given); a numpy array needs one."""
+    """``x`` as a tensor: a tensor stays where it is (and must agree with
+    ``device`` if one is given); a numpy array goes to ``device``, else to
+    the card."""
     if isinstance(x, torch.Tensor):
         if device is not None and x.device != torch.device(device):
             raise ValueError(f"x is on {x.device}, device={device!r} asked")
         return x
-    if device is None:
-        raise ValueError("a numpy input needs an explicit device=")
-    return torch.as_tensor(x, device=device)
+    return to_tensor(x, default_device() if device is None else device)
 
 
 def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
@@ -75,8 +80,9 @@ def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
     - ``filt(h, x, rate: float, nphi, polyorder)``: Farrow polynomial
       resampling (Filters.jl:870-873).
 
-    ``x`` is float32 with leading channel dims; time is the last axis.
-    Returns a float32 tensor on x's device.
+    ``x`` has leading channel dims; time is the last axis. float32 in gives
+    float32 out; bfloat16 taps and signal give float32, int8 taps and
+    signal int32 accumulators (the quantized modes). On x's device.
     """
     x = _as_signal(x, device)
     params = _kernel_for(h, ratio_or_rate, nphi, polyorder, x.device)
@@ -99,18 +105,20 @@ class FIRFilter:
     output (index decisions exactly; values to float32 reduction order).
 
     The stream runs on ``device`` if one is given, else on the device of
-    torch taps; with numpy taps and no ``device``, it runs where its first
-    chunk lies. A numpy chunk needs a ``device``.
+    torch taps; with numpy taps and no ``device``, on its first chunk's
+    device (a numpy chunk's: the card). Until then the kernel waits on the
+    CPU, where it was built.
     """
 
     def __init__(self, h, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
                  polyorder=None, device=None):
-        self.params = _kernel_for(h, ratio_or_rate, nphi, polyorder, device)
         # the device the stream is pinned to, if the caller named one
         # (explicitly or through torch taps); else its first chunk's
         self.device = (torch.device(device) if device is not None
                        else h.device if isinstance(h, torch.Tensor)
                        else None)
+        self.params = _kernel_for(h, ratio_or_rate, nphi, polyorder,
+                                  self.device or "cpu")
         self.state: FilterState | None = None
 
     @property
@@ -118,11 +126,13 @@ class FIRFilter:
         return None if self.state is None else self.state.history
 
     def _ensure_state(self, x):
-        if x.device != self.params.device:
-            if self.state is not None or self.device is not None:
-                raise ValueError(f"chunk is on {x.device}, the stream on "
-                                 f"{self.params.device}")
+        if self.device is None:  # the first chunk pins the stream
+            self.device = x.device
             self.params = self.params.to(x.device)
+            if self.state is not None:  # a setphase before the first chunk
+                self.state = FilterState(
+                    history=self.state.history.to(x.device),
+                    phase=self.state.phase, deficit=self.state.deficit)
         if self.state is None:
             self.state = init_state(self.params, x.shape[:-1], x.dtype)
         elif self.state.history.shape[:-1] != x.shape[:-1]:

@@ -20,6 +20,16 @@ The JAX package's other selectors (``gridsel``, ``winsel``, ``ratgrid``,
 ``slices``) choose TPU formulations of the same function and have no
 counterpart here.
 
+The rational family runs in the mode its operands set (JAX ``_out_dtype``,
+``compute.py:59-71`` there): bfloat16 taps with a bfloat16 signal run the
+bf16 mode (float32 outputs), int8 with int8 the int8 mode (exact int32
+outputs), and any other pair the float32 mode on upcast operands. A
+kernel's ``store_dtype`` is the output type: the float modes store it
+narrow in the kernel, the int8 mode casts its accumulators at the end, as
+JAX does outside its zero-copy path (``compute.py:1049-1056``). The
+carried history keeps the signal's type. The arbitrary/Farrow kernels
+take float32 signals only.
+
 Leading channel dims share one (phase, deficit) state, as in the JAX
 package, and run as one launch with channels on a grid dimension. There is
 no stream-concat of channels, so the JAX package's TPU batching fault (a
@@ -69,6 +79,17 @@ def _rational(params: FIRRational, state):
                         params.decimation, state.phase, state.deficit)
 
 
+def _polyphase(fn, store, x, hist, bank, L, M, phi0, d0, count):
+    """One polyphase block in the mode its operands set, stored as
+    ``store`` (the kernel's ``store_dtype``) if given."""
+    dt = x.dtype if x.dtype == bank.dtype else torch.float32
+    x, hist, bank = x.to(dt), hist.to(dt), bank.to(dt)
+    if dt == torch.int8:
+        y = fn(x, hist, bank, L, M, phi0, d0, count)
+        return y if store is None else y.to(store)
+    return fn(x, hist, bank, L, M, phi0, d0, count, out_dtype=store)
+
+
 def _accumulator(params, state):
     """FIRArbitrary and FIRFarrow: the kernel reads its taps' kind from
     ``params`` (JAX ``_arbitrary``/``_farrow``)."""
@@ -80,14 +101,14 @@ _IMPL = {FIRStandard: _standard, FIRInterpolator: _interpolator,
          FIRArbitrary: _accumulator, FIRFarrow: _accumulator}
 
 
-def _carry_history(params, state, x):
+def _carry_history(params, hist, x):
     """New history = trailing h_min samples of [old history ++ x]."""
     H = params.h_min
     xlen = x.shape[-1]
     if xlen >= H:
         tail = x[..., xlen - H:]
     else:
-        tail = torch.cat([state.history[..., xlen:], x], dim=-1)
+        tail = torch.cat([hist[..., xlen:], x], dim=-1)
     return tail.clone(memory_format=torch.contiguous_format)
 
 
@@ -100,14 +121,22 @@ def _pick_path(x, path: str) -> str:
     return path
 
 
+_SIGNAL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
 def _check(params, state, x, lead=None):
     """``lead``: the history's channel dims, by default x's leading dims."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x must be a torch.Tensor, got {type(x)}")
-    if x.dtype != torch.float32:
+    if x.dtype not in _SIGNAL_DTYPES:
         raise NotImplementedError(
-            f"signal dtype {x.dtype}: only float32 is ported (float64 and "
-            f"complex: ROADMAP queue 1, item 3; bf16/int8: item 2)")
+            f"signal dtype {x.dtype}: float32, bfloat16 and int8 are ported "
+            f"(float64 and complex: ROADMAP queue 1, item 3)")
+    if x.dtype != torch.float32 and isinstance(params, (FIRArbitrary,
+                                                        FIRFarrow)):
+        raise NotImplementedError(
+            f"{x.dtype} signals at an arbitrary rate are not ported yet "
+            f"(ROADMAP queue 1): the arbitrary/Farrow kernels take float32")
     for name, dev in (("kernel bank", params.device),
                       ("state history", state.history.device)):
         if dev != x.device:
@@ -134,10 +163,16 @@ def filt_block_raw(params, state: FilterState, x, path: str = "auto"):
     count, phase, deficit = idx.host_carry(params, state.phase,
                                            state.deficit, x.shape[-1])
     C = math.prod(lead)
+    # the history takes the signal's type, as JAX's [history ++ x] does
+    hist = state.history.to(x.dtype)
     x2 = x.reshape(C, x.shape[-1]).contiguous()
-    h2 = state.history.reshape(C, params.h_min).contiguous()
-    y = paths[path](x2, h2, *geometry, count)
-    new_state = FilterState(history=_carry_history(params, state, x),
+    h2 = hist.reshape(C, params.h_min).contiguous()
+    if paths is _POLYPHASE:
+        y = _polyphase(paths[path], params.store_dtype, x2, h2, *geometry,
+                       count)
+    else:
+        y = paths[path](x2, h2, *geometry, count)
+    new_state = FilterState(history=_carry_history(params, hist, x),
                             phase=phase, deficit=deficit)
     return y.reshape(*lead, count), count, new_state
 

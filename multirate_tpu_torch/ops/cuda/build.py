@@ -72,12 +72,16 @@ def build(name: str) -> Path:
 
 @functools.cache
 def load_polyphase() -> ctypes.CDLL:
-    """The polyphase kernel library (built at first use), argtypes set."""
+    """The polyphase kernel library (built at first use), argtypes set for
+    each entry point ``mr_polyphase_<name>`` of ``polyphase.ENTRIES``."""
+    from .polyphase import ENTRIES
+
     lib = ctypes.CDLL(str(build("polyphase")))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.mr_polyphase_f32.argtypes = [p, p, p, p, i64, i64, i32, i32, i32,
-                                     i32, i64, i64, p]
-    lib.mr_polyphase_f32.restype = i32
+    for name in ENTRIES.values():
+        fn = getattr(lib, f"mr_polyphase_{name}")
+        fn.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i64, i64, p]
+        fn.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p
     return lib

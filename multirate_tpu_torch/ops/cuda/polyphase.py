@@ -1,4 +1,4 @@
-"""The polyphase kernel: its wrapper, its launch count and its plain version.
+"""The polyphase kernel: its wrapper, its launch counts and its plain version.
 
 ``polyphase`` computes, for every channel c and output n < n_out,
 
@@ -8,12 +8,24 @@
 with xext = [hist ++ x] and hist the trailing T - 1 samples. This is what
 the TPU kernel ``multirate_tpu/ops/pallas/rational2.py``
 ``rational_supercycle_zc`` computes for the rational family, and the
-float32 real case of ``rational_supercycle_grouped`` and
-``multirate_tpu/ops/pallas/rational.py`` ``rational_supercycle_pallas``.
-On a CUDA tensor it launches the hand-written kernel in
-``csrc/polyphase.cu`` (see its header for the design and what bounds it);
-on a CPU tensor it runs ``polyphase_plain``, the same function in plain
-PyTorch. There is no fallback from one to the other.
+float32 and bf16 cases of ``rational_supercycle_grouped`` and the float32
+real case of ``multirate_tpu/ops/pallas/rational.py``
+``rational_supercycle_pallas``.
+
+x, hist and bank share one storage type, which sets the mode (JAX
+``compute._out_dtype``):
+
+- float32: float32 products and sums;
+- bfloat16: exact bf16 products summed in float32, float32 output (the
+  TPU's single bf16 pass with f32 accumulation);
+- int8: exact int32 accumulators, int32 output.
+
+``out_dtype`` stores the float modes' output narrow (bfloat16 or float16,
+round to nearest even: JAX ``store_dtype``). On a CUDA tensor the wrapper
+launches the hand-written kernel in ``csrc/polyphase.cu`` (see its header
+for the design and what bounds it), one entry point per (storage, output)
+pair; on a CPU tensor it runs ``polyphase_plain``, the same function in
+plain PyTorch. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -22,34 +34,63 @@ import torch
 
 from ..indexing import rational_indices
 from ..precision import fp32
+from .build import load_polyphase
 
 __all__ = ["polyphase", "polyphase_plain", "launches"]
 
-# Kernel launches made by ``polyphase`` in this process. It grows by one
-# where the kernel is launched and nowhere else; a caller may reset it.
-launches = 0
+# The kernel's entry point (``mr_polyphase_<name>``, one instantiation of
+# csrc/polyphase.cu) for each (storage, output) dtype pair, and each
+# storage type's accumulator (its default output).
+ENTRIES = {
+    (torch.float32, torch.float32): "f32",
+    (torch.bfloat16, torch.float32): "bf16",
+    (torch.int8, torch.int32): "s8",
+    (torch.float32, torch.bfloat16): "f32_bf16out",
+    (torch.float32, torch.float16): "f32_f16out",
+    (torch.bfloat16, torch.bfloat16): "bf16_bf16out",
+    (torch.bfloat16, torch.float16): "bf16_f16out",
+}
+ACCUMULATOR = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
+               torch.int8: torch.int32}
+
+# Kernel launches made by ``polyphase`` in this process, by entry point.
+# Each grows by one where its kernel is launched and nowhere else; a caller
+# may reset them.
+launches = dict.fromkeys(ENTRIES.values(), 0)
 
 _LIMIT = 1 << 20  # L and M bound: keeps in-tile offsets inside int32
 
 
 def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
-                    n_out: int) -> torch.Tensor:
+                    n_out: int, out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version: int64 index vectors, a window gather and a
-    float32 einsum. Runs on any device; arguments as for ``polyphase``."""
+    contraction. Float modes widen to float32 and contract with an einsum
+    under ``fp32()`` (bf16 products are exact in float32); int8 widens to
+    int32 and sums exact products (an int8 einsum would wrap in int8, and
+    the card has no integer matmul). Runs on any device; arguments as for
+    ``polyphase``."""
     T = bank.shape[0]
     xext = torch.cat([hist, x], dim=-1)
     inp, phi = rational_indices(L, M, phi0, d0, n_out, device=x.device)
     ind = (inp - 1)[:, None] + torch.arange(T, device=x.device)[None, :]
     windows = xext[:, ind]                        # (C, n_out, T)
     taps = bank.t()[phi]                          # (n_out, T)
-    with fp32():
-        return torch.einsum("cnt,nt->cn", windows, taps)
+    if x.dtype == torch.int8:
+        y = (windows.to(torch.int32) * taps.to(torch.int32)).sum(
+            -1, dtype=torch.int32)
+    else:
+        with fp32():
+            y = torch.einsum("cnt,nt->cn", windows.float(), taps.float())
+    return y if out_dtype is None else y.to(out_dtype)
 
 
-def _check(x, hist, bank, L, M, phi0, d0, n_out):
+def _check(x, hist, bank, L, M, phi0, d0, n_out, out_dtype):
+    if (x.dtype, out_dtype) not in ENTRIES:
+        raise TypeError(f"no polyphase kernel for {x.dtype} samples with "
+                        f"{out_dtype} outputs")
     for name, t in (("x", x), ("hist", hist), ("bank", bank)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -73,34 +114,37 @@ def _check(x, hist, bank, L, M, phi0, d0, n_out):
 
 
 def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
-              n_out: int) -> torch.Tensor:
+              n_out: int, out_dtype=None) -> torch.Tensor:
     """y (C, n_out) from x (C, xlen), hist (C, T-1) and bank (T, L).
 
-    All float32 and contiguous on one device; (phi0, d0) is the 1-based
-    entry phase and deficit, and n_out the exact output count
-    (``indexing.host_carry``). Raises on anything the kernel does not take.
+    x, hist and bank are float32, bfloat16 or int8, one type, contiguous on
+    one device; (phi0, d0) is the 1-based entry phase and deficit, and
+    n_out the exact output count (``indexing.host_carry``). ``out_dtype``
+    is the output type, by default the accumulator's (float32, or int32
+    for int8); the float modes also store bfloat16 or float16. Raises on
+    anything the kernel does not take.
     """
-    global launches
-    _check(x, hist, bank, L, M, phi0, d0, n_out)
+    if x.dtype not in ACCUMULATOR:
+        raise TypeError(f"no polyphase kernel for {x.dtype} samples")
+    out_dtype = ACCUMULATOR[x.dtype] if out_dtype is None else out_dtype
+    _check(x, hist, bank, L, M, phi0, d0, n_out, out_dtype)
     if x.device.type == "cpu":
-        return polyphase_plain(x, hist, bank, L, M, phi0, d0, n_out)
+        return polyphase_plain(x, hist, bank, L, M, phi0, d0, n_out,
+                               out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no polyphase kernel for device {x.device}")
-    y = torch.empty((x.shape[0], n_out), dtype=torch.float32,
-                    device=x.device)
+    y = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
-    from .build import load_polyphase
-
-    lib = load_polyphase()
+    name = ENTRIES[x.dtype, out_dtype]
+    entry = getattr(load_polyphase(), f"mr_polyphase_{name}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mr_polyphase_f32(
-            x.data_ptr(), hist.data_ptr(), bank.data_ptr(), y.data_ptr(),
-            x.shape[0], x.shape[1], bank.shape[0], L, M, phi0, d0, n_out,
-            stream)
+        err = entry(x.data_ptr(), hist.data_ptr(), bank.data_ptr(),
+                    y.data_ptr(), x.shape[0], x.shape[1], bank.shape[0], L,
+                    M, phi0, d0, n_out, stream)
     if err != 0:
         raise RuntimeError("polyphase kernel launch failed: "
-                           + lib.mr_error_string(err).decode())
-    launches += 1
+                           + load_polyphase().mr_error_string(err).decode())
+    launches[name] += 1
     return y

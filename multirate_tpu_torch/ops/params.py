@@ -15,9 +15,14 @@ banded matrix ``k_super``, the zero-copy K stacks ``k_zc_hi``/``k_zc_lo``
 ``ratgrid_meta`` and ``k_ratgrid``. The Hopper kernels compute every output
 straight from a polyphase bank, so nothing else is needed.
 
-Taps are stored as float32 (the Farrow fit also in float64). Complex taps,
-the bf16/int8 quantized modes and ``store_dtype`` are later slices
-(ROADMAP queue 1).
+Rational-family banks keep the taps' storage type: float32, or bfloat16
+and int8 for the quantized modes (``ops/quant.py``); any other real type
+becomes float32. Their kernels may also carry a narrow ``store_dtype``
+for their outputs. The arbitrary and Farrow banks are float32 (the Farrow
+fit also float64). Complex taps are a later slice (ROADMAP queue 1).
+
+A kernel lives on the device it is given, else on the device of torch
+taps, else on the card (``default_device``): the CPU only when named.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ __all__ = [
     "PHASE_FRAC_BITS", "PHASE_ONE",
     "FIRStandard", "FIRInterpolator", "FIRDecimator", "FIRRational",
     "FIRArbitrary", "FIRFarrow",
-    "FilterState", "init_state", "make_kernel",
+    "FilterState", "init_state", "make_kernel", "default_device",
+    "to_tensor", "storage_dtype", "store_dtype_of",
 ]
 
 # Fixed-point scale of the arbitrary/Farrow phase accumulator u: 32
@@ -46,32 +52,84 @@ PHASE_FRAC_BITS = 32
 PHASE_ONE = 1 << PHASE_FRAC_BITS
 
 
+def default_device() -> torch.device:
+    """The device of a computation whose caller named none: the card. The
+    CPU is used only when the caller names it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda")
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A tensor as it is, or a numpy array as a tensor in its own dtype, on
+    ``device`` if one is given. numpy has no bfloat16 of its own: an array
+    whose ``dtype.name`` is "bfloat16" (as JAX hands them over) converts
+    through float32, which holds its values exactly."""
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return t if device is None else t.to(device)
+
+
+_QUANTIZED = (torch.bfloat16, torch.int8)
+_STORE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def storage_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a bank or history of ``dtype`` values is stored in:
+    bfloat16 and int8 (the quantized modes) stay, any other real type
+    becomes float32."""
+    return dtype if dtype in _QUANTIZED else torch.float32
+
+
+def store_dtype_of(sd):
+    """A ``store_dtype`` as a torch dtype: None, or bfloat16 or float16
+    named by a torch or numpy dtype (JAX's) or a string."""
+    if sd is None:
+        return None
+    if isinstance(sd, torch.dtype):
+        name = str(sd).removeprefix("torch.")
+    else:
+        name = sd if isinstance(sd, str) else np.dtype(sd).name
+    if name not in _STORE_DTYPES:
+        raise ValueError(f"store_dtype {sd!r}: bfloat16 or float16 only")
+    return _STORE_DTYPES[name]
+
+
 def _real_taps(h) -> np.ndarray:
-    """Taps as a real host array in their own dtype."""
-    if isinstance(h, torch.Tensor):
-        h = h.detach().cpu().numpy()
-    h = np.asarray(h)
-    if np.iscomplexobj(h):
+    """Taps as a real host array in their own dtype (bfloat16 as float32)."""
+    t = to_tensor(h).detach().cpu()
+    if t.is_complex():
         raise NotImplementedError(
             "complex taps are not ported yet (ROADMAP queue 1, item 3)")
-    return h
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _host_taps(h) -> np.ndarray:
-    """Taps as a real float32 host array (the port's bank dtype)."""
-    return _real_taps(h).astype(np.float32)
+def _host_taps(h):
+    """(host taps, bank dtype): the taps' storage type, and the taps as a
+    float32 host array (int8 for int8; bfloat16 values ride in float32
+    exactly)."""
+    t = to_tensor(h)
+    dtype = storage_dtype(t.dtype)
+    host = _real_taps(t)
+    return host.astype(np.int8 if dtype == torch.int8 else np.float32), dtype
 
 
 def _device_of(h, device):
     """The device a kernel's bank lives on: ``device`` if given, else the
-    taps' own device (the CPU for numpy taps, as ``torch.as_tensor``)."""
+    taps' own device for torch taps, else the card."""
     if device is not None:
         return torch.device(device)
-    return h.device if isinstance(h, torch.Tensor) else torch.device("cpu")
+    return h.device if isinstance(h, torch.Tensor) else default_device()
 
 
-def _to(t: torch.Tensor, device) -> torch.Tensor:
-    return torch.as_tensor(t, device=device).contiguous()
+def _to(t, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=dtype, device=device).contiguous()
 
 
 class _Kernel:
@@ -108,12 +166,14 @@ class FIRStandard(_Kernel):
 
     taps_rev: torch.Tensor
     hlen: int = 0
+    store_dtype: torch.dtype | None = None  # narrow outputs (make_kernel)
 
     @classmethod
     def create(cls, h, device=None) -> "FIRStandard":
-        dev = _device_of(h, device)
-        h = _host_taps(h)
-        return cls(taps_rev=_to(h[::-1].copy(), dev), hlen=h.shape[0])
+        taps, dtype = _host_taps(h)
+        return cls(taps_rev=_to(taps[::-1].copy(), _device_of(h, device),
+                                dtype),
+                   hlen=taps.shape[0])
 
     @property
     def taps_per_phi(self) -> int:
@@ -131,13 +191,14 @@ class FIRInterpolator(_Kernel):
     pfb: torch.Tensor  # (taps_per_phi, L), rows time-flipped
     interpolation: int = 1
     taps_per_phi: int = 0
+    store_dtype: torch.dtype | None = None
 
     @classmethod
     def create(cls, h, interpolation: int, device=None) -> "FIRInterpolator":
-        dev = _device_of(h, device)
-        bank = _pfb.taps2pfb(_host_taps(h), interpolation)
-        return cls(pfb=_to(bank, dev), interpolation=interpolation,
-                   taps_per_phi=bank.shape[0])
+        taps, dtype = _host_taps(h)
+        bank = _pfb.taps2pfb(taps, interpolation)
+        return cls(pfb=_to(bank, _device_of(h, device), dtype),
+                   interpolation=interpolation, taps_per_phi=bank.shape[0])
 
     @property
     def nphi(self) -> int:
@@ -155,13 +216,14 @@ class FIRDecimator(_Kernel):
     taps_rev: torch.Tensor
     hlen: int = 0
     decimation: int = 1
+    store_dtype: torch.dtype | None = None
 
     @classmethod
     def create(cls, h, decimation: int, device=None) -> "FIRDecimator":
-        dev = _device_of(h, device)
-        h = _host_taps(h)
-        return cls(taps_rev=_to(h[::-1].copy(), dev), hlen=h.shape[0],
-                   decimation=decimation)
+        taps, dtype = _host_taps(h)
+        return cls(taps_rev=_to(taps[::-1].copy(), _device_of(h, device),
+                                dtype),
+                   hlen=taps.shape[0], decimation=decimation)
 
     @property
     def taps_per_phi(self) -> int:
@@ -183,14 +245,16 @@ class FIRRational(_Kernel):
     interpolation: int = 1  # L
     decimation: int = 1     # M
     taps_per_phi: int = 0
+    store_dtype: torch.dtype | None = None
 
     @classmethod
     def create(cls, h, interpolation: int, decimation: int,
                device=None) -> "FIRRational":
-        dev = _device_of(h, device)
-        bank = _pfb.taps2pfb(_host_taps(h), interpolation)
-        return cls(pfb=_to(bank, dev), interpolation=interpolation,
-                   decimation=decimation, taps_per_phi=bank.shape[0])
+        taps, dtype = _host_taps(h)
+        bank = _pfb.taps2pfb(taps, interpolation)
+        return cls(pfb=_to(bank, _device_of(h, device), dtype),
+                   interpolation=interpolation, decimation=decimation,
+                   taps_per_phi=bank.shape[0])
 
     @property
     def nphi(self) -> int:
@@ -244,11 +308,12 @@ class FIRArbitrary(_Kernel):
     def create(cls, h, rate: float, nphi: int = 32,
                device=None) -> "FIRArbitrary":
         rate = _check_rate(rate)
-        dev = _device_of(h, device)
-        h = _real_taps(h)
-        dh = np.concatenate([np.diff(h), np.zeros(1, dtype=h.dtype)])
-        table = np.stack([_pfb.taps2pfb(h, nphi), _pfb.taps2pfb(dh, nphi)])
-        return cls(table=_to(table.astype(np.float32), dev), nphi=nphi,
+        taps = _real_taps(h)
+        dh = np.concatenate([np.diff(taps), np.zeros(1, dtype=taps.dtype)])
+        table = np.stack([_pfb.taps2pfb(taps, nphi),
+                          _pfb.taps2pfb(dh, nphi)])
+        return cls(table=_to(table.astype(np.float32),
+                             _device_of(h, device)), nphi=nphi,
                    taps_per_phi=table.shape[1], rate=rate,
                    delta_fx=_delta_fx(nphi, rate))
 
@@ -311,10 +376,10 @@ class FIRFarrow(_Kernel):
     def create(cls, h, rate: float, nphi: int, polyorder: int,
                device=None) -> "FIRFarrow":
         rate = _check_rate(rate)
-        dev = _device_of(h, device)
         bank = _pfb.taps2pfb(_real_taps(h), nphi)
         return cls.from_fit(bank, _pfb.pfb2pnfb(bank, polyorder), nphi,
-                            rate, _delta_fx(nphi, rate), dev)
+                            rate, _delta_fx(nphi, rate),
+                            _device_of(h, device))
 
     @classmethod
     def from_fit(cls, pfb, coeffs, nphi: int, rate: float, delta_fx: int,
@@ -373,7 +438,7 @@ def init_state(params, batch_shape=(), dtype=torch.float32,
 
 
 def make_kernel(h, ratio=None, rate=None, nphi: int = 32, polyorder=None,
-                device=None):
+                device=None, store_dtype=None):
     """Build the right kernel for a resampling spec.
 
     Dispatch mirrors the reference's FIRFilter constructors
@@ -381,22 +446,32 @@ def make_kernel(h, ratio=None, rate=None, nphi: int = 32, polyorder=None,
     interpolator or rational by its shape; a real ``rate`` selects
     FIRArbitrary, or FIRFarrow when ``polyorder`` is given. A float
     ``ratio`` is a rate, as ``filt`` treats it. The banks live on
-    ``device``, by default the taps' device.
+    ``device``, else on torch taps' own device, else on the card.
+
+    ``store_dtype`` (rational family only, JAX ``params.py:517-561``):
+    bfloat16 or float16 outputs, computed at full precision and rounded
+    once to nearest even when stored.
     """
     if (ratio is None) == (rate is None):
         raise ValueError("specify exactly one of ratio= or rate=")
     if isinstance(ratio, float):
         ratio, rate = None, ratio
     if rate is not None:
+        if store_dtype is not None:
+            raise ValueError(
+                "store_dtype applies to the rational family only")
         if polyorder is None:
             return FIRArbitrary.create(h, rate, nphi, device=device)
         return FIRFarrow.create(h, rate, nphi, polyorder, device=device)
+    store = store_dtype_of(store_dtype)
     r = Fraction(*ratio) if isinstance(ratio, tuple) else Fraction(ratio)
     L, M = r.numerator, r.denominator
     if L == M == 1:
-        return FIRStandard.create(h, device=device)
-    if L == 1:
-        return FIRDecimator.create(h, M, device=device)
-    if M == 1:
-        return FIRInterpolator.create(h, L, device=device)
-    return FIRRational.create(h, L, M, device=device)
+        p = FIRStandard.create(h, device=device)
+    elif L == 1:
+        p = FIRDecimator.create(h, M, device=device)
+    elif M == 1:
+        p = FIRInterpolator.create(h, L, device=device)
+    else:
+        p = FIRRational.create(h, L, M, device=device)
+    return dataclasses.replace(p, store_dtype=store)

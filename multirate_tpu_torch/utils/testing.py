@@ -2,14 +2,38 @@
 
 The reference's custom vector isapprox reports the index of the first
 failing element (runtests.jl:18-35); these helpers do the same, plus dump a
-side-by-side neighborhood for debugging.
+side-by-side neighborhood for debugging. ``ulps_apart`` measures narrow
+(bfloat16, float16) outputs in units of their own spacing.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["first_divergence", "assert_close", "rms"]
+__all__ = ["first_divergence", "assert_close", "rms", "ulps_apart"]
+
+# significant bits and the exponent of the smallest spacing (subnormal)
+_SPACING = {torch.bfloat16: (8, -133), torch.float16: (11, -24)}
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor, dtype,
+               floor: float = 0.0) -> float:
+    """The largest |a - b| in ulps of ``dtype`` (torch.bfloat16 or
+    torch.float16), the spacing at the larger of |a| and |b|: at most 1
+    where both are the same value rounded apart once. ``floor`` is the
+    least spacing counted, so that outputs near zero, whose accumulators
+    were summed in another order, are held to the accumulator's own
+    tolerance (an absolute ``floor``) rather than to their tiny ulp."""
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0.0
+    bits, tiny = _SPACING[dtype]
+    a, b = a.double(), b.double()
+    exp = torch.frexp(torch.maximum(a.abs(), b.abs())).exponent
+    ulp = torch.ldexp(torch.ones_like(a), torch.clamp(exp - bits, min=tiny))
+    return float(((a - b).abs() / ulp.clamp(min=floor)).max())
 
 
 def rms(a, b) -> float:

@@ -99,7 +99,8 @@ def test_accum_indices_past_int64_wrap():
     # nphi 1024 at rate 0.3: delta_fx is near 2^43.7, so n * delta_fx
     # wraps int64 near n = 2^19.3; the long division stays exact
     nphi, rate = 1024, 0.3
-    p = mt.make_kernel(np.ones(2048, np.float32), rate=rate, nphi=nphi)
+    p = mt.make_kernel(np.ones(2048, np.float32), rate=rate, nphi=nphi,
+                       device="cpu")
     st = mt.setphase(p, mt.init_state(p), 0.37)
     n = (1 << 20) + 4097
     steps = torch.arange(n, dtype=torch.int64)
@@ -137,7 +138,8 @@ def test_host_carry_and_lengths_equal(taps, kind, nphi):
     po = KINDS[kind]
     rng = np.random.default_rng(nphi)
     for rate in RATES:
-        tp = mt.make_kernel(taps, rate=rate, nphi=nphi, polyorder=po)
+        tp = mt.make_kernel(taps, rate=rate, nphi=nphi, polyorder=po,
+                            device="cpu")
         jp = mr.make_kernel(taps, rate=rate, nphi=nphi, polyorder=po)
         assert type(tp).__name__ == type(jp).__name__
         assert (tp.delta_fx, tp.taps_per_phi, tp.h_min) == (
@@ -180,7 +182,7 @@ def test_filt_block_mid_stream_matches_jax(taps, signal, kind):
     # setphase, then blocks short enough (1 to 7 samples at a low rate)
     # that the window starts past the history (deficit > 1)
     po = KINDS[kind]
-    tp = mt.make_kernel(taps, rate=0.31, nphi=32, polyorder=po)
+    tp = mt.make_kernel(taps, rate=0.31, nphi=32, polyorder=po, device="cpu")
     jp = mr.make_kernel(taps, rate=0.31, nphi=32, polyorder=po)
     ts = mt.setphase(tp, mt.init_state(tp, (2,)), 0.37)
     js = mr.setphase(jp, mr.init_state(jp, (2,), jnp.float32), 0.37)
@@ -204,7 +206,7 @@ def test_filt_block_mid_stream_matches_jax(taps, signal, kind):
 def test_gridsel_interpret_within_first_order_error(taps, signal):
     # the TPU kernel (path="gridsel", interpret mode on the CPU) folds the
     # tap polynomial to first order; its own error bounds this tolerance
-    tp = mt.make_kernel(taps, rate=0.4709, nphi=32, polyorder=4)
+    tp = mt.make_kernel(taps, rate=0.4709, nphi=32, polyorder=4, device="cpu")
     jp = mr.make_kernel(taps, rate=0.4709, nphi=32, polyorder=4)
     y, c, _ = mt.filt_block(tp, mt.init_state(tp), torch.from_numpy(signal))
     yj, cj, _ = mr.filt_block(jp, mr.init_state(jp, (), jnp.float32),
@@ -242,7 +244,7 @@ def test_filt_block_tm_matches_channel_major(taps, kind):
     po = KINDS[kind]
     rng = np.random.default_rng(7)
     x = rng.standard_normal((8, 9_001)).astype(np.float32)
-    p = mt.make_kernel(taps, rate=0.9173, nphi=32, polyorder=po)
+    p = mt.make_kernel(taps, rate=0.9173, nphi=32, polyorder=po, device="cpu")
     s_cm = mt.setphase(p, mt.init_state(p, (8,)), 0.37)
     s_tm = s_cm
     i = 0
@@ -271,7 +273,7 @@ def test_filt_block_tm_matches_channel_major(taps, kind):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_setphase_and_tapsforphase_match_jax(taps, signal, kind):
     po = KINDS[kind]
-    tp = mt.make_kernel(taps, rate=0.4709, nphi=32, polyorder=po)
+    tp = mt.make_kernel(taps, rate=0.4709, nphi=32, polyorder=po, device="cpu")
     jp = mr.make_kernel(taps, rate=0.4709, nphi=32, polyorder=po)
     for phi in (0.0, 0.37, 0.5, 1.0):
         ts = mt.setphase(tp, mt.init_state(tp), phi)
@@ -298,7 +300,8 @@ def test_setphase_and_tapsforphase_match_jax(taps, signal, kind):
     with pytest.raises(ValueError, match="phase"):
         mt.tapsforphase(tp, 34)
     with pytest.raises(TypeError, match="tapsforphase"):
-        mt.tapsforphase(mt.make_kernel(taps, ratio=Fraction(3, 2)), 1)
+        mt.tapsforphase(
+            mt.make_kernel(taps, ratio=Fraction(3, 2), device="cpu"), 1)
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -306,8 +309,8 @@ def test_convert_round_trips(taps, signal, kind):
     po = KINDS[kind]
     jp = mr.make_kernel(taps, rate=R_REF, nphi=32, polyorder=po)
     tp = params_from_jax({k: v for k, v in vars(jp).items()
-                          if v is not None})
-    ref = mt.make_kernel(taps, rate=R_REF, nphi=32, polyorder=po)
+                          if v is not None}, device="cpu")
+    ref = mt.make_kernel(taps, rate=R_REF, nphi=32, polyorder=po, device="cpu")
     assert type(tp) is type(ref)
     assert (tp.nphi, tp.taps_per_phi, tp.rate, tp.delta_fx) == (
         ref.nphi, ref.taps_per_phi, ref.rate, ref.delta_fx)
@@ -341,7 +344,8 @@ def test_oracles(taps, signal, kind):
     n = 5_000
     for rate in (R_REF, 0.4709):
         y = mt.filt(taps, torch.from_numpy(signal), rate, 32, po).numpy()
-        p = mt.make_kernel(taps, rate=rate, nphi=32, polyorder=po)
+        p = mt.make_kernel(taps, rate=rate, nphi=32, polyorder=po,
+                           device="cpu")
         x_in = signal[:mt.inputlength(p, n)].astype(np.float64)
         if po is None:
             ref = naivefilt(taps.astype(np.float64), x_in, rate, 32)
@@ -364,7 +368,7 @@ def test_farrow_table_horner_in_float32(taps, nphi):
     # csrc/resample.cu evaluates tap t at psi = phi + 1 + alpha as Horner
     # over alpha in float32 from the float32 re-centred table; that stays
     # within 1e-6 * max|tap| of the float64 fit at psi
-    p = mt.make_kernel(taps, rate=0.4709, nphi=nphi, polyorder=4)
+    p = mt.make_kernel(taps, rate=0.4709, nphi=nphi, polyorder=4, device="cpu")
     np.testing.assert_allclose(farrow_table(p.coeffs.numpy(), nphi)[0],
                                p.pfb.numpy(), atol=2e-2)  # fit of the bank
     rng = np.random.default_rng(nphi)
@@ -381,7 +385,7 @@ def test_farrow_table_horner_in_float32(taps, nphi):
 
 
 def test_cpu_wrappers_run_plain_without_counting(taps, signal):
-    p = mt.make_kernel(taps, rate=0.9173, nphi=32, polyorder=4)
+    p = mt.make_kernel(taps, rate=0.9173, nphi=32, polyorder=4, device="cpu")
     x = torch.from_numpy(signal[:4_000]).view(1, -1)
     hist = torch.zeros(1, p.h_min)
     n = mt.outputlength(p, 4_000)
@@ -396,7 +400,7 @@ def test_cpu_wrappers_run_plain_without_counting(taps, signal):
 @pytest.mark.parametrize("bad", ["dtype", "layout", "hist_shape", "kernel",
                                  "u0", "deficit", "too_many", "device"])
 def test_wrapper_raises(taps, bad):
-    p = mt.make_kernel(taps, rate=0.4709, nphi=32)
+    p = mt.make_kernel(taps, rate=0.4709, nphi=32, device="cpu")
     x = torch.randn(2, 500)
     hist, u0, d0 = torch.zeros(2, p.h_min), 0, 1
     n = mt.outputlength(p, 500)
@@ -407,7 +411,7 @@ def test_wrapper_raises(taps, bad):
     elif bad == "hist_shape":
         hist = hist[:, 1:].contiguous()
     elif bad == "kernel":
-        p = mt.make_kernel(taps, ratio=Fraction(3, 2))
+        p = mt.make_kernel(taps, ratio=Fraction(3, 2), device="cpu")
     elif bad == "u0":
         u0 = -1
     elif bad == "deficit":
@@ -422,28 +426,31 @@ def test_wrapper_raises(taps, bad):
 
 
 def test_make_kernel_dispatch_and_errors(taps):
-    assert isinstance(mt.make_kernel(taps, ratio=0.5), mt.FIRArbitrary)
-    assert isinstance(mt.make_kernel(taps, rate=0.5, polyorder=2),
+    assert isinstance(mt.make_kernel(taps, ratio=0.5, device="cpu"),
+                      mt.FIRArbitrary)
+    assert isinstance(mt.make_kernel(taps, rate=0.5, polyorder=2,
+                                     device="cpu"),
                       mt.FIRFarrow)
-    assert isinstance(mt.make_kernel(taps, ratio=Fraction(1, 2)),
+    assert isinstance(mt.make_kernel(taps, ratio=Fraction(1, 2), device="cpu"),
                       mt.FIRDecimator)
-    f = mt.make_kernel(taps, rate=0.5, nphi=7, polyorder=3)
+    f = mt.make_kernel(taps, rate=0.5, nphi=7, polyorder=3, device="cpu")
     assert f.coeffs.dtype == torch.float64 and f.coeffs.shape == (4, 46)
     assert f.table.shape == (4, 46, 7) and f.table.dtype == torch.float32
     a = mt.make_kernel(torch.from_numpy(taps), rate=0.5)
     assert a.table.shape == (2, 10, 32) and a.device == torch.device("cpu")
     for bad_rate in (0.0, -1.0):
         with pytest.raises(ValueError, match="rate"):
-            mt.make_kernel(taps, rate=bad_rate)
+            mt.make_kernel(taps, rate=bad_rate, device="cpu")
     with pytest.raises(ValueError, match="exact-arithmetic"):
-        mt.make_kernel(taps, rate=0.001, nphi=32)
+        mt.make_kernel(taps, rate=0.001, nphi=32, device="cpu")
     with pytest.raises(NotImplementedError, match="complex"):
-        mt.make_kernel(taps.astype(np.complex64), rate=0.5)
+        mt.make_kernel(taps.astype(np.complex64), rate=0.5, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):
         mt.filt(taps, torch.zeros(100, dtype=torch.float64), 0.5)
-    st = mt.init_state(mt.make_kernel(taps, ratio=Fraction(3, 2)), (2,))
+    rat = mt.make_kernel(taps, ratio=Fraction(3, 2), device="cpu")
+    st = mt.init_state(rat, (2,))
     with pytest.raises(TypeError, match="time-major"):
-        mt.filt_block_tm(mt.make_kernel(taps, ratio=Fraction(3, 2)), st,
+        mt.filt_block_tm(rat, st,
                          torch.zeros(100, 2))
     with pytest.raises(ValueError, match="2-D"):
         mt.filt_block_tm(a, mt.init_state(a, (2,)), torch.zeros(2, 3, 100))

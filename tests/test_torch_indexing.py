@@ -56,7 +56,7 @@ def test_count_and_carry_equal(seed):
 def test_host_carry_and_lengths_equal(ratio):
     h = np.random.default_rng(3).standard_normal(37).astype(np.float32)
     jp = mr.make_kernel(h, ratio=ratio)
-    tp = mt.make_kernel(h, ratio=ratio)
+    tp = mt.make_kernel(h, ratio=ratio, device="cpu")
     assert type(tp).__name__ == type(jp).__name__
     rng = np.random.default_rng(ratio.numerator * 1000 + ratio.denominator)
     L, M = ratio.numerator, ratio.denominator
@@ -85,7 +85,8 @@ def test_host_carry_and_lengths_equal(ratio):
 
 
 def test_length_algebra_rejects_a_state_in_the_phase_slot():
-    tp = mt.make_kernel(np.ones(8, np.float32), ratio=Fraction(3, 5))
+    tp = mt.make_kernel(np.ones(8, np.float32), ratio=Fraction(3, 5),
+                        device="cpu")
     st = mt.init_state(tp)
     with pytest.raises(TypeError, match="initial_phi"):
         mt.outputlength(tp, 100, st)

@@ -57,7 +57,7 @@ def kernels():
     out = {}
     for name, (ratio, h, _) in CASES.items():
         jp = mr.make_kernel(h, ratio=ratio)
-        out[name] = (jp, mt.make_kernel(h, ratio=ratio))
+        out[name] = (jp, mt.make_kernel(h, ratio=ratio, device="cpu"))
     return out
 
 
@@ -139,7 +139,7 @@ def test_params_from_jax_matches_make_kernel(kernels):
         fields = {k: np.asarray(getattr(jp, k))
                   for k in ("pfb", "taps_rev", "interpolation", "decimation")
                   if hasattr(jp, k)}
-        cp = params_from_jax(fields)
+        cp = params_from_jax(fields, device="cpu")
         assert type(cp) is type(tp), name
         assert torch.equal(cp.bank, tp.bank), name
         assert (cp.taps_per_phi, cp.h_min) == (tp.taps_per_phi, tp.h_min)
@@ -159,7 +159,7 @@ def _args(C=2, xlen=50, T=5, L=3, M=2):
 
 
 def test_wrapper_takes_plain_version_on_cpu():
-    before = pp.launches
+    before = dict(pp.launches)
     args = _args()
     assert torch.equal(pp.polyphase(*args), pp.polyphase_plain(*args))
     assert pp.launches == before  # the plain version is no launch
@@ -226,16 +226,18 @@ def test_wrapper_raises(bad):
 
 
 def test_compute_rejects_what_is_not_ported():
-    tp = mt.make_kernel(np.ones(8, np.float32), ratio=Fraction(3, 5))
+    tp = mt.make_kernel(np.ones(8, np.float32), ratio=Fraction(3, 5),
+                        device="cpu")
     st = mt.init_state(tp)
     with pytest.raises(NotImplementedError, match="float64"):
         mt.filt_block(tp, st, torch.zeros(10, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="complex"):
-        mt.make_kernel(np.ones(8, np.complex64), rate=0.9)
+        mt.make_kernel(np.ones(8, np.complex64), rate=0.9, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):
         mt.filt(np.ones(8), torch.zeros(10, dtype=torch.float64), 0.9)
     with pytest.raises(NotImplementedError, match="complex"):
-        mt.make_kernel(np.ones(8, np.complex64), ratio=Fraction(3, 5))
+        mt.make_kernel(np.ones(8, np.complex64), ratio=Fraction(3, 5),
+                       device="cpu")
     with pytest.raises(ValueError, match="shape"):
         mt.filt_block(tp, st, torch.zeros(2, 10))
     with pytest.raises(ValueError, match="path"):

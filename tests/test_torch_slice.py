@@ -116,10 +116,10 @@ def test_setphase_and_reset_match_jax(headline):
     with pytest.raises(ValueError, match="phase"):
         f.setphase(1.5)
     with pytest.raises(TypeError, match="setphase"):
-        mt.setphase(mt.make_kernel(h, ratio=1), st, 0.5)
+        mt.setphase(mt.make_kernel(h, ratio=1, device="cpu"), st, 0.5)
 
 
-def test_firfilter_channels_and_devices(headline):
+def test_firfilter_channels_and_devices(headline, monkeypatch):
     h, x, _ = headline
     xs = np.stack([x[:9_000], x[9_000:18_000]])
     f = mt.FIRFilter(h, RATIO, device="cpu")
@@ -130,15 +130,20 @@ def test_firfilter_channels_and_devices(headline):
     with pytest.raises(ValueError, match="batch shape"):
         f.filt(xs[0])
     with pytest.raises(ValueError, match="device"):
+        f.filt(torch.zeros((2, 100), device="meta"))
+    # a numpy input with no device runs on the card, never quietly on the
+    # CPU: with no card it raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device"):
         mt.FIRFilter(h, RATIO).filt(x[:100])
-    with pytest.raises(ValueError, match="device"):
+    with pytest.raises(RuntimeError, match="device"):
         mt.filt(h, x[:100], RATIO)
 
 
 def test_convert_round_trips(headline):
     h, x, yj = headline
     jp = mr.make_kernel(h, ratio=RATIO)
-    tp = mt.make_kernel(h, ratio=RATIO)
+    tp = mt.make_kernel(h, ratio=RATIO, device="cpu")
     js = mr.init_state(jp, (), jnp.float32)
     y0, c0, js = mr.filt_block(jp, js, jnp.asarray(x[:20_011]),
                                path="windows")
