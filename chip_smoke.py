@@ -77,6 +77,37 @@ instantiations:
    (``conv1d`` with TF32 off: the 4//1 row, and 1//1, 1//4 and 4//1 at
    T = 24 beside phase 5's kernel times).
 
+Then the same three steps for the float64 and complex modes of every
+filter type (``bench.py``'s rows ``rational_147_160_c64`` and
+``rational_147_160_f64``), which run the ``f64``, ``c64``, ``c64c``,
+``c128`` and ``c128c`` instantiations of both kernels:
+
+3d. each of those entry points of both kernels against its plain version:
+   the four rational-family types at the headline and short taps and a
+   147//160 bank of 48 taps per phase (a complex128 bank too large for
+   shared memory); arbitrary and Farrow at rates 1/2.123456789, 0.9173 and
+   2.5, nphi 32 and 7, and a Farrow table in global memory; fresh and
+   mid-phase, one channel and two, channel-major and time-major (which
+   runs the channel-major entry point on the transpose). Counts and states
+   exact; outputs within 1e-5 * max|y| (complex64) or 1e-12 * max|y|
+   (float64, complex128);
+4d. the two rows at full width: 8 M complex64 samples (phase 4's samples
+   as real parts, seeded standard normal imaginary parts) with the float32
+   headline taps, and phase 4's samples in float64 with the float64
+   headline taps, through ``filt`` (relative RMS against the complex128 or
+   float64 ``naivefilt`` on the first 200 000 outputs <= 8e-5 and
+   <= 1e-12) and ``FIRFilter`` in 250 000-sample chunks (chunked-vs-whole
+   RMS <= 1e-6 and <= 1e-14, counts and states equal); arbitrary at
+   1/2.123456789 (<= 1e-4 against ``naivefilt``, the method's floor) and
+   Farrow at 0.4709 (<= 1e-10 against ``naivefilt_farrow``) on the same
+   float64 samples with the float64 bank, whole and chunked; each entry
+   point's launch count around these runs equal to the number of blocks;
+5d. times of kernel and plain version for the two rows and for arbitrary
+   and Farrow in float64, as in phase 5, and for the three narrow-store
+   entry points no bench row runs (``f32_f16out``, ``bf16_bf16out``,
+   ``bf16_f16out``) at ``interp_4_1_bf16out``'s geometry, with the
+   ``conv1d`` yardstick there.
+
 Then a JSON line of the kernels (each with its bound: the larger of the
 bytes it must move over 3.35 TB/s and its multiply-adds over the card's
 peak for their type), the ``nvidia-smi`` name and power-limit line, and as
@@ -112,7 +143,18 @@ TOL_TM = 1e-6                # time-major vs channel-major, rel. to max|y|
 # the H100 SXM's published rates (HBM3; dense float32, bf16 and int8
 # peaks), for the bounds
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
+                  "f64": 34e12}  # FP64 vector rate: no tensor cores used
+# the float64 and complex entry points of both kernels: (signal dtype name,
+# taps dtype name, kernel-vs-plain limit relative to max|y|)
+WIDE = {"f64": ("float64", "float64", 1e-12),
+        "c64": ("complex64", "float32", 1e-5),
+        "c64c": ("complex64", "complex64", 1e-5),
+        "c128": ("complex128", "float64", 1e-12),
+        "c128c": ("complex128", "complex128", 1e-12)}
+TOL_ORACLE_F64 = 1e-12      # rational_147_160_f64 (bench.py:433)
+TOL_CHUNKED_F64 = 1e-14     # chunked-vs-whole RMS in float64
+TOL_ORACLE_FARROW_F64 = 1e-10
 
 
 class SmokeFailure(Exception):
@@ -170,9 +212,9 @@ def phase_build():
           f"{secs:.1f} s")
 
 
-def _compare(mt, torch, params, st, x, time_major, case):
+def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL):
     """One kernel-vs-plain case through the block entry points; returns
-    max|dy| / max|y|."""
+    max|dy| / max|y| (moduli for complex outputs), at most ``tol``."""
     step = mt.filt_block_tm if time_major else mt.filt_block
     yk, ck, sk = step(params, st, x, path="kernel")
     yp, cp, sp = step(params, st, x, path="windows")
@@ -183,16 +225,19 @@ def _compare(mt, torch, params, st, x, time_major, case):
           == mt.outputlength(params, xlen, state=st), f"{case}: counts differ")
     check((sk.phase, sk.deficit) == (sp.phase, sp.deficit)
           and torch.equal(sk.history, sp.history), f"{case}: states differ")
+    check(yk.dtype == yp.dtype, f"{case}: {yk.dtype} against {yp.dtype}")
     check(bool(torch.isfinite(yk).all()), f"{case}: non-finite")
     scale = float(yp.abs().max()) if yp.numel() else 0.0
     err = (float((yk - yp).abs().max()) / max(scale, 1e-30)
            if yp.numel() else 0.0)
-    check(err <= TOL_KERNEL, f"{case}: rel err {err:.3e}")
+    check(err <= tol, f"{case}: rel err {err:.3e}")
     return err
 
 
 def _rel_rms(got, ref):
-    return float(np.sqrt(np.mean((got - ref) ** 2) / np.mean(ref ** 2)))
+    """Relative RMS of got - ref, real or complex (moduli)."""
+    return float(np.sqrt(np.mean(np.abs(got - ref) ** 2)
+                         / np.mean(np.abs(ref) ** 2)))
 
 
 def phase_kernel_vs_plain(mt, torch, dev):
@@ -407,7 +452,9 @@ def phase_resample_slice(mt, torch, dev, rs):
     x64 = torch.from_numpy(x64_np).to(dev)
     rows = (("arbitrary", R_REF, None), ("Farrow", 0.4709, 4))
 
-    rs.launches = rs.launches_tm = 0
+    for k in rs.launches:
+        rs.launches[k] = 0
+    rs.launches_tm = 0
     runs = []
     for _, rate, po in rows:
         y = mt.filt(ha, x, rate, 32, po)
@@ -419,11 +466,13 @@ def phase_resample_slice(mt, torch, dev, rs):
     y_tm, c_tm, s_tm = mt.filt_block_tm(p64, mt.init_state(p64, (N_CH,)),
                                         x64.t().contiguous())
     torch.cuda.synchronize()
-    launches = (rs.launches, rs.launches_tm)
+    launches = (rs.launches["f32"], rs.launches_tm)
 
     n_chunks = len(runs[0][1])
     want = (len(rows) * (1 + n_chunks) + 1, 1)
-    check(launches == want, f"resample launches {launches}, want {want}")
+    check(launches == want and sum(rs.launches.values()) == want[0],
+          f"resample launches {rs.launches}, time-major {rs.launches_tm}; "
+          f"want f32 {want[0]}, time-major {want[1]}")
     notes = []
     for (label, rate, po), (y, parts, f) in zip(rows, runs):
         n_want = mt.outputlength(f.params, N_HEAD)
@@ -540,12 +589,15 @@ def _bound(bytes_moved, mult_adds, kind):
 
 def _polyphase_bound(torch, args, out_dtype, kind):
     """The bound of one polyphase call: x, hist and bank read once, the
-    output written once, T multiply-adds per output."""
+    output written once, T multiply-adds per output in ``kind`` (two real
+    ones per tap for complex samples against real taps, four against
+    complex taps)."""
     x, hist, bank, *_, n = args
     nbytes = sum(t.numel() * t.element_size() for t in (x, hist, bank))
     out_size = torch.empty((), dtype=out_dtype).element_size()
+    per_tap = (1 + x.is_complex()) * (1 + bank.is_complex())
     return _bound(nbytes + x.shape[0] * n * out_size,
-                  x.shape[0] * n * bank.shape[0], kind)
+                  x.shape[0] * n * bank.shape[0] * per_tap, kind)
 
 
 def _as_mode(mt, torch, a, dtype):
@@ -857,6 +909,315 @@ def phase_quant_times(mt, torch, x, pp, card):
     return out
 
 
+def _wide_signal(torch, rng, shape, dtype):
+    """Seeded standard normal samples in ``dtype`` (re and im if complex)."""
+    v = rng.standard_normal(shape)
+    if dtype.is_complex:
+        v = v + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(v).to(dtype)
+
+
+def _wide_taps(torch, h, dtype):
+    """Taps ``h`` in ``dtype``; complex taps take a quarter of the reversed
+    taps as their imaginary part."""
+    h = np.asarray(h, np.float64)
+    if dtype.is_complex:
+        h = h + 0.25j * h[::-1]
+    return torch.from_numpy(h).to(dtype)
+
+
+def _entry_state(mt, params, lead, dtype, x, entry):
+    """A fresh state, or ("mid") one after setphase(0.37) where the kernel
+    has phases and a 1237-sample block of the plain version."""
+    st = mt.init_state(params, lead, dtype)
+    if entry == "mid":
+        if hasattr(params, "nphi"):
+            st = mt.setphase(params, st, 0.37)
+        _, _, st = mt.filt_block(params, st, x[..., :1237], path="windows")
+    return st
+
+
+def phase_wide_vs_plain(mt, torch, dev, pp, rs):
+    """3d: every float64 and complex entry point of both kernels against
+    its plain version; time-major blocks of these types run the
+    channel-major entry point on the transpose."""
+    rng = np.random.default_rng(4)
+    h_head = headline_taps(mt)
+    h_short = (mt.firdes(24 * 5, 0.5 / 5, mt.kaiser, beta=7.8562) * 5
+               ).astype(np.float32)
+    rational = [("head", h_head, Fraction(147, 160)),
+                ("head", h_head, Fraction(1, 1)),
+                ("head", h_head, Fraction(4, 1)),
+                ("head", h_head, Fraction(1, 4)),
+                ("short", h_short, Fraction(3, 5)),
+                ("short", h_short, Fraction(1, 4)),
+                ("short", h_short, Fraction(4, 1)),
+                ("short", h_short, Fraction(1, 1)),
+                # 48 taps per phase: a 110 KB complex128 bank, read from
+                # global memory (the others fit in shared memory)
+                ("T 48", rng.standard_normal(48 * 147), Fraction(147, 160))]
+    ha = bench_taps(mt)
+    shapes = tuple((lead[0] if lead else 1, xlen)
+                   for lead, xlen in CASE_SHAPES)  # (channels, xlen)
+    resample = [("bench taps", ha, rate, nphi, po, shapes)
+                for rate in (R_REF, 0.9173, 2.5) for nphi in (32, 7)
+                for po in (None, 4)]
+    # a (5, 10, 2048) Farrow table, read from global memory in every type
+    resample.append(("global table", rng.standard_normal(20_480), 0.9, 2048,
+                     4, ((2, 20_011),)))
+    worst = dict.fromkeys(WIDE, 0.0)
+    n_pp = n_rs = 0
+    for entry, (sig_name, taps_name, tol) in WIDE.items():
+        sig, tdt = getattr(torch, sig_name), getattr(torch, taps_name)
+        for label, h, ratio in rational:
+            params = mt.make_kernel(_wide_taps(torch, h, tdt), ratio=ratio,
+                                    device=dev)
+            if label == "T 48" and entry == "c128c":
+                check(params.bank.numel() * 16 > 96 * 1024,
+                      "the T 48 complex128 bank fits in shared memory")
+            for lead, xlen in CASE_SHAPES:
+                x = _wide_signal(torch, rng, (*lead, xlen), sig).to(dev)
+                for state in ("fresh", "mid"):
+                    st = _entry_state(mt, params, lead, sig, x, state)
+                    case = f"{entry} {label} {ratio} lead={lead} {state}"
+                    before = pp.launches[entry]
+                    err = _compare(mt, torch, params, st, x, False, case, tol)
+                    check(pp.launches[entry] == before + 1,
+                          f"{case}: {entry} not launched once")
+                    worst[entry] = max(worst[entry], err)
+                    n_pp += 1
+        for label, h, rate, nphi, po, shp in resample:
+            params = mt.make_kernel(_wide_taps(torch, h, tdt), rate=rate,
+                                    nphi=nphi, polyorder=po, device=dev)
+            for ch, xlen in shp:
+                x = _wide_signal(torch, rng, (ch, xlen), sig).to(dev)
+                xt = x.t().contiguous()
+                for state in ("fresh", "mid"):
+                    st = _entry_state(mt, params, (ch,), sig, x, state)
+                    for tm in (False, True):
+                        case = (f"{entry} {label} "
+                                f"{'arbitrary' if po is None else 'Farrow'} "
+                                f"rate={rate:.6g} nphi={nphi} C={ch} {state} "
+                                f"{'time' if tm else 'channel'}-major")
+                        before = (rs.launches[entry], rs.launches_tm)
+                        err = _compare(mt, torch, params, st,
+                                       xt if tm else x, tm, case, tol)
+                        check((rs.launches[entry], rs.launches_tm)
+                              == (before[0] + 1, before[1]),
+                              f"{case}: {entry} not launched once")
+                        worst[entry] = max(worst[entry], err)
+                        n_rs += 1
+    print(f"[3d wide vs plain] {n_pp} polyphase and {n_rs} resample cases "
+          f"(time-major ones through the channel-major entry point), counts "
+          f"and states exact; worst max|dy|/max|y|: "
+          + ", ".join(f"{e} {worst[e]:.3e} (limit {WIDE[e][2]:g})"
+                      for e in WIDE))
+
+
+def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
+    """4d: ``bench.py``'s rows ``rational_147_160_c64`` and
+    ``rational_147_160_f64`` at full width, and arbitrary and Farrow on the
+    same samples in float64. ``x`` is phase 4's float32 block (the real
+    parts) and ``ref`` its float64 oracle for the float32 headline taps.
+    The oracles run on the host in threads while the card works; the
+    complex128 ``naivefilt`` of the complex64 row goes by linearity, as
+    phase 4's real part plus i times the oracle of the imaginary parts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multirate_tpu_torch.ops import indexing as idx
+    from multirate_tpu_torch.utils.oracle import naivefilt, naivefilt_farrow
+
+    ratio = Fraction(147, 160)
+    h32 = headline_taps(mt)
+    h64 = mt.firdes(24 * 147, 0.5 / 147, mt.kaiser, beta=7.8562) * 147
+    ha64 = mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=7.0) * 32
+    im = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        N_HEAD).astype(np.float32)).to(dev)
+    xc = torch.complex(x, im)
+    x64 = x.double()
+    x64_np = x64.cpu().numpy()
+    p_arb = mt.make_kernel(ha64, rate=R_REF, nphi=32, device=dev)
+    p_far = mt.make_kernel(ha64, rate=0.4709, nphi=32, polyorder=4,
+                           device=dev)
+    n_in = mt.inputlength(N_ORACLE, ratio)
+    n_arb = mt.inputlength(p_arb, N_ORACLE)
+    n_far = mt.inputlength(p_far, N_ORACLE)
+    chunks = range(0, N_HEAD, CHUNK)
+
+    with ThreadPoolExecutor(4) as pool:
+        oracles = {
+            "c64": pool.submit(naivefilt, h32.astype(np.float64),
+                               im[:n_in].double().cpu().numpy(), ratio),
+            "f64": pool.submit(naivefilt, h64, x64_np[:n_in], ratio),
+            "arbitrary": pool.submit(naivefilt, ha64, x64_np[:n_arb], R_REF,
+                                     32),
+            "Farrow": pool.submit(naivefilt_farrow, ha64, x64_np[:n_far],
+                                  0.4709, 32, 4)}
+        for k in pp.launches:
+            pp.launches[k] = 0
+        for k in rs.launches:
+            rs.launches[k] = 0
+        rs.launches_tm = 0
+        runs = []  # (label, whole block, chunk outputs, stream, samples)
+        for label, h, spec, xs in (("rational_147_160_c64", h32, (ratio,), xc),
+                                   ("rational_147_160_f64", h64, (ratio,),
+                                    x64),
+                                   ("arbitrary", ha64, (R_REF, 32), x64),
+                                   ("Farrow", ha64, (0.4709, 32, 4), x64)):
+            y = mt.filt(h, xs, *spec)
+            f = mt.FIRFilter(h, *spec)
+            runs.append((label, y, [f.filt(xs[i:i + CHUNK]) for i in chunks],
+                         f, xs))
+        torch.cuda.synchronize()
+        launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
+        refs = {k: v.result() for k, v in oracles.items()}
+
+    blocks = 1 + len(chunks)
+    want = (dict.fromkeys(pp.launches, 0), dict.fromkeys(rs.launches, 0), 0)
+    want[0].update(c64=blocks, f64=blocks)
+    want[1].update(f64=2 * blocks)
+    check(launches == want, f"launches {launches}, want {want}")
+    refs["c64"] = ref + 1j * refs["c64"][:N_ORACLE]
+    refs["f64"] = refs["f64"][:N_ORACLE]
+    limits = {"rational_147_160_c64": ("c64", TOL_ORACLE, TOL_CHUNKED),
+              "rational_147_160_f64": ("f64", TOL_ORACLE_F64,
+                                       TOL_CHUNKED_F64),
+              "arbitrary": ("arbitrary", TOL_ORACLE_ARB_REF, TOL_CHUNKED_F64),
+              "Farrow": ("Farrow", TOL_ORACLE_FARROW_F64, TOL_CHUNKED_F64)}
+    notes = []
+    for label, y, parts, f, xs in runs:
+        key, tol_oracle, tol_chunked = limits[label]
+        n_want = mt.outputlength(f.params, N_HEAD)
+        check(y.dtype == xs.dtype and tuple(y.shape) == (n_want,)
+              and bool(torch.isfinite(y).all()),
+              f"{label}: filt gave {y.dtype} {tuple(y.shape)}")
+        yc = torch.cat(parts)
+        # the stream ends in the state one block's closed form gives
+        _, ph_end, d_end = idx.host_carry(
+            f.params, 1 if key in ("c64", "f64") else 0, 1, N_HEAD)
+        check(tuple(yc.shape) == (n_want,)
+              and (f.state.phase, f.state.deficit) == (ph_end, d_end),
+              f"{label}: stream count or state")
+        rms_chunk = float((yc - y).abs().pow(2).mean().sqrt())
+        check(rms_chunk <= tol_chunked,
+              f"{label}: chunked-vs-whole RMS {rms_chunk:.3e}")
+        ref_l = refs[key][:N_ORACLE]
+        check(len(ref_l) == N_ORACLE, f"{label}: oracle gave {len(ref_l)}")
+        rel = _rel_rms(y[:N_ORACLE].cpu().numpy(), ref_l)
+        check(rel <= tol_oracle, f"{label}: oracle relative RMS {rel:.3e}")
+        notes.append(f"{label} ({y.dtype}) on {N_HEAD} -> {n_want}: oracle "
+                     f"rel RMS {rel:.3e} (limit {tol_oracle:g}); {len(parts)} "
+                     f"chunks: chunked-vs-whole RMS {rms_chunk:.3e} (limit "
+                     f"{tol_chunked:g})")
+    print(f"[4d wide slice] {'; '.join(notes)}; launches polyphase "
+          f"{ {k: v for k, v in launches[0].items() if v} }, resample "
+          f"{ {k: v for k, v in launches[1].items() if v} }")
+    return xc, x64, {"polyphase_c64": launches[0]["c64"],
+                     "polyphase_f64": launches[0]["f64"],
+                     "resample_f64": launches[1]["f64"]}
+
+
+def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
+    """5d: kernel vs plain for the two rows, for arbitrary and Farrow in
+    float64, and for the three narrow-store entry points that no bench row
+    runs, at ``interp_4_1_bf16out``'s geometry (with the conv1d yardstick
+    there)."""
+    from multirate_tpu_torch.ops.precision import fp32
+    from multirate_tpu_torch.utils.testing import ulps_apart
+
+    dev = x64.device
+    h32 = headline_taps(mt)
+    h64 = mt.firdes(24 * 147, 0.5 / 147, mt.kaiser, beta=7.8562) * 147
+    ha64 = mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=7.0) * 32
+    n_r = mt.outputlength(N_HEAD, Fraction(147, 160))
+    out, notes = {}, []
+
+    def timed(name, kern, plain, args, bound, tol, lib=None):
+        yk, yp = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        max_abs = float((yk - yp).abs().max())
+        check(max_abs <= tol * float(yp.abs().max()),
+              f"{name}: kernel vs plain max abs err {max_abs:.3e}")
+        del yk, yp
+        ms = _time_ms(torch, lambda: kern(*args), iters=20)
+        plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
+        library_ms = None if lib is None else _time_ms(torch, lib, iters=5)
+        out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=library_ms)
+        notes.append(
+            f"{name} kernel {ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} Msps in), "
+            f"plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib is None else f'{library_ms:.4f} ms'}, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), max abs err {max_abs:.3e}")
+
+    for name, h, xs, kind in (("rational_147_160_c64", h32, xc, "f32"),
+                              ("rational_147_160_f64", h64, x64, "f64")):
+        p = mt.make_kernel(h, ratio=(147, 160), device=dev)
+        hist = torch.zeros(1, p.h_min, dtype=xs.dtype, device=dev)
+        args = (xs.view(1, -1), hist, p.bank, 147, 160, 1, 1, n_r)
+        timed(name, pp.polyphase, pp.polyphase_plain, args,
+              _polyphase_bound(torch, args, xs.dtype, kind),
+              WIDE["c64" if kind == "f32" else "f64"][2])
+    for name, rate, po in (("arbitrary_refrate_f64", R_REF, None),
+                           ("farrow_0.4709_f64", 0.4709, 4)):
+        p = mt.make_kernel(ha64, rate=rate, nphi=32, polyorder=po,
+                           device=dev)
+        hist = torch.zeros(1, p.h_min, dtype=torch.float64, device=dev)
+        n = mt.outputlength(p, N_HEAD)
+        args = (x64.view(1, -1), hist, p, 0, 1, n)
+        # x, history and table read once, outputs written once; each
+        # output takes T * (P + 1) multiply-adds (arbitrary: P = 1)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (x64, hist, p.bank)) + n * 8
+        timed(name, rs.resample, rs.resample_plain, args,
+              _bound(nbytes, n * p.bank.numel() // p.nphi, "f64"),
+              WIDE["f64"][2])
+
+    # the narrow stores no bench row runs, at interp_4_1_bf16out's shapes
+    h147 = np.asarray(mt.firdes(147, 0.2, mt.kaiser, beta=7.0), np.float32)
+    x1 = x64.view(1, -1).float()
+    for entry, dt, store in (("f32_f16out", torch.float32, torch.float16),
+                             ("bf16_bf16out", torch.bfloat16, torch.bfloat16),
+                             ("bf16_f16out", torch.bfloat16, torch.float16)):
+        p = mt.make_kernel(torch.from_numpy(h147).to(dt), ratio=4,
+                           device=dev, store_dtype=store)
+        xs = x1.to(dt)
+        hist = torch.zeros(1, p.h_min, dtype=dt, device=dev)
+        args = (xs, hist, p.bank, 4, 1, 1, 1, 4 * N_HEAD)
+        check(pp.ENTRIES[dt, dt, store] == entry, f"{entry}: entry point")
+        yk = pp.polyphase(*args, out_dtype=store)
+        yp = pp.polyphase_plain(*args, out_dtype=store)
+
+        def lib(xs=xs, p=p, store=store):
+            # bf16 products are exact in float32: the same function
+            with fp32():
+                return _conv_interp(torch, xs.float(), p.bank.float(),
+                                    4 * N_HEAD).to(store)
+        y_lib = lib()
+        torch.cuda.synchronize()
+        floor = TOL_KERNEL * float(yp.abs().max())
+        check(ulps_apart(yk, yp, store, floor) <= 1,
+              f"{entry}: kernel vs plain beyond one ulp")
+        check(ulps_apart(y_lib, yk, store, floor) <= 1,
+              f"{entry}: conv1d disagrees")
+        max_abs = float((yk.double() - yp.double()).abs().max())
+        del yk, yp, y_lib
+        ms = _time_ms(torch, lambda: pp.polyphase(*args, out_dtype=store),
+                      iters=20)
+        plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(
+            *args, out_dtype=store), iters=2)
+        library_ms = _time_ms(torch, lib, iters=5)
+        bound = _polyphase_bound(torch, args, store,
+                                 "bf16" if dt == torch.bfloat16 else "f32")
+        notes.append(
+            f"interp_4_1 {entry} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, library {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}), max abs err {max_abs:.3e}")
+    print(f"[5d wide times] {'; '.join(notes)}; card: {card}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -872,13 +1233,16 @@ def main() -> int:
         phase_kernel_vs_plain(mt, torch, dev)
         phase_resample_vs_plain(mt, torch, dev)
         phase_quant_vs_plain(mt, torch, dev, pp)
+        phase_wide_vs_plain(mt, torch, dev, pp, rs)
         h, x, launches, ref = phase_slice(mt, torch, dev, pp)
         xa, x64, rs_launches = phase_resample_slice(mt, torch, dev, rs)
         q_launches = phase_quant_slice(mt, torch, dev, pp, x, ref)
+        xc, xd, w_launches = phase_wide_slice(mt, torch, dev, pp, rs, x, ref)
         max_abs, ms, plain_ms, bound = phase_times(mt, torch, h, x, pp,
                                                    card)
         rows = phase_resample_times(mt, torch, xa, x64, rs, card)
         q_rows = phase_quant_times(mt, torch, x, pp, card)
+        w_rows = phase_wide_times(mt, torch, xc, xd, pp, rs, card)
         check("jax" not in sys.modules, "jax was imported")
     except Exception:  # the smoke's boundary: report and fail
         traceback.print_exc()
@@ -939,6 +1303,20 @@ def main() -> int:
                         "source": "multirate_tpu_torch/csrc/polyphase.cu",
                         "replaces": replaces,
                         "launches": q_launches[entry], **q_rows[row]})
+    # the float64 and complex entry points the rows of phase 4d launch
+    dense = "multirate_tpu/ops/pallas/rational.py:89"
+    for name, row, source, replaces in (
+            ("polyphase_c64", "rational_147_160_c64", "polyphase",
+             f"{zc}, {dense}"),
+            ("polyphase_f64", "rational_147_160_f64", "polyphase",
+             f"multirate_tpu/ops/pallas/rational2.py:181, {dense}"),
+            ("resample_f64", "arbitrary_refrate_f64", "resample",
+             "multirate_tpu/ops/pallas/select.py:74, "
+             "multirate_tpu/ops/pallas/select.py:163")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"multirate_tpu_torch/csrc/{source}.cu",
+                        "replaces": replaces, "launches": w_launches[name],
+                        **w_rows[row]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

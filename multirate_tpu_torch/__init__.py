@@ -13,11 +13,14 @@ kernel (``ops/cuda/polyphase.py``, ``csrc/polyphase.cu``) and the
 arbitrary-rate and Farrow resamplers, channel-major (``filt_block``) or
 time-major (``filt_block_tm``), through another (``ops/cuda/resample.py``,
 ``csrc/resample.cu``) on CUDA tensors; CPU tensors run their plain PyTorch
-versions. The rational family also runs the quantized modes: bfloat16
-taps and signal (float32 outputs), int8 (exact int32 accumulators, with
-the helpers of ``quant``), and bfloat16 or float16 output stores
-(``make_kernel(..., store_dtype=)``). Complex and float64 signals,
-streaming I/O and sharding are not ported yet (ROADMAP.md, queue 1).
+versions. Every filter type takes float32, float64, complex64 and
+complex128 signals and taps, with JAX's output type (the promoted type of
+taps and signal); complex values stay interleaved, as torch stores them.
+The rational family also runs the quantized modes: bfloat16 taps and
+signal (float32 outputs), int8 (exact int32 accumulators, with the
+helpers of ``quant``), and bfloat16 or float16 output stores
+(``make_kernel(..., store_dtype=)``). Streaming I/O and sharding are not
+ported yet (ROADMAP.md, queue 1).
 
 Entry points run on the card unless the caller names the CPU
 (``device="cpu"``) or hands over CPU tensors.

@@ -16,11 +16,14 @@ JAX kernel's ``history_len``. For the arbitrary/Farrow kernels the phase
 is the accumulator u and the histories have the same length on both
 sides.
 
-Rational-family banks and histories keep their bfloat16 or int8 type (the
-quantized modes), read through float32 where numpy holds bfloat16; any
-other type becomes float32. numpy has no bfloat16 of its own, so
-``state_to_jax`` hands a bfloat16 history back as float32 (exact), which
-a JAX block casts to its signal's type.
+Banks, Farrow coefficients and histories carry over in their own type
+(``params.storage_dtype``): float32, float64, complex64 and complex128,
+and for the rational family also bfloat16 and int8 (the quantized modes),
+read through float32 where numpy holds bfloat16; any other type becomes
+float32 (complex64 if complex). ``state_to_jax`` hands histories back in
+their type, complex ones as complex; numpy has no bfloat16 of its own, so
+a bfloat16 history goes back as float32 (exact), which a JAX block casts
+to its signal's type.
 """
 
 from __future__ import annotations
@@ -48,26 +51,26 @@ def params_from_jax(fields, device=None):
     both packages step the same accumulator. Other fields (the TPU K
     stacks ``k_super``, ``k_zc_hi`` and ``k_zc_lo``, ``sc_group``, the
     gridsel/ratgrid plans) are ignored. The class follows the fields
-    present, as the JAX classes' fields do. A rational-family bank keeps
-    its bfloat16 or int8 type, and ``store_dtype`` carries over. The
-    kernel lives on ``device``, by default the card.
+    present, as the JAX classes' fields do. A bank keeps its type (a
+    rational-family one also bfloat16 or int8), Farrow ``coeffs`` stay
+    float64 or complex128, and ``store_dtype`` carries over. The kernel
+    lives on ``device``, by default the card.
     """
     dev = default_device() if device is None else torch.device(device)
 
-    def bank(name):
+    def bank(name, quantized=True):
         t = to_tensor(fields[name], dev)
-        return t.to(storage_dtype(t.dtype)).contiguous()
+        return t.to(storage_dtype(t.dtype, quantized)).contiguous()
 
     if "dpfb" in fields or "coeffs" in fields:
         nphi, rate = int(fields["nphi"]), float(fields["rate"])
         dfx = int(fields["delta_fx"])
-        pfb = np.array(fields["pfb"], np.float32)
         if "coeffs" in fields:
-            return FIRFarrow.from_fit(pfb, fields["coeffs"], nphi, rate, dfx,
-                                      dev)
-        table = np.stack([pfb, np.array(fields["dpfb"], np.float32)])
-        return FIRArbitrary(table=torch.as_tensor(table, device=dev),
-                            nphi=nphi, taps_per_phi=pfb.shape[0], rate=rate,
+            return FIRFarrow.from_fit(fields["pfb"], fields["coeffs"], nphi,
+                                      rate, dfx, dev)
+        table = torch.stack([bank("pfb", False), bank("dpfb", False)])
+        return FIRArbitrary(table=table, nphi=nphi,
+                            taps_per_phi=table.shape[1], rate=rate,
                             delta_fx=dfx)
 
     store = fields.get("store_dtype")
@@ -95,7 +98,8 @@ def params_from_jax(fields, device=None):
 def state_from_jax(params, history, phase, deficit) -> FilterState:
     """The port's state from a JAX state's (history, phase, deficit): the
     trailing ``params.h_min`` history samples in their storage type
-    (bfloat16, int8, else float32), on the kernel's device."""
+    (float32, float64, complex64, complex128, bfloat16 or int8), on the
+    kernel's device."""
     history = to_tensor(history)
     if history.shape[-1] < params.h_min:
         raise ValueError(f"history holds {history.shape[-1]} samples, the "
@@ -108,8 +112,8 @@ def state_from_jax(params, history, phase, deficit) -> FilterState:
 
 def state_to_jax(state: FilterState, history_len: int):
     """(history, phase, deficit) as numpy arrays for a JAX FilterState
-    whose kernel carries ``history_len`` samples (a bfloat16 history as
-    float32)."""
+    whose kernel carries ``history_len`` samples, the history in its own
+    type (complex as complex; bfloat16 as float32)."""
     h = state.history.detach().cpu()
     h = (h.float() if h.dtype == torch.bfloat16 else h).numpy()
     if history_len < h.shape[-1]:

@@ -1,0 +1,52 @@
+// Multiply-accumulate and stores over the sample and tap types of the
+// port's kernels (polyphase.cu, resample.cu).
+//
+// Complex values stay interleaved, as torch stores them: a complex64 sample
+// is a float2 {re, im} and a complex128 one a double2, read over the
+// tensor's data without a split into planes. A real tap against a complex
+// sample costs 2 real multiply-adds, a complex tap 4; each real one is an
+// FMA in the sample's precision.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mr {
+
+__device__ __forceinline__ float mac(float acc, float w, float b) {
+  return fmaf(w, b, acc);
+}
+__device__ __forceinline__ double mac(double acc, double w, double b) {
+  return fma(w, b, acc);
+}
+__device__ __forceinline__ int32_t mac(int32_t acc, int8_t w, int8_t b) {
+  return acc + (int32_t)w * (int32_t)b;
+}
+__device__ __forceinline__ float2 mac(float2 acc, float2 w, float b) {
+  return make_float2(fmaf(w.x, b, acc.x), fmaf(w.y, b, acc.y));
+}
+__device__ __forceinline__ double2 mac(double2 acc, double2 w, double b) {
+  return make_double2(fma(w.x, b, acc.x), fma(w.y, b, acc.y));
+}
+__device__ __forceinline__ float2 mac(float2 acc, float2 w, float2 b) {
+  return make_float2(fmaf(-w.y, b.y, fmaf(w.x, b.x, acc.x)),
+                     fmaf(w.y, b.x, fmaf(w.x, b.y, acc.y)));
+}
+__device__ __forceinline__ double2 mac(double2 acc, double2 w, double2 b) {
+  return make_double2(fma(-w.y, b.y, fma(w.x, b.x, acc.x)),
+                      fma(w.y, b.x, fma(w.x, b.y, acc.y)));
+}
+
+// The zero of an accumulator or staged sample type.
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T{};
+}
+
+// The real type of a sample or tap type (a tap polynomial's argument).
+template <typename T> struct Real { using type = T; };
+template <> struct Real<float2> { using type = float; };
+template <> struct Real<double2> { using type = double; };
+
+}  // namespace mr

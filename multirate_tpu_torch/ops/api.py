@@ -15,9 +15,11 @@ device; a numpy input runs on ``device=`` if one is given, else on the
 card. The CPU is used only when the caller names it (or hands over CPU
 tensors), and nothing moves a GPU computation to the CPU.
 
-Signals are float32, or bfloat16 and int8 for the quantized modes of the
-rational family (``ops/quant.py`` for the int8 helpers); ``make_kernel``'s
-``store_dtype`` narrows a rational-family kernel's outputs.
+Signals are float32, float64, complex64 or complex128 for every filter
+type, and bfloat16 and int8 for the quantized modes of the rational
+family (``ops/quant.py`` for the int8 helpers). The output type is JAX's
+(``filt``'s docstring); ``make_kernel``'s ``store_dtype`` narrows a
+rational-family kernel's outputs.
 """
 
 from __future__ import annotations
@@ -80,9 +82,16 @@ def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
     - ``filt(h, x, rate: float, nphi, polyorder)``: Farrow polynomial
       resampling (Filters.jl:870-873).
 
-    ``x`` has leading channel dims; time is the last axis. float32 in gives
-    float32 out; bfloat16 taps and signal give float32, int8 taps and
-    signal int32 accumulators (the quantized modes). On x's device.
+    ``x`` has leading channel dims; time is the last axis. On x's device.
+
+    The output type is JAX's (``compute._out_dtype`` there): the promoted
+    type of taps and signal, ``torch.promote_types(taps, x)``. So float32
+    in gives float32 out, float64 taps with a float32 signal give float64
+    (numpy's default taps, and what ``firdes`` returns), float32 taps with
+    a complex64 signal complex64, float64 taps with a complex64 signal
+    complex128, and complex taps with a real signal a complex output. The
+    quantized modes: bfloat16 taps and signal give float32 accumulators,
+    int8 taps and signal exact int32 accumulators.
     """
     x = _as_signal(x, device)
     params = _kernel_for(h, ratio_or_rate, nphi, polyorder, x.device)
@@ -102,7 +111,16 @@ class FIRFilter:
     resampler. ``filt(x)`` consumes a chunk and returns exactly the
     producible outputs; history, phase and deficit carry to the next
     chunk, so the concatenated chunked output equals the whole-vector
-    output (index decisions exactly; values to float32 reduction order).
+    output (index decisions exactly; values to the reduction order of the
+    output type).
+
+    Taps and chunks may be float32, float64, complex64 or complex128 (and
+    bfloat16 or int8 in the rational family's quantized modes); each
+    chunk's output has the promoted type of taps and chunk, as for
+    ``filt``: float64 taps with a float32 chunk give float64, float32 taps
+    with a complex64 chunk complex64, float64 taps with a complex64 chunk
+    complex128. A chunk of another type than the last casts the carried
+    history to its own type.
 
     The stream runs on ``device`` if one is given, else on the device of
     torch taps; with numpy taps and no ``device``, on its first chunk's
@@ -198,10 +216,10 @@ def setphase(params, state: FilterState, phi) -> FilterState:
 def tapsforphase(params, phase: float) -> torch.Tensor:
     """Taps for a (possibly fractional) 1-based phase index.
 
-    Arbitrary kernel: pfb[:, p] + alpha * dpfb[:, p] in float32, for phase
-    in [1, nphi + 1] (Filters.jl:677-690); Farrow kernel: the polynomial
-    fit evaluated in float64, for phase in [0, nphi + 1]
-    (Filters.jl:764-775). On the kernel's device.
+    Arbitrary kernel: pfb[:, p] + alpha * dpfb[:, p] in the taps' type,
+    for phase in [1, nphi + 1] (Filters.jl:677-690); Farrow kernel: the
+    polynomial fit evaluated in float64 (complex128 for complex taps), for
+    phase in [0, nphi + 1] (Filters.jl:764-775). On the kernel's device.
     """
     if isinstance(params, FIRArbitrary):
         if not 1 <= phase <= params.nphi + 1:
@@ -217,7 +235,7 @@ def tapsforphase(params, phase: float) -> torch.Tensor:
         powers = float(phase) ** torch.arange(
             params.polyorder + 1, dtype=torch.float64,
             device=params.device)
-        return powers @ params.coeffs
+        return powers.to(params.coeffs.dtype) @ params.coeffs
     raise TypeError(
         f"tapsforphase not supported for {type(params).__name__}")
 

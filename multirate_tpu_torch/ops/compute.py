@@ -20,15 +20,24 @@ The JAX package's other selectors (``gridsel``, ``winsel``, ``ratgrid``,
 ``slices``) choose TPU formulations of the same function and have no
 counterpart here.
 
-The rational family runs in the mode its operands set (JAX ``_out_dtype``,
-``compute.py:59-71`` there): bfloat16 taps with a bfloat16 signal run the
-bf16 mode (float32 outputs), int8 with int8 the int8 mode (exact int32
-outputs), and any other pair the float32 mode on upcast operands. A
-kernel's ``store_dtype`` is the output type: the float modes store it
-narrow in the kernel, the int8 mode casts its accumulators at the end, as
-JAX does outside its zero-copy path (``compute.py:1049-1056``). The
-carried history keeps the signal's type. The arbitrary/Farrow kernels
-take float32 signals only.
+Every block runs at JAX's dtype semantics (``_out_dtype``,
+``compute.py:59-71`` there). bfloat16 taps with a bfloat16 signal run the
+bf16 mode (float32 outputs) and int8 with int8 the int8 mode (exact int32
+outputs), both rational family only. Any other pair runs in its promoted
+type, ``torch.promote_types(taps, signal)`` (float32 where that is
+bfloat16): float32, float64, complex64 or complex128. The signal and the
+history are cast to it; the bank to its real type when the taps are real
+(a real bank against complex samples, read interleaved), else to it. So
+float64 taps with a float32 signal give float64, float32 taps with a
+complex64 signal complex64, and float64 taps with a complex64 signal
+complex128; a real signal against complex taps is cast to complex. A
+kernel's ``store_dtype`` is the output type: float32 and bf16 modes store
+it narrow in the kernel, the others cast at the end, as JAX does outside
+its zero-copy path (``compute.py:1049-1056``). The carried history keeps
+the signal's type. The arbitrary/Farrow kernels take no bfloat16 or int8
+signals. This replaces the TPU kernels' float64 modes and their complex
+modes (planar re/im applies and split tap banks) with kernels that read
+complex samples and taps interleaved, as torch stores them.
 
 Leading channel dims share one (phase, deficit) state, as in the JAX
 package, and run as one launch with channels on a grid dimension. There is
@@ -79,21 +88,39 @@ def _rational(params: FIRRational, state):
                         params.decimation, state.phase, state.deficit)
 
 
+def _operand_types(bank_dtype, x_dtype):
+    """(signal type, bank type) of a block outside the quantized modes:
+    the promoted type (JAX ``_out_dtype``; float32 for bfloat16), and for
+    the bank its real type unless the taps are complex."""
+    dt = torch.promote_types(bank_dtype, x_dtype)
+    if not (dt.is_floating_point or dt.is_complex) or dt == torch.bfloat16:
+        dt = torch.float32
+    return dt, (dt if bank_dtype.is_complex else dt.to_real())
+
+
 def _polyphase(fn, store, x, hist, bank, L, M, phi0, d0, count):
     """One polyphase block in the mode its operands set, stored as
     ``store`` (the kernel's ``store_dtype``) if given."""
-    dt = x.dtype if x.dtype == bank.dtype else torch.float32
-    x, hist, bank = x.to(dt), hist.to(dt), bank.to(dt)
-    if dt == torch.int8:
-        y = fn(x, hist, bank, L, M, phi0, d0, count)
-        return y if store is None else y.to(store)
-    return fn(x, hist, bank, L, M, phi0, d0, count, out_dtype=store)
+    if not (x.dtype == bank.dtype and x.dtype in (torch.bfloat16,
+                                                    torch.int8)):
+        xt, bt = _operand_types(bank.dtype, x.dtype)
+        x, hist, bank = x.to(xt), hist.to(xt), bank.to(bt)
+    if store is not None and _pp.ACCUMULATOR[x.dtype] == torch.float32:
+        return fn(x, hist, bank, L, M, phi0, d0, count, out_dtype=store)
+    y = fn(x, hist, bank, L, M, phi0, d0, count)
+    return y if store is None else y.to(store)
 
 
 def _accumulator(params, state):
     """FIRArbitrary and FIRFarrow: the kernel reads its taps' kind from
     ``params`` (JAX ``_arbitrary``/``_farrow``)."""
     return _RESAMPLE, (params, state.phase, state.deficit)
+
+
+def _resample(fn, x, hist, params, u0, d0, count):
+    """One arbitrary/Farrow block in its promoted type."""
+    xt, bt = _operand_types(params.table.dtype, x.dtype)
+    return fn(x.to(xt), hist.to(xt), params.astype(bt), u0, d0, count)
 
 
 _IMPL = {FIRStandard: _standard, FIRInterpolator: _interpolator,
@@ -121,7 +148,8 @@ def _pick_path(x, path: str) -> str:
     return path
 
 
-_SIGNAL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_SIGNAL_DTYPES = (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128, torch.bfloat16, torch.int8)
 
 
 def _check(params, state, x, lead=None):
@@ -130,13 +158,14 @@ def _check(params, state, x, lead=None):
         raise TypeError(f"x must be a torch.Tensor, got {type(x)}")
     if x.dtype not in _SIGNAL_DTYPES:
         raise NotImplementedError(
-            f"signal dtype {x.dtype}: float32, bfloat16 and int8 are ported "
-            f"(float64 and complex: ROADMAP queue 1, item 3)")
-    if x.dtype != torch.float32 and isinstance(params, (FIRArbitrary,
-                                                        FIRFarrow)):
+            f"signal dtype {x.dtype}: float32, float64, complex64, "
+            f"complex128, bfloat16 and int8 are ported")
+    if x.dtype in (torch.bfloat16, torch.int8) and isinstance(
+            params, (FIRArbitrary, FIRFarrow)):
         raise NotImplementedError(
             f"{x.dtype} signals at an arbitrary rate are not ported yet "
-            f"(ROADMAP queue 1): the arbitrary/Farrow kernels take float32")
+            f"(ROADMAP queue 1, item 3: JAX's paths differ on their "
+            f"semantics)")
     for name, dev in (("kernel bank", params.device),
                       ("state history", state.history.device)):
         if dev != x.device:
@@ -171,7 +200,7 @@ def filt_block_raw(params, state: FilterState, x, path: str = "auto"):
         y = _polyphase(paths[path], params.store_dtype, x2, h2, *geometry,
                        count)
     else:
-        y = paths[path](x2, h2, *geometry, count)
+        y = _resample(paths[path], x2, h2, *geometry, count)
     new_state = FilterState(history=_carry_history(params, hist, x),
                             phase=phase, deficit=deficit)
     return y.reshape(*lead, count), count, new_state
@@ -185,7 +214,10 @@ def filt_block_tm_raw(params, state: FilterState, xt, path: str = "auto"):
     The carried history stays channel-major (C, h_min), as in the JAX
     package (``compute.py:1160-1165`` there), so states move freely
     between ``filt_block`` and ``filt_block_tm``. Returns (y, count,
-    new_state) as ``filt_block_raw`` does.
+    new_state) as ``filt_block_raw`` does. The time-major kernel is
+    float32; a block of any other promoted type runs the channel-major
+    block on ``xt.t()`` and transposes back, as JAX does
+    (``compute.py:1122-1131`` there).
     """
     if not isinstance(params, (FIRArbitrary, FIRFarrow)):
         raise TypeError(
@@ -196,15 +228,20 @@ def filt_block_tm_raw(params, state: FilterState, xt, path: str = "auto"):
     E, C = xt.shape
     _check(params, state, xt, (C,))
     path = _pick_path(xt, path)
+    if _operand_types(params.table.dtype, xt.dtype) != (torch.float32,
+                                                        torch.float32):
+        y, count, new_state = filt_block_raw(params, state, xt.t(), path)
+        return y.t().contiguous(), count, new_state
     count, phase, deficit = idx.host_carry(params, state.phase,
                                            state.deficit, E)
-    y = _RESAMPLE_TM[path](xt.contiguous(), state.history.contiguous(),
-                           params, state.phase, state.deficit, count)
+    hist = state.history.to(xt.dtype)
+    y = _RESAMPLE_TM[path](xt.contiguous(), hist.contiguous(), params,
+                           state.phase, state.deficit, count)
     H = params.h_min
     if E >= H:
         tail = xt[E - H:].t()
     else:
-        tail = torch.cat([state.history[:, E:], xt.t()], dim=-1)
+        tail = torch.cat([hist[:, E:], xt.t()], dim=-1)
     new_state = FilterState(
         history=tail.clone(memory_format=torch.contiguous_format),
         phase=phase, deficit=deficit)

@@ -9,8 +9,9 @@ takes seconds):
          csrc/<name>.cu
 
 The output goes to ``build/`` at the repository root, at first use, in a
-directory keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once. ``-Xptxas=-v`` writes each
+directory keyed by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once. ``-Xptxas=-v`` writes each
 kernel's registers, shared memory and spills to ``build.log`` beside the
 library. Nothing is built when a module is imported.
 """
@@ -26,8 +27,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load_polyphase",
-           "load_resample"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "check_aligned",
+           "load_polyphase", "load_resample"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -48,6 +49,8 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` if needed; return the library's path."""
     src = CSRC_DIR / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        key.update(header.read_bytes())
     out_dir = BUILD_DIR / f"{name}-{key.hexdigest()[:16]}"
     lib = out_dir / f"lib{name}.so"
     if lib.is_file():
@@ -90,13 +93,27 @@ def load_polyphase() -> ctypes.CDLL:
 @functools.cache
 def load_resample() -> ctypes.CDLL:
     """The arbitrary/Farrow kernel library (built at first use), argtypes
-    set."""
+    set for ``mr_resample_f32`` (which also takes the layout) and each
+    channel-major entry point ``mr_resample_<name>`` of
+    ``resample.ENTRIES``."""
+    from .resample import ENTRIES
+
     lib = ctypes.CDLL(str(build("resample")))
     p, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
                         ctypes.c_int)
-    lib.mr_resample_f32.argtypes = [p, p, p, p, i64, i64, i32, i32, i32,
-                                    u64, u64, i64, i64, i32, p]
-    lib.mr_resample_f32.restype = i32
+    args = [p, p, p, p, i64, i64, i32, i32, i32, u64, u64, i64, i64]
+    for name in ENTRIES.values():
+        fn = getattr(lib, f"mr_resample_{name}")
+        fn.argtypes = args + ([i32] if name == "f32" else []) + [p]
+        fn.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_aligned(**tensors):
+    """Raise unless each tensor's data lies at a multiple of its element
+    size: the kernels load a complex128 sample as one 16-byte word."""
+    for name, t in tensors.items():
+        if t.data_ptr() % t.element_size():
+            raise ValueError(f"{name} is not aligned to its element size")

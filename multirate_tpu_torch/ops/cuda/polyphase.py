@@ -6,26 +6,29 @@
     y[c, n] = sum_{t < T} xext[c, in_n - 1 + t] * bank[t, phi_n]
 
 with xext = [hist ++ x] and hist the trailing T - 1 samples. This is what
-the TPU kernel ``multirate_tpu/ops/pallas/rational2.py``
-``rational_supercycle_zc`` computes for the rational family, and the
-float32 and bf16 cases of ``rational_supercycle_grouped`` and the float32
-real case of ``multirate_tpu/ops/pallas/rational.py``
-``rational_supercycle_pallas``.
+the TPU kernels compute for the rational family:
+``multirate_tpu/ops/pallas/rational2.py`` ``rational_supercycle_zc`` and
+``rational_supercycle_grouped``, and ``multirate_tpu/ops/pallas/rational.py``
+``rational_supercycle_pallas``, in every mode they run: float32, bf16,
+int8, float64, and complex as planar re/im applies.
 
-x, hist and bank share one storage type, which sets the mode (JAX
-``compute._out_dtype``):
+x and hist share the signal type; the bank has the tap type. The pair sets
+the mode (JAX ``compute._out_dtype``), one kernel entry point each:
 
-- float32: float32 products and sums;
+- float32 or float64 with taps of the same type: products and sums in it;
 - bfloat16: exact bf16 products summed in float32, float32 output (the
   TPU's single bf16 pass with f32 accumulation);
-- int8: exact int32 accumulators, int32 output.
+- int8: exact int32 accumulators, int32 output;
+- complex64 or complex128 samples (interleaved, as torch stores them)
+  against real taps of their precision (2 real multiply-adds a tap) or
+  complex taps of their type (4), complex sums and output.
 
-``out_dtype`` stores the float modes' output narrow (bfloat16 or float16,
-round to nearest even: JAX ``store_dtype``). On a CUDA tensor the wrapper
-launches the hand-written kernel in ``csrc/polyphase.cu`` (see its header
-for the design and what bounds it), one entry point per (storage, output)
-pair; on a CPU tensor it runs ``polyphase_plain``, the same function in
-plain PyTorch. There is no fallback from one to the other.
+``out_dtype`` stores the float32 and bf16 modes' output narrow (bfloat16
+or float16, round to nearest even: JAX ``store_dtype``). On a CUDA tensor
+the wrapper launches the hand-written kernel in ``csrc/polyphase.cu`` (see
+its header for the design and what bounds it); on a CPU tensor it runs
+``polyphase_plain``, the same function in plain PyTorch. There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -34,24 +37,31 @@ import torch
 
 from ..indexing import rational_indices
 from ..precision import fp32
-from .build import load_polyphase
+from .build import check_aligned, load_polyphase
 
 __all__ = ["polyphase", "polyphase_plain", "launches"]
 
 # The kernel's entry point (``mr_polyphase_<name>``, one instantiation of
-# csrc/polyphase.cu) for each (storage, output) dtype pair, and each
-# storage type's accumulator (its default output).
+# csrc/polyphase.cu) for each (signal, taps, output) dtype triple, and each
+# signal type's accumulator (its default output).
+_F32, _F64, _C64, _C128 = (torch.float32, torch.float64, torch.complex64,
+                           torch.complex128)
 ENTRIES = {
-    (torch.float32, torch.float32): "f32",
-    (torch.bfloat16, torch.float32): "bf16",
-    (torch.int8, torch.int32): "s8",
-    (torch.float32, torch.bfloat16): "f32_bf16out",
-    (torch.float32, torch.float16): "f32_f16out",
-    (torch.bfloat16, torch.bfloat16): "bf16_bf16out",
-    (torch.bfloat16, torch.float16): "bf16_f16out",
+    (_F32, _F32, _F32): "f32",
+    (torch.bfloat16, torch.bfloat16, _F32): "bf16",
+    (torch.int8, torch.int8, torch.int32): "s8",
+    (_F32, _F32, torch.bfloat16): "f32_bf16out",
+    (_F32, _F32, torch.float16): "f32_f16out",
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16): "bf16_bf16out",
+    (torch.bfloat16, torch.bfloat16, torch.float16): "bf16_f16out",
+    (_F64, _F64, _F64): "f64",
+    (_C64, _F32, _C64): "c64",
+    (_C64, _C64, _C64): "c64c",
+    (_C128, _F64, _C128): "c128",
+    (_C128, _C128, _C128): "c128c",
 }
-ACCUMULATOR = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
-               torch.int8: torch.int32}
+ACCUMULATOR = {_F32: _F32, torch.bfloat16: _F32, torch.int8: torch.int32,
+               _F64: _F64, _C64: _C64, _C128: _C128}
 
 # Kernel launches made by ``polyphase`` in this process, by entry point.
 # Each grows by one where its kernel is launched and nowhere else; a caller
@@ -64,11 +74,12 @@ _LIMIT = 1 << 20  # L and M bound: keeps in-tile offsets inside int32
 def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
                     n_out: int, out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version: int64 index vectors, a window gather and a
-    contraction. Float modes widen to float32 and contract with an einsum
-    under ``fp32()`` (bf16 products are exact in float32); int8 widens to
-    int32 and sums exact products (an int8 einsum would wrap in int8, and
-    the card has no integer matmul). Runs on any device; arguments as for
-    ``polyphase``."""
+    contraction. The float modes contract with an einsum under ``fp32()``
+    in the accumulator's type: float32 for float32 and bf16 (bf16 products
+    are exact in float32), else the signal's own type (float64, complex64
+    or complex128, real taps cast to it). int8 widens to int32 and sums
+    exact products (an int8 einsum would wrap in int8, and the card has no
+    integer matmul). Runs on any device; arguments as for ``polyphase``."""
     T = bank.shape[0]
     xext = torch.cat([hist, x], dim=-1)
     inp, phi = rational_indices(L, M, phi0, d0, n_out, device=x.device)
@@ -79,18 +90,19 @@ def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
         y = (windows.to(torch.int32) * taps.to(torch.int32)).sum(
             -1, dtype=torch.int32)
     else:
+        acc = ACCUMULATOR[x.dtype]
         with fp32():
-            y = torch.einsum("cnt,nt->cn", windows.float(), taps.float())
+            y = torch.einsum("cnt,nt->cn", windows.to(acc), taps.to(acc))
     return y if out_dtype is None else y.to(out_dtype)
 
 
 def _check(x, hist, bank, L, M, phi0, d0, n_out, out_dtype):
-    if (x.dtype, out_dtype) not in ENTRIES:
-        raise TypeError(f"no polyphase kernel for {x.dtype} samples with "
-                        f"{out_dtype} outputs")
+    if (x.dtype, bank.dtype, out_dtype) not in ENTRIES:
+        raise TypeError(f"no polyphase kernel for {x.dtype} samples, "
+                        f"{bank.dtype} taps and {out_dtype} outputs")
     for name, t in (("x", x), ("hist", hist), ("bank", bank)):
-        if t.dtype != x.dtype:
-            raise TypeError(f"{name} is {t.dtype}, x {x.dtype}")
+        if name == "hist" and t.dtype != x.dtype:
+            raise TypeError(f"hist is {t.dtype}, x {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -117,12 +129,13 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
               n_out: int, out_dtype=None) -> torch.Tensor:
     """y (C, n_out) from x (C, xlen), hist (C, T-1) and bank (T, L).
 
-    x, hist and bank are float32, bfloat16 or int8, one type, contiguous on
-    one device; (phi0, d0) is the 1-based entry phase and deficit, and
-    n_out the exact output count (``indexing.host_carry``). ``out_dtype``
-    is the output type, by default the accumulator's (float32, or int32
-    for int8); the float modes also store bfloat16 or float16. Raises on
-    anything the kernel does not take.
+    x and hist share the signal type and bank has the tap type, a pair of
+    ``ENTRIES``, all contiguous on one device; (phi0, d0) is the 1-based
+    entry phase and deficit, and n_out the exact output count
+    (``indexing.host_carry``). ``out_dtype`` is the output type, by
+    default the accumulator's (``ACCUMULATOR``: the signal's type, float32
+    for bfloat16, int32 for int8); float32 and bf16 signals also store
+    bfloat16 or float16. Raises on anything the kernel does not take.
     """
     if x.dtype not in ACCUMULATOR:
         raise TypeError(f"no polyphase kernel for {x.dtype} samples")
@@ -133,10 +146,11 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
                                out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no polyphase kernel for device {x.device}")
+    check_aligned(x=x, hist=hist, bank=bank)
     y = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
-    name = ENTRIES[x.dtype, out_dtype]
+    name = ENTRIES[x.dtype, bank.dtype, out_dtype]
     entry = getattr(load_polyphase(), f"mr_polyphase_{name}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -17,11 +17,16 @@ kernel entered at accumulator u0 and deficit d0,
 with xext = [hist ++ x] and hist the trailing T - 1 samples, channel-major
 (C, T - 1) in both layouts. This is what the TPU kernels of
 ``multirate_tpu/ops/pallas/`` gridsel.py, select4.py, select3.py and
-select.py compute for the arbitrary/Farrow family. On a CUDA tensor the
-wrappers launch the hand-written kernel in ``csrc/resample.cu`` (see its
-header for the design and what bounds it); on a CPU tensor they run
-``resample_plain`` / ``resample_tm_plain``, the same function in plain
+select.py compute for the arbitrary/Farrow family, in float32, float64 and
+complex (JAX runs complex as re/im planes and split tap banks). On a CUDA
+tensor the wrappers launch the hand-written kernel in ``csrc/resample.cu``
+(see its header for the design and what bounds it); on a CPU tensor they
+run ``resample_plain`` / ``resample_tm_plain``, the same function in plain
 PyTorch. There is no fallback from one to the other.
+
+x and hist share the signal type; the table is its real type, or its own
+type for complex taps (``ENTRIES``); y has the signal's type. The
+time-major kernel is float32 only.
 """
 
 from __future__ import annotations
@@ -33,32 +38,47 @@ from ..params import PHASE_FRAC_BITS, FIRArbitrary, FIRFarrow
 from ..precision import fp32
 
 __all__ = ["resample", "resample_tm", "resample_plain", "resample_tm_plain",
-           "launches", "launches_tm"]
+           "launches", "launches_tm", "ENTRIES"]
 
-# Kernel launches made by ``resample`` and by ``resample_tm`` in this
-# process. Each grows by one where its kernel is launched and nowhere else;
-# a caller may reset them.
-launches = 0
+# The kernel's channel-major entry point (``mr_resample_<name>``, one
+# instantiation of csrc/resample.cu) for each (signal, table) dtype pair.
+ENTRIES = {
+    (torch.float32, torch.float32): "f32",
+    (torch.float64, torch.float64): "f64",
+    (torch.complex64, torch.float32): "c64",
+    (torch.complex64, torch.complex64): "c64c",
+    (torch.complex128, torch.float64): "c128",
+    (torch.complex128, torch.complex128): "c128c",
+}
+
+# Kernel launches made by ``resample`` (by entry point) and by
+# ``resample_tm`` (float32) in this process. Each grows by one where its
+# kernel is launched and nowhere else; a caller may reset them.
+launches = dict.fromkeys(ENTRIES.values(), 0)
 launches_tm = 0
 
 _N_OUT_LIMIT = 1 << 40  # keeps u0 + n_out*delta_fx below the kernel's 2^96
 
 
 def _taps_plain(params, phi, frac):
-    """(n, T) float32 taps, as the JAX ``windows`` path forms them."""
+    """(n, T) taps in the table's type, as the JAX ``windows`` path forms
+    them: arbitrary from the banks and alpha in their precision, Farrow
+    from the float64 (or complex128) fit evaluated at psi."""
+    tdt = params.table.dtype
     if isinstance(params, FIRArbitrary):
-        alpha = frac.to(torch.float32)[:, None]
+        alpha = frac.to(tdt.to_real())[:, None]
         return params.pfb.t()[phi] + alpha * params.dpfb.t()[phi]
     psi = 1.0 + phi.to(torch.float64) + frac
     powers = psi[:, None] ** torch.arange(
         params.polyorder + 1, dtype=torch.float64, device=psi.device)[None, :]
-    return (powers @ params.coeffs).to(torch.float32)
+    return (powers.to(params.coeffs.dtype) @ params.coeffs).to(tdt)
 
 
 def resample_plain(x, hist, params, u0: int, d0: int,
                    n_out: int) -> torch.Tensor:
     """Plain PyTorch version of ``resample``: int64 accumulator indices, a
-    window gather and a float32 einsum. Runs on any device."""
+    window gather and an einsum in the signal's type (real taps cast to
+    it). Runs on any device."""
     T = params.taps_per_phi
     xext = torch.cat([hist, x], dim=-1)
     inp, phi, frac = accum_indices(params.nphi, params.delta_fx, u0, d0,
@@ -67,7 +87,7 @@ def resample_plain(x, hist, params, u0: int, d0: int,
     windows = xext[:, ind]                        # (C, n_out, T)
     with fp32():
         taps = _taps_plain(params, phi, frac)     # (n_out, T)
-        return torch.einsum("cnt,nt->cn", windows, taps)
+        return torch.einsum("cnt,nt->cn", windows, taps.to(x.dtype))
 
 
 def resample_tm_plain(xt, hist, params, u0: int, d0: int,
@@ -80,9 +100,14 @@ def _check(x, hist, params, u0, d0, n_out, time_major):
     if not isinstance(params, (FIRArbitrary, FIRFarrow)):
         raise TypeError(f"resample takes FIRArbitrary or FIRFarrow, got "
                         f"{type(params).__name__}")
+    pair = (x.dtype, params.table.dtype)
+    if pair not in ENTRIES or (time_major and ENTRIES[pair] != "f32"):
+        raise TypeError(f"no {'time-major ' if time_major else ''}resample "
+                        f"kernel for {x.dtype} samples and a "
+                        f"{params.table.dtype} table")
     for name, t in (("x", x), ("hist", hist), ("table", params.table)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if name == "hist" and t.dtype != x.dtype:
+            raise TypeError(f"hist is {t.dtype}, x {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -111,59 +136,62 @@ def _check(x, hist, params, u0, d0, n_out, time_major):
 
 
 def _launch(x, hist, params, u0, d0, n_out, time_major):
-    """(y, whether the kernel was launched): nothing runs for no output."""
+    """(y, the entry point launched or None): nothing runs for no output."""
     C, xlen = (x.shape[1], x.shape[0]) if time_major else x.shape
     shape = (n_out, C) if time_major else (C, n_out)
-    y = torch.empty(shape, dtype=torch.float32, device=x.device)
+    y = torch.empty(shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y, False
-    from .build import load_resample
+        return y, None
+    from .build import check_aligned, load_resample
 
+    check_aligned(x=x, hist=hist, table=params.table)
+    name = ENTRIES[x.dtype, params.table.dtype]
     lib = load_resample()
+    layout = (int(time_major),) if name == "f32" else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mr_resample_f32(
+        err = getattr(lib, f"mr_resample_{name}")(
             x.data_ptr(), hist.data_ptr(), params.table.data_ptr(),
             y.data_ptr(), C, xlen, params.taps_per_phi, params.nphi,
             params.table.shape[0], params.delta_fx, u0, d0, n_out,
-            int(time_major), stream)
+            *layout, stream)
     if err != 0:
         raise RuntimeError("resample kernel launch failed: "
                            + lib.mr_error_string(err).decode())
-    return y, True
+    return y, name
 
 
 def resample(x, hist, params, u0: int, d0: int, n_out: int) -> torch.Tensor:
     """y (C, n_out) from x (C, xlen) and hist (C, T-1), channel-major.
 
-    ``params`` is an FIRArbitrary or FIRFarrow kernel on x's device;
-    (u0, d0) the entry accumulator and deficit, n_out the exact output
-    count (``indexing.host_carry``). Raises on anything the kernel does
-    not take.
+    ``params`` is an FIRArbitrary or FIRFarrow kernel on x's device whose
+    table pairs with x's type in ``ENTRIES``; (u0, d0) the entry
+    accumulator and deficit, n_out the exact output count
+    (``indexing.host_carry``). Raises on anything the kernel does not
+    take.
     """
-    global launches
     _check(x, hist, params, u0, d0, n_out, time_major=False)
     if x.device.type == "cpu":
         return resample_plain(x, hist, params, u0, d0, n_out)
     if x.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {x.device}")
-    y, launched = _launch(x, hist, params, u0, d0, n_out, time_major=False)
-    if launched:
-        launches += 1
+    y, name = _launch(x, hist, params, u0, d0, n_out, time_major=False)
+    if name is not None:
+        launches[name] += 1
     return y
 
 
 def resample_tm(xt, hist, params, u0: int, d0: int,
                 n_out: int) -> torch.Tensor:
     """y (n_out, C) from time-major xt (xlen, C) and channel-major hist
-    (C, T-1); otherwise as ``resample``."""
+    (C, T-1), all float32; otherwise as ``resample``."""
     global launches_tm
     _check(xt, hist, params, u0, d0, n_out, time_major=True)
     if xt.device.type == "cpu":
         return resample_tm_plain(xt, hist, params, u0, d0, n_out)
     if xt.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {xt.device}")
-    y, launched = _launch(xt, hist, params, u0, d0, n_out, time_major=True)
-    if launched:
+    y, name = _launch(xt, hist, params, u0, d0, n_out, time_major=True)
+    if name is not None:
         launches_tm += 1
     return y

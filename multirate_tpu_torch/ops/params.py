@@ -3,7 +3,7 @@
 Counterpart of ``multirate_tpu/ops/params.py``. The reference holds mutable
 kernel objects (Filters.jl:15-147) plus a ``FIRFilter`` wrapper with a
 mutable ``history`` vector (Filters.jl:151-155). Here a kernel is a frozen
-dataclass of float32 filter-bank tensors plus static numbers, and all
+dataclass of filter-bank tensors plus static numbers, and all
 cross-call streaming state lives in a small ``FilterState``:
 
     y, count, state' = filt_block(params, state, x_block)
@@ -15,11 +15,18 @@ banded matrix ``k_super``, the zero-copy K stacks ``k_zc_hi``/``k_zc_lo``
 ``ratgrid_meta`` and ``k_ratgrid``. The Hopper kernels compute every output
 straight from a polyphase bank, so nothing else is needed.
 
-Rational-family banks keep the taps' storage type: float32, or bfloat16
-and int8 for the quantized modes (``ops/quant.py``); any other real type
-becomes float32. Their kernels may also carry a narrow ``store_dtype``
-for their outputs. The arbitrary and Farrow banks are float32 (the Farrow
-fit also float64). Complex taps are a later slice (ROADMAP queue 1).
+Banks keep their taps' type (``storage_dtype``): float32, float64,
+complex64 and complex128, and for the rational family also bfloat16 and
+int8 (the quantized modes, ``ops/quant.py``); any other real type becomes
+float32. Rational-family kernels may also carry a narrow ``store_dtype``
+for their outputs. The arbitrary table (``pfb``, ``dpfb``) and the Farrow
+table are in the taps' type too; the Farrow fit ``coeffs`` is float64, or
+complex128 for complex taps, as JAX keeps it. These banks replace the K
+stacks and tap planes of every TPU kernel mode: the float32, bf16, int8,
+float64 and complex modes of ``rational_supercycle_zc``,
+``rational_supercycle_grouped`` and ``rational_supercycle_pallas``, and
+the float32, float64 and complex modes of the arbitrary/Farrow kernels
+(``gridsel``, ``select4``, ``select3``, ``select``).
 
 A kernel lives on the device it is given, else on the device of torch
 taps, else on the card (``default_device``): the CPU only when named.
@@ -77,14 +84,19 @@ def to_tensor(a, device=None) -> torch.Tensor:
 
 
 _QUANTIZED = (torch.bfloat16, torch.int8)
+_WIDE = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 _STORE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def storage_dtype(dtype: torch.dtype) -> torch.dtype:
+def storage_dtype(dtype: torch.dtype, quantized: bool = True) -> torch.dtype:
     """The type a bank or history of ``dtype`` values is stored in:
-    bfloat16 and int8 (the quantized modes) stay, any other real type
-    becomes float32."""
-    return dtype if dtype in _QUANTIZED else torch.float32
+    float32, float64, complex64 and complex128 stay, and so do bfloat16
+    and int8 where the quantized modes apply (``quantized``: the rational
+    family); any other complex type becomes complex64 and any other type
+    float32."""
+    if dtype in _WIDE or (quantized and dtype in _QUANTIZED):
+        return dtype
+    return torch.complex64 if dtype.is_complex else torch.float32
 
 
 def store_dtype_of(sd):
@@ -101,23 +113,14 @@ def store_dtype_of(sd):
     return _STORE_DTYPES[name]
 
 
-def _real_taps(h) -> np.ndarray:
-    """Taps as a real host array in their own dtype (bfloat16 as float32)."""
-    t = to_tensor(h).detach().cpu()
-    if t.is_complex():
-        raise NotImplementedError(
-            "complex taps are not ported yet (ROADMAP queue 1, item 3)")
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-
-def _host_taps(h):
+def _host_taps(h, quantized: bool = True):
     """(host taps, bank dtype): the taps' storage type, and the taps as a
-    float32 host array (int8 for int8; bfloat16 values ride in float32
-    exactly)."""
-    t = to_tensor(h)
-    dtype = storage_dtype(t.dtype)
-    host = _real_taps(t)
-    return host.astype(np.int8 if dtype == torch.int8 else np.float32), dtype
+    host array in it (bfloat16 values ride in float32 exactly: numpy has
+    no bfloat16 of its own)."""
+    t = to_tensor(h).detach().cpu()
+    dtype = storage_dtype(t.dtype, quantized)
+    host = t.to(torch.float32 if dtype == torch.bfloat16 else dtype)
+    return host.numpy(), dtype
 
 
 def _device_of(h, device):
@@ -308,14 +311,20 @@ class FIRArbitrary(_Kernel):
     def create(cls, h, rate: float, nphi: int = 32,
                device=None) -> "FIRArbitrary":
         rate = _check_rate(rate)
-        taps = _real_taps(h)
+        taps, dtype = _host_taps(h, quantized=False)
         dh = np.concatenate([np.diff(taps), np.zeros(1, dtype=taps.dtype)])
         table = np.stack([_pfb.taps2pfb(taps, nphi),
                           _pfb.taps2pfb(dh, nphi)])
-        return cls(table=_to(table.astype(np.float32),
-                             _device_of(h, device)), nphi=nphi,
-                   taps_per_phi=table.shape[1], rate=rate,
+        return cls(table=_to(table, _device_of(h, device), dtype),
+                   nphi=nphi, taps_per_phi=table.shape[1], rate=rate,
                    delta_fx=_delta_fx(nphi, rate))
+
+    def astype(self, dtype: torch.dtype) -> "FIRArbitrary":
+        """This kernel with its table in ``dtype``, a type at least as wide
+        (an exact cast, as JAX's ``pfb.astype`` before its TPU kernel)."""
+        if dtype == self.table.dtype:
+            return self
+        return dataclasses.replace(self, table=self.table.to(dtype))
 
     @property
     def pfb(self) -> torch.Tensor:
@@ -330,24 +339,28 @@ class FIRArbitrary(_Kernel):
         return self.table
 
 
-def farrow_table(coeffs: np.ndarray, nphi: int) -> np.ndarray:
-    """The Farrow tap polynomials re-centred at each phase, in float64.
+def farrow_table(coeffs, nphi: int) -> torch.Tensor:
+    """The Farrow tap polynomials re-centred at each phase, in float64
+    (complex128 for complex coefficients), on ``coeffs``' device.
 
-    ``coeffs`` (P+1, T) gives tap t at the 1-based fractional phase psi as
-    sum_k coeffs[k, t] * psi^k. Returns (P+1, T, nphi) with
+    ``coeffs`` (P+1, T), a tensor or an array, gives tap t at the 1-based
+    fractional phase psi as sum_k coeffs[k, t] * psi^k. Returns (P+1, T,
+    nphi) with
     table[p, t, phi] = sum_{k >= p} coeffs[k, t] * binom(k, p) * (phi+1)^(k-p),
     so tap t at psi = phi + 1 + alpha is sum_p table[p, t, phi] * alpha^p
     for alpha in [0, 1): a short, well-conditioned polynomial the kernel
-    evaluates in float32 (Horner over psi up to nphi + 1 would cancel
-    terms of size psi^P).
+    evaluates in the table's type (Horner over psi up to nphi + 1 would
+    cancel terms of size psi^P).
     """
-    coeffs = np.asarray(coeffs, np.float64)
-    P1 = coeffs.shape[0]
-    psi0 = np.arange(1, nphi + 1, dtype=np.float64)
-    table = np.zeros((P1, coeffs.shape[1], nphi))
+    c = torch.as_tensor(coeffs)
+    c = c.to(torch.complex128 if c.is_complex() else torch.float64)
+    P1 = c.shape[0]
+    psi0 = torch.arange(1, nphi + 1, dtype=torch.float64, device=c.device)
+    table = torch.zeros((P1, c.shape[1], nphi), dtype=c.dtype,
+                        device=c.device)
     for p in range(P1):
         for k in range(p, P1):
-            table[p] += (math.comb(k, p) * coeffs[k][:, None]
+            table[p] += (math.comb(k, p) * c[k][:, None]
                          * psi0[None, :] ** (k - p))
     return table
 
@@ -359,13 +372,14 @@ class FIRFarrow(_Kernel):
 
     Each bank tap row is fitted with a degree-``polyorder`` polynomial
     across phases (pfb2pnfb, Filters.jl:311-321): ``coeffs`` (P+1, T),
-    kept in float64 as JAX keeps it. The kernel reads ``table``, the same
-    polynomials re-centred at each phase (``farrow_table``) in float32.
+    kept in float64 (complex128 for complex taps) as JAX keeps it. The
+    kernel reads ``table``, the same polynomials re-centred at each phase
+    (``farrow_table``) in the taps' type.
     """
 
-    pfb: torch.Tensor     # (taps_per_phi, nphi) float32
-    coeffs: torch.Tensor  # (polyorder+1, taps_per_phi) float64 fit
-    table: torch.Tensor   # (polyorder+1, taps_per_phi, nphi) float32
+    pfb: torch.Tensor     # (taps_per_phi, nphi), the taps' type
+    coeffs: torch.Tensor  # (polyorder+1, taps_per_phi) float64/complex128
+    table: torch.Tensor   # (polyorder+1, taps_per_phi, nphi), pfb's type
     nphi: int = 32
     taps_per_phi: int = 0
     rate: float = 1.0
@@ -376,7 +390,7 @@ class FIRFarrow(_Kernel):
     def create(cls, h, rate: float, nphi: int, polyorder: int,
                device=None) -> "FIRFarrow":
         rate = _check_rate(rate)
-        bank = _pfb.taps2pfb(_real_taps(h), nphi)
+        bank = _pfb.taps2pfb(_host_taps(h, quantized=False)[0], nphi)
         return cls.from_fit(bank, _pfb.pfb2pnfb(bank, polyorder), nphi,
                             rate, _delta_fx(nphi, rate),
                             _device_of(h, device))
@@ -385,12 +399,24 @@ class FIRFarrow(_Kernel):
     def from_fit(cls, pfb, coeffs, nphi: int, rate: float, delta_fx: int,
                  device) -> "FIRFarrow":
         """The kernel from a bank and its fit (the JAX kernel's fields)."""
-        coeffs = np.array(coeffs, np.float64)  # a copy: JAX's are read-only
-        table = farrow_table(coeffs, nphi).astype(np.float32)
-        return cls(pfb=_to(np.asarray(pfb, np.float32), device),
-                   coeffs=_to(coeffs, device), table=_to(table, device),
+        pfb = to_tensor(pfb)
+        dtype = storage_dtype(pfb.dtype, quantized=False)
+        coeffs = np.array(coeffs)  # a copy: JAX's are read-only
+        coeffs = coeffs.astype(np.complex128 if np.iscomplexobj(coeffs)
+                               else np.float64)
+        return cls(pfb=_to(pfb, device, dtype), coeffs=_to(coeffs, device),
+                   table=_to(farrow_table(coeffs, nphi), device, dtype),
                    nphi=nphi, taps_per_phi=coeffs.shape[1], rate=rate,
                    delta_fx=delta_fx, polyorder=coeffs.shape[0] - 1)
+
+    def astype(self, dtype: torch.dtype) -> "FIRFarrow":
+        """This kernel with its table in ``dtype``, a type at least as
+        wide. A wider table is re-centred anew from ``coeffs``, so it
+        carries no float32 rounding (JAX casts the float64 fit itself)."""
+        if dtype == self.table.dtype:
+            return self
+        return dataclasses.replace(
+            self, table=farrow_table(self.coeffs, self.nphi).to(dtype))
 
     @property
     def bank(self) -> torch.Tensor:
@@ -427,7 +453,9 @@ def init_state(params, batch_shape=(), dtype=torch.float32,
                device=None) -> FilterState:
     """Initial state: zero history, phase 1 (rational) or 0, deficit 1.
 
-    The history lives on ``device``, by default the kernel's own device.
+    ``dtype`` is the signal's type, complex included (a block casts the
+    history to its signal's type, as JAX's [history ++ x] does). The
+    history lives on ``device``, by default the kernel's own device.
     """
     dev = params.device if device is None else torch.device(device)
     hist = torch.zeros((*batch_shape, params.h_min), dtype=dtype,

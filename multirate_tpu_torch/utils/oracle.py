@@ -80,7 +80,19 @@ def naivefilt_farrow(h, x, rate: float, numfilters: int = 32,
     correctness. This oracle reproduces the polynomial method in float64
     with the exact integer index walk, so kernels can be held to their
     own numerical error.
+
+    Complex signals and taps go by linearity, their real and imaginary
+    parts each through the float64 method (the JAX package's copy casts
+    to float64 and drops the imaginary parts).
     """
+    x, h = np.asarray(x), np.asarray(h)
+    if np.iscomplexobj(x) or np.iscomplexobj(h):
+        def part(hp, xp):
+            return naivefilt_farrow(hp, xp, rate, numfilters, polyorder)
+        if np.iscomplexobj(x):
+            return part(h, x.real) + 1j * part(h, x.imag)
+        return part(h.real, x) + 1j * part(h.imag, x)
+
     from ..ops import indexing as idx
     from ..ops import pfb as _pfb
     from ..ops.params import _delta_fx

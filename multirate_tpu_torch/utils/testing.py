@@ -3,7 +3,8 @@
 The reference's custom vector isapprox reports the index of the first
 failing element (runtests.jl:18-35); these helpers do the same, plus dump a
 side-by-side neighborhood for debugging. ``ulps_apart`` measures narrow
-(bfloat16, float16) outputs in units of their own spacing.
+(bfloat16, float16) outputs in units of their own spacing, and
+``rel_max_err`` real or complex outputs against the largest magnitude.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["first_divergence", "assert_close", "rms", "ulps_apart"]
+__all__ = ["first_divergence", "assert_close", "rms", "ulps_apart",
+           "rel_max_err"]
 
 # significant bits and the exponent of the smallest spacing (subnormal)
 _SPACING = {torch.bfloat16: (8, -133), torch.float16: (11, -24)}
@@ -34,6 +36,21 @@ def ulps_apart(a: torch.Tensor, b: torch.Tensor, dtype,
     exp = torch.frexp(torch.maximum(a.abs(), b.abs())).exponent
     ulp = torch.ldexp(torch.ones_like(a), torch.clamp(exp - bits, min=tiny))
     return float(((a - b).abs() / ulp.clamp(min=floor)).max())
+
+
+def rel_max_err(got, want) -> float:
+    """max|got - want| / max|want| over real or complex arrays or tensors
+    (on any device), in complex128: the modulus of a complex difference,
+    never its real part alone. Shapes must agree; 0 for empty arrays."""
+    got, want = (v.detach().cpu().to(torch.complex128).numpy()
+                 if isinstance(v, torch.Tensor)
+                 else np.asarray(v).astype(np.complex128)
+                 for v in (got, want))
+    if got.shape != want.shape:
+        raise ValueError(f"shapes differ: {got.shape}, {want.shape}")
+    if got.size == 0:
+        return 0.0
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
 
 
 def rms(a, b) -> float:

@@ -389,7 +389,7 @@ def test_cpu_wrappers_run_plain_without_counting(taps, signal):
     x = torch.from_numpy(signal[:4_000]).view(1, -1)
     hist = torch.zeros(1, p.h_min)
     n = mt.outputlength(p, 4_000)
-    before = (rs.launches, rs.launches_tm)
+    before = (dict(rs.launches), rs.launches_tm)
     y = rs.resample(x, hist, p, 0, 1, n)
     yt = rs.resample_tm(x.t().contiguous(), hist, p, 0, 1, n)
     assert (rs.launches, rs.launches_tm) == before
@@ -443,10 +443,12 @@ def test_make_kernel_dispatch_and_errors(taps):
             mt.make_kernel(taps, rate=bad_rate, device="cpu")
     with pytest.raises(ValueError, match="exact-arithmetic"):
         mt.make_kernel(taps, rate=0.001, nphi=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="complex"):
-        mt.make_kernel(taps.astype(np.complex64), rate=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="float64"):
-        mt.filt(taps, torch.zeros(100, dtype=torch.float64), 0.5)
+    c = mt.make_kernel(taps.astype(np.complex64), rate=0.5, device="cpu")
+    assert c.table.dtype == torch.complex64
+    assert mt.filt(taps, torch.zeros(100, dtype=torch.float64),
+                   0.5).dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        mt.filt(taps, torch.zeros(100, dtype=torch.bfloat16), 0.5)
     rat = mt.make_kernel(taps, ratio=Fraction(3, 2), device="cpu")
     st = mt.init_state(rat, (2,))
     with pytest.raises(TypeError, match="time-major"):

@@ -465,16 +465,17 @@ def test_ulps_apart():
 
 
 def test_entry_points_match_the_source():
-    """Every (storage, output) pair the wrapper launches is an entry point
-    that csrc/polyphase.cu instantiates with those types."""
+    """Every (signal, taps, output) triple the wrapper launches is an entry
+    point that csrc/polyphase.cu instantiates with those types."""
     src = (build.CSRC_DIR / "polyphase.cu").read_text()
     ctype = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
              torch.float16: "__half", torch.int8: "int8_t",
-             torch.int32: "int32_t"}
+             torch.int32: "int32_t", torch.float64: "double",
+             torch.complex64: "float2", torch.complex128: "double2"}
     assert src.count("MR_POLYPHASE(") - 1 == len(pp.ENTRIES)  # + #define
-    for (dt_in, dt_out), name in pp.ENTRIES.items():
-        assert (f"MR_POLYPHASE({name}, {ctype[dt_in]}, {ctype[dt_out]})"
-                in src)
+    for types, name in pp.ENTRIES.items():
+        assert (f"MR_POLYPHASE({name}, "
+                + ", ".join(ctype[t] for t in types) + ")") in src
     assert set(pp.launches) == set(pp.ENTRIES.values())
 
 
