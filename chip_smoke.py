@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card: the 48 kHz -> 44.1 kHz rational
+Drives the port's paths on the card: the 48 kHz -> 44.1 kHz rational
 resample ``filt(h, x, Fraction(147, 160))`` with 24*147 Kaiser taps on
-float32, and arbitrary-rate and Farrow resampling with ``bench.py``'s
-320-tap bank (nphi 32, 10 taps per phase). It runs in phases; each prints
-one line:
+float32, arbitrary-rate and Farrow resampling with ``bench.py``'s 320-tap
+bank (nphi 32, 10 taps per phase), and the runtime that streams chunks
+through them (``io``, ``models``, ``utils``). It runs in phases; each
+prints one line:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the polyphase and resample kernels from
-   ``multirate_tpu_torch/csrc``, one nvcc each, started together, and
-   prints ptxas's registers and spills;
+2. build: compiles the polyphase, resample and probe kernels from
+   ``multirate_tpu_torch/csrc``, one nvcc each, and the host ring buffer
+   with g++, all started together, and prints ptxas's registers and
+   spills;
 3. kernel vs plain version on the card, for the four rational-family
    filter types at the headline taps and at short taps, plus a bank too
    large for shared memory and a wide decimation, fresh and mid-phase
@@ -108,6 +110,46 @@ filter type (``bench.py``'s rows ``rational_147_160_c64`` and
    ``bf16_f16out``) at ``interp_4_1_bf16out``'s geometry, with the
    ``conv1d`` yardstick there.
 
+Then the same three steps for the runtime and its probe kernels
+(``csrc/probe.cu``, the copy and expand ceilings of ``utils/metrics.py``):
+
+3e. the probe kernels against their plain versions: copies of float32,
+   bfloat16, int8 and complex128 at lengths that are and are not
+   multiples of 16 bytes, from sources at element offsets 0, 1 and 3;
+   expands of float32 rows at ratios 1, 2, 4 and 8 with float32, bfloat16,
+   float16 and int8 stores. Outputs equal bit for bit;
+4e. the runtime at full width: phase 4's 8 M samples pushed in seeded
+   random chunks of 100-5000 samples through
+   ``io.StreamingResampler(models.DATToCD(device="cuda"))`` (blocks of
+   65,536) and flushed, the push loop under
+   ``torch.cuda.set_sync_debug_mode("error")``; the same through
+   ``models.Resampler(1/2.123456789)`` with its own designed taps; each
+   stream's count equal to ``filt`` of the whole block and chunked-vs-whole
+   RMS <= 1e-6. A kill and resume of the headline stream (a checkpoint
+   every 16 blocks, the ``StreamingResampler`` deleted at 60% of the
+   stream, resumed and re-fed from the consumed offset): prefix and tail
+   equal to the uninterrupted stream bit for bit. Each wrapper's launch
+   count around these streams equal to their blocks plus one flush each.
+   ``utils.check_block`` on the card for the four rational-family types,
+   arbitrary and Farrow; a ``utils.trace`` of one ``DATToCD`` block inside
+   ``utils.annotate("resample-block")`` whose Chrome trace holds the
+   annotation and a kernel event named ``mr_polyphase_f32``. Prints
+   ``stats()``, the stream's rate (Msps in, from the first push to the
+   end of ``flush``) and one block's kernel time alone (CUDA events), the
+   share of the stream's wall time that the kernels fill;
+5e. times: ``utils.metrics.stream_copy_gbps()`` (32 M float32) and
+   ``stream_expand_gbps()`` (8 M inputs at 1:4) with each store type, as
+   GB/s and as a share of 3.35 TB/s (over 105% fails: the probe would be
+   reading the cache), with each probe's launch count over those calls;
+   each probe kernel after an L2 eviction against its bound, its plain
+   version and ``Tensor.copy_`` / ``torch.cat`` (one call for the float32
+   store; a cast store takes two, so none); ``measure_chained`` on the 8 M
+   headline block (Msps, roofline fraction against ``KNOWN_HBM_GBPS`` and
+   against the measured copy ceiling); and kernel against plain version
+   for the five entry points no earlier phase times (``mr_polyphase_c128``
+   at 147//160; ``mr_resample_c64``, ``_c64c``, ``_c128``, ``_c128c`` at
+   1/2.123456789 with ``bench.py``'s bank), on 8 M samples.
+
 Then a JSON line of the kernels (each with its bound: the larger of the
 bytes it must move over 3.35 TB/s and its multiply-adds over the card's
 peak for their type), the ``nvidia-smi`` name and power-limit line, and as
@@ -155,6 +197,13 @@ WIDE = {"f64": ("float64", "float64", 1e-12),
 TOL_ORACLE_F64 = 1e-12      # rational_147_160_f64 (bench.py:433)
 TOL_CHUNKED_F64 = 1e-14     # chunked-vs-whole RMS in float64
 TOL_ORACLE_FARROW_F64 = 1e-10
+# 3e: copy lengths (elements) and source offsets, expand shapes and ratios
+PROBE_COPY_LENGTHS = (0, 1, 7, 15, 16, 17, 4096, 1_000_003, 4_194_304)
+PROBE_OFFSETS = (0, 1, 3)
+PROBE_EXPAND_SHAPES = ((1, 128), (777, 128), (65_536, 128), (33, 4))
+PROBE_RATIOS = (1, 2, 4, 8)
+MAX_CEILING_SHARE = 1.05  # a probe over 105% of 3.35 TB/s reads the cache
+STREAM_CHUNKS = (100, 5000)  # 4e: seeded chunk sizes pushed to the ring
 
 
 class SmokeFailure(Exception):
@@ -195,20 +244,22 @@ def phase_build():
 
     from multirate_tpu_torch.ops.cuda import build
 
-    names = ("polyphase", "resample")
+    # three CUDA sources (nvcc) and the host ring buffer (g++)
+    names = ("polyphase", "resample", "probe", "mr_ring")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
     build.load_polyphase()
     build.load_resample()
+    build.load_probe()
     secs = time.perf_counter() - t0
     for lib in libs:
         log = (lib.parent / "build.log").read_text()
         usage = [ln.split("info    : ")[-1] for ln in log.splitlines()
                  if "registers" in ln]
         print(f"[2 build] {lib.relative_to(build.BUILD_DIR.parent)}; "
-              f"ptxas: {' | '.join(usage)}")
-    print(f"[2 build] {len(names)} kernels built in parallel in "
+              f"ptxas: {' | '.join(usage) or 'none (host code)'}")
+    print(f"[2 build] {len(names)} libraries built in parallel in "
           f"{secs:.1f} s")
 
 
@@ -1218,6 +1269,381 @@ def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
     return out
 
 
+def _probe_source(torch, rng, n, dtype):
+    """n seeded samples in ``dtype`` (int8 as 16 x a standard normal)."""
+    if dtype == torch.int8:
+        return torch.from_numpy((rng.standard_normal(n) * 16).astype(
+            np.int8))
+    return _wide_signal(torch, rng, n, dtype)
+
+
+def phase_probe_vs_plain(torch, dev, probe):
+    """3e: the copy and expand probes against their plain versions, bit
+    for bit."""
+    rng = np.random.default_rng(6)
+    n_copy = n_expand = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int8,
+                  torch.complex128):
+        for n in PROBE_COPY_LENGTHS:
+            for off in PROBE_OFFSETS:
+                x = _probe_source(torch, rng, n + off, dtype).to(dev)[off:]
+                case = f"copy {dtype} n={n} offset={off}"
+                before = probe.launches["copy"]
+                y = probe.copy(x)
+                yp = probe.copy_plain(x)
+                torch.cuda.synchronize()
+                check(probe.launches["copy"] == before + (n > 0),
+                      f"{case}: not launched once")
+                check(y.dtype == dtype and y.shape == x.shape
+                      and torch.equal(y.view(torch.uint8),
+                                      yp.view(torch.uint8)),
+                      f"{case}: differs from the plain version")
+                n_copy += 1
+    for shape in PROBE_EXPAND_SHAPES:
+        x = torch.from_numpy((rng.standard_normal(shape) * 3).astype(
+            np.float32)).to(dev)
+        for ratio in PROBE_RATIOS:
+            for odt, name in probe.EXPAND.items():
+                case = f"expand {shape} 1:{ratio} {odt}"
+                before = probe.launches[name]
+                y = probe.expand(x, ratio, odt)
+                yp = probe.expand_plain(x, ratio, odt)
+                torch.cuda.synchronize()
+                check(probe.launches[name] == before + 1,
+                      f"{case}: not launched once")
+                check(y.dtype == odt and y.shape == yp.shape
+                      and torch.equal(y.view(torch.uint8),
+                                      yp.view(torch.uint8)),
+                      f"{case}: differs from the plain version")
+                n_expand += 1
+    print(f"[3e probes vs plain] {n_copy} copies (float32, bfloat16, int8, "
+          f"complex128; {len(PROBE_COPY_LENGTHS)} lengths from 0 to "
+          f"{max(PROBE_COPY_LENGTHS)}; source offsets {PROBE_OFFSETS}) and "
+          f"{n_expand} expands (ratios {PROBE_RATIOS}; float32, bfloat16, "
+          f"float16 and int8 stores) equal to their plain versions bit for "
+          f"bit")
+
+
+def _stream(s, x_np, rng, stop=None):
+    """Push ``x_np`` (to ``stop`` samples) into ``s`` in seeded random
+    chunks; returns the samples pushed."""
+    stop = len(x_np) if stop is None else stop
+    lo, hi = STREAM_CHUNKS
+    i = 0
+    while i < stop:
+        n = min(int(rng.integers(lo, hi + 1)), stop - i)
+        check(s.push(x_np[i:i + n]) == n, "the ring refused a chunk")
+        i += n
+    return i
+
+
+def phase_runtime(mt, torch, dev, pp, rs, x, card):
+    """4e: the runtime at full width. ``x`` is phase 4's 8 M-sample block
+    on the card. Also times one block's kernel alone, so that the stream's
+    wall time splits into the card's share and the host's."""
+    import os
+    import tempfile
+
+    from multirate_tpu_torch.ops.params import FIRArbitrary
+
+    x_np = x.cpu().numpy()
+    ratio = Fraction(147, 160)
+    bs = 1 << 16
+    notes = []
+
+    def uninterrupted(model, seed, guard):
+        s = mt.io.StreamingResampler(model)
+        check(s.block_size == bs, f"block size {s.block_size}")
+        rng = np.random.default_rng(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _stream(s, x_np, rng)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        y = s.flush()
+        return s, y, time.perf_counter() - t0
+
+    d = mt.models.DATToCD(device="cuda")
+    r = mt.models.Resampler(R_REF, device="cuda")
+    check(isinstance(r.kernel, FIRArbitrary) and d.taps.dtype == np.float32,
+          "models built the wrong kernels")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "stream.ckpt.npz")
+        for k in pp.launches:
+            pp.launches[k] = 0
+        for k in rs.launches:
+            rs.launches[k] = 0
+        s_d, y_d, sec_d = uninterrupted(d, 7, True)
+        s_r, y_r, sec_r = uninterrupted(r, 8, False)
+        # the kill: a checkpoint every 16 blocks, the stream lost at 60%
+        s_k = mt.io.StreamingResampler(mt.models.DATToCD(device="cuda"),
+                                       checkpoint_every=16,
+                                       checkpoint_path=ckpt)
+        _stream(s_k, x_np, np.random.default_rng(9), int(0.6 * N_HEAD))
+        blocks_k = s_k.stats()["blocks"]
+        part1 = s_k.pull()
+        del s_k
+        s_k2 = mt.io.StreamingResampler(mt.models.DATToCD(device="cuda"),
+                                        checkpoint_every=16,
+                                        checkpoint_path=ckpt)
+        consumed = s_k2.resume()
+        pushed = _stream(s_k2, x_np[consumed:], np.random.default_rng(10))
+        tail = s_k2.flush()
+        torch.cuda.synchronize()
+        launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
+
+    blocks = (s_d.stats()["blocks"], s_r.stats()["blocks"],
+              blocks_k + s_k2.stats()["blocks"])
+    check(blocks[:2] == (N_HEAD // bs,) * 2,
+          f"stream blocks {blocks}, want {N_HEAD // bs}")
+    want = (dict.fromkeys(pp.launches, 0), dict.fromkeys(rs.launches, 0), 0)
+    want[0]["f32"] = blocks[0] + 1 + blocks[2] + 1
+    want[1]["f32"] = blocks[1] + 1
+    check(launches == want, f"launches {launches}, want {want}")
+
+    for label, model, y, s, sec, spec in (
+            ("DATToCD 147//160", d, y_d, s_d, sec_d, (ratio,)),
+            (f"Resampler({R_REF:.9g})", r, y_r, s_r, sec_r, (R_REF, 32))):
+        # one block's kernel alone (CUDA events), against the stream
+        p = model.kernel
+        n_b = mt.outputlength(p, bs)
+        hist = mt.init_state(p, (1,)).history
+        if p is d.kernel:
+            blk = (pp.polyphase, (x[:bs].view(1, -1), hist, p.bank, 147,
+                                  160, 1, 1, n_b))
+        else:
+            blk = (rs.resample, (x[:bs].view(1, -1), hist, p, 0, 1, n_b))
+        blk_ms = _time_ms(torch, lambda: blk[0](*blk[1]), iters=20)
+        busy = s.stats()["blocks"] * blk_ms / (sec * 1e3)
+        whole = mt.filt(model.taps, x, *spec).cpu().numpy()
+        check(y.dtype == np.float32 and y.shape == whole.shape
+              and bool(np.isfinite(y).all()),
+              f"{label}: stream gave {y.dtype} {y.shape}, whole "
+              f"{whole.shape}")
+        st = s.stats()
+        check(st["consumed_samples"] == N_HEAD and st["ended"]
+              and st["produced_samples"] == whole.size,
+              f"{label}: stats {st}")
+        rms_s = float(np.sqrt(np.mean((y.astype(np.float64) - whole) ** 2)))
+        check(rms_s <= TOL_CHUNKED, f"{label}: stream-vs-whole RMS {rms_s}")
+        notes.append(
+            f"{label}: {N_HEAD} samples in chunks of {STREAM_CHUNKS[0]}-"
+            f"{STREAM_CHUNKS[1]} -> {y.size} (= filt), stream-vs-whole RMS "
+            f"{rms_s:.3e} (limit {TOL_CHUNKED}), bit-identical "
+            f"{bool(np.array_equal(y, whole))}; stats {st}; "
+            f"{N_HEAD / sec / 1e6:.1f} Msps in end to end ({sec:.4f} s "
+            f"from the first push to the end of flush"
+            f"{', push loop under sync debug mode error' if s is s_d else ''}"
+            f"); one block's kernel {blk_ms * 1e3:.2f} us against "
+            f"{sec * 1e3 / (st['blocks'] + 1):.3f} ms of the stream's wall "
+            f"time a block: the kernels fill {busy:.2%} of it")
+
+    at = s_k2.stats()["produced_samples"] - tail.size
+    check(0 < consumed <= 0.6 * N_HEAD and consumed % (16 * bs) == 0
+          and consumed + pushed == N_HEAD, f"resumed at {consumed}")
+    check(np.array_equal(tail, y_d[at:])
+          and np.array_equal(part1[:at], y_d[:at]),
+          "kill and resume differs from the uninterrupted stream")
+    notes.append(f"kill at {int(0.6 * N_HEAD)} samples, resumed from "
+                 f"{consumed} (output {at}): prefix and tail equal to the "
+                 f"uninterrupted stream bit for bit")
+    notes.append(f"launches polyphase f32 {launches[0]['f32']}, resample "
+                 f"f32 {launches[1]['f32']} (blocks {blocks} plus a flush "
+                 f"each)")
+
+    # check_block on the card: the four rational-family types, arbitrary
+    # and Farrow
+    h = headline_taps(mt)
+    ha = bench_taps(mt)
+    xb = x[:1 << 16]
+    for label, p in (
+            ("147//160", mt.make_kernel(h, ratio=ratio, device=dev)),
+            ("1//1", mt.make_kernel(h, ratio=1, device=dev)),
+            ("4//1", mt.make_kernel(h, ratio=4, device=dev)),
+            ("1//4", mt.make_kernel(h, ratio=(1, 4), device=dev)),
+            ("arbitrary", mt.make_kernel(ha, rate=R_REF, device=dev)),
+            ("Farrow", mt.make_kernel(ha, rate=0.4709, polyorder=4,
+                                      device=dev))):
+        st = _entry_state(mt, p, (), torch.float32, xb, "mid")
+        mt.utils.check_block(p, st, xb, path="kernel")
+    notes.append("check_block passes on the card for 147//160, 1//1, 4//1, "
+                 "1//4, arbitrary and Farrow (mid-stream entry)")
+
+    # a trace of one DATToCD block
+    d.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        with mt.utils.trace(tmp):
+            with mt.utils.annotate("resample-block"):
+                d(xb)
+            torch.cuda.synchronize()
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as fh:
+            events = json.load(fh)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and "mr_polyphase_f32" in e.get("name", "")]
+    check(any(e.get("name") == "resample-block" for e in events)
+          and len(kern) == 1,
+          f"trace: annotation or kernel missing ({len(kern)} kernels)")
+    notes.append(f"trace holds 'resample-block' and the kernel "
+                 f"{kern[0]['name'][:90]}... ({kern[0].get('dur')} us)")
+    print(f"[4e runtime] {'; '.join(notes)}; card: {card}")
+
+
+def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
+    """5e: the copy and expand ceilings, the probe kernels against their
+    bounds, plain versions and library calls, ``measure_chained`` on the
+    headline block, and the five entry points no earlier phase times."""
+    from multirate_tpu_torch.utils import metrics
+
+    dev = x.device
+    notes, out = [], {}
+    for k in probe.launches:
+        probe.launches[k] = 0
+    copy_gbps = metrics.stream_copy_gbps()
+    expand_gbps = {odt: metrics.stream_expand_gbps(out_dtype=odt)
+                   for odt in probe.EXPAND}
+    torch.cuda.synchronize()
+    launches = dict(probe.launches)
+    check(launches == {"copy": 25, **dict.fromkeys(probe.EXPAND.values(),
+                                                   31)},
+          f"probe launches {launches}")
+    peak = HBM_BYTES_PER_S / 1e9
+    shares = {"copy f32": copy_gbps / peak, **{
+        f"expand 1:4 {odt}".replace("torch.", ""): g / peak
+        for odt, g in expand_gbps.items()}}
+    check(all(v <= MAX_CEILING_SHARE for v in shares.values()),
+          f"a probe above {MAX_CEILING_SHARE:.0%} of 3.35 TB/s: {shares}")
+    notes.append(
+        f"stream_copy_gbps() {copy_gbps:.1f} GB/s; stream_expand_gbps() "
+        + ", ".join(f"{odt} {g:.1f}".replace("torch.", "")
+                    for odt, g in expand_gbps.items())
+        + " GB/s; shares of 3.35 TB/s "
+        + ", ".join(f"{k} {v:.1%}" for k, v in shares.items())
+        + f"; launches {launches}")
+
+    # each probe alone after an L2 eviction: kernel, plain, library
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    xs = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        32_000_000).astype(np.float32)).to(dev)
+    ys = torch.empty_like(xs)
+
+    def cold(fn):
+        return _time_ms(torch, fn, iters=1, before=flush.zero_)
+
+    def max_abs_err(kern, plain, *args):
+        yk, yp = kern(*args), plain(*args)
+        err = float((yk.double() - yp.double()).abs().max())
+        check(err == 0, f"{kern.__name__}{args[1:]}: differs by {err}")
+        return err
+
+    bound = _bound(2 * xs.numel() * 4, 0, "f32")
+    out["probe_copy"] = dict(
+        max_abs_err=max_abs_err(probe.copy, probe.copy_plain, xs),
+        ms=cold(lambda: probe.copy(xs)),
+        plain_ms=cold(lambda: probe.copy_plain(xs)), bound_ms=bound[0],
+        bound_by=bound[1], library_ms=cold(lambda: ys.copy_(xs)))
+    del ys
+    xe = xs[:8_000_000].view(-1, 128)
+    ratio = 4
+    exp_notes = []
+    for odt in probe.EXPAND:
+        nbytes = (4 + ratio * torch.empty((), dtype=odt).element_size()) \
+            * xe.numel()
+        bound = _bound(nbytes, 0, "f32")
+        lib = ((lambda: torch.cat([xe] * ratio, 1)) if odt == torch.float32
+               else None)
+        row = dict(
+            max_abs_err=max_abs_err(probe.expand, probe.expand_plain, xe,
+                                    ratio, odt),
+            ms=cold(lambda: probe.expand(xe, ratio, odt)),
+            plain_ms=cold(lambda: probe.expand_plain(xe, ratio, odt)),
+            bound_ms=bound[0], bound_by=bound[1],
+            library_ms=None if lib is None else cold(lib))
+        if odt == torch.float32:
+            out["probe_expand"] = row
+        lib_ms = row["library_ms"]
+        exp_notes.append(
+            f"{odt} store {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms, library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", bound {bound[0]:.4f} ms".replace("torch.", ""))
+    c = out["probe_copy"]
+    notes.append(
+        f"one launch after an L2 eviction: copy of 32 M float32 "
+        f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, copy_ "
+        f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms (bytes); "
+        f"expand 1:4 of 8 M float32: {'; '.join(exp_notes)} (cat: one call "
+        f"for the float32 store; a cast store takes two, so none)")
+    del flush, xs
+
+    # measure_chained on the 8 M headline block
+    h = headline_taps(mt)
+    p = mt.make_kernel(h, ratio=Fraction(147, 160), device=dev)
+    rep = metrics.measure_chained(p, mt.init_state(p), x, repeat=20, iters=7)
+    rate = rep.out_samples / rep.in_samples
+    vs_copy = rep.in_samples_per_s / metrics.hbm_roofline_samples_per_s(
+        rate, 4, copy_gbps)
+    check(rep.roofline_fraction is not None,
+          f"no KNOWN_HBM_GBPS entry for {torch.cuda.get_device_name(dev)}")
+    notes.append(f"measure_chained 147//160 on {N_HEAD}: {rep}; "
+                 f"{vs_copy:.1%} of the measured copy ceiling")
+
+    # the five entry points no earlier phase times
+    ha64 = mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=7.0) * 32
+    h64 = mt.firdes(24 * 147, 0.5 / 147, mt.kaiser, beta=7.8562) * 147
+    xc128 = xc.to(torch.complex128).view(1, -1)
+    n_r = mt.outputlength(N_HEAD, Fraction(147, 160))
+    wide_notes = []
+
+    def timed(name, kern, plain, args, bound, tol):
+        yk, yp = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        max_abs = float((yk - yp).abs().max())
+        check(max_abs <= tol * float(yp.abs().max()),
+              f"{name}: kernel vs plain max abs err {max_abs:.3e}")
+        del yk, yp
+        ms = _time_ms(torch, lambda: kern(*args), iters=20)
+        plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
+        out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=None)
+        wide_notes.append(f"{name} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                          f"ms, library none, bound {bound[0]:.4f} ms "
+                          f"({bound[1]}), max abs err {max_abs:.3e}")
+
+    p = mt.make_kernel(h64, ratio=(147, 160), device=dev)
+    hist = torch.zeros(1, p.h_min, dtype=torch.complex128, device=dev)
+    args = (xc128, hist, p.bank, 147, 160, 1, 1, n_r)
+    timed("polyphase_c128", pp.polyphase, pp.polyphase_plain, args,
+          _polyphase_bound(torch, args, torch.complex128, "f64"),
+          WIDE["c128"][2])
+    for entry, (sig_name, taps_name, tol) in WIDE.items():
+        if entry == "f64":
+            continue  # phase 5d times it
+        sig, tdt = getattr(torch, sig_name), getattr(torch, taps_name)
+        p = mt.make_kernel(_wide_taps(torch, ha64, tdt), rate=R_REF, nphi=32,
+                           device=dev)
+        xs = (xc if sig == torch.complex64 else xc128).view(1, -1)
+        hist = torch.zeros(1, p.h_min, dtype=sig, device=dev)
+        n = mt.outputlength(p, N_HEAD)
+        args = (xs, hist, p, 0, 1, n)
+        # x, history and table read once, outputs written once; 2T
+        # multiply-adds per output, each 2 real ones for a complex sample
+        # against a real tap, 4 against a complex tap
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (xs, hist, p.bank)) + n * xs.element_size()
+        timed(f"resample_{entry}", rs.resample, rs.resample_plain, args,
+              _bound(nbytes, n * p.bank.numel() // p.nphi
+                     * 2 * (1 + p.bank.is_complex()),
+                     "f32" if sig == torch.complex64 else "f64"), tol)
+    notes.append("147//160 and 1/2.123456789 on 8 M samples: "
+                 + "; ".join(wide_notes))
+    print(f"[5e runtime times] {'; '.join(notes)}; card: {card}")
+    return out, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1225,6 +1651,7 @@ def main() -> int:
         card = phase_device(torch)
         import multirate_tpu_torch as mt
         from multirate_tpu_torch.ops.cuda import polyphase as pp
+        from multirate_tpu_torch.ops.cuda import probe
         from multirate_tpu_torch.ops.cuda import resample as rs
 
         dev = torch.device("cuda", 0)
@@ -1234,15 +1661,19 @@ def main() -> int:
         phase_resample_vs_plain(mt, torch, dev)
         phase_quant_vs_plain(mt, torch, dev, pp)
         phase_wide_vs_plain(mt, torch, dev, pp, rs)
+        phase_probe_vs_plain(torch, dev, probe)
         h, x, launches, ref = phase_slice(mt, torch, dev, pp)
         xa, x64, rs_launches = phase_resample_slice(mt, torch, dev, rs)
         q_launches = phase_quant_slice(mt, torch, dev, pp, x, ref)
         xc, xd, w_launches = phase_wide_slice(mt, torch, dev, pp, rs, x, ref)
+        phase_runtime(mt, torch, dev, pp, rs, x, card)
         max_abs, ms, plain_ms, bound = phase_times(mt, torch, h, x, pp,
                                                    card)
         rows = phase_resample_times(mt, torch, xa, x64, rs, card)
         q_rows = phase_quant_times(mt, torch, x, pp, card)
         w_rows = phase_wide_times(mt, torch, xc, xd, pp, rs, card)
+        e_rows, p_launches = phase_runtime_times(mt, torch, x, xc, pp, rs,
+                                                 probe, card)
         check("jax" not in sys.modules, "jax was imported")
     except Exception:  # the smoke's boundary: report and fail
         traceback.print_exc()
@@ -1317,6 +1748,17 @@ def main() -> int:
                         "source": f"multirate_tpu_torch/csrc/{source}.cu",
                         "replaces": replaces, "launches": w_launches[name],
                         **w_rows[row]})
+    # the probes: launches by utils.metrics' ceiling calls of phase 5e
+    # (the expand launches over its four store types), times at 32 M
+    # float32 (copy) and 8 M float32 in with float32 stores at 1:4 (expand)
+    for name, line, launched in (
+            ("probe_copy", 294, p_launches["copy"]),
+            ("probe_expand", 355, sum(v for k, v in p_launches.items()
+                                      if k != "copy"))):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "multirate_tpu_torch/csrc/probe.cu",
+                        "replaces": f"multirate_tpu/utils/metrics.py:{line}",
+                        "launches": launched, **e_rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

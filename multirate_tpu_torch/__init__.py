@@ -19,8 +19,15 @@ taps and signal); complex values stay interleaved, as torch stores them.
 The rational family also runs the quantized modes: bfloat16 taps and
 signal (float32 outputs), int8 (exact int32 accumulators, with the
 helpers of ``quant``), and bfloat16 or float16 output stores
-(``make_kernel(..., store_dtype=)``). Streaming I/O and sharding are not
-ported yet (ROADMAP.md, queue 1).
+(``make_kernel(..., store_dtype=)``).
+
+The runtime around them: ``io`` (the native ring buffer and the
+``StreamingResampler`` that feeds fixed blocks from arbitrary chunks, with
+checkpoint and resume), ``models`` (the self-designing ``Resampler`` and
+the ``DATToCD`` converter) and ``utils`` (oracles, checkpoint files,
+throughput and roofline reports with the card's copy and expand ceilings
+from a third hand-written kernel, ``csrc/probe.cu``, the cross-path check,
+and profiler traces). Sharding is not ported yet (ROADMAP.md, queue 1).
 
 Entry points run on the card unless the caller names the CPU
 (``device="cpu"``) or hands over CPU tensors.
@@ -73,6 +80,8 @@ from .ops import (
     tapsforphase,
 )
 
+from . import io, models, utils
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -86,5 +95,5 @@ __all__ = [
     "filt", "filt_block", "filt_block_tm", "init_state",
     "inputlength", "max_outputs",
     "nextphase", "outputlength", "polyfit", "polyval", "pfb2pnfb", "reset",
-    "setphase", "taps2pfb", "tapsforphase", "quant",
+    "setphase", "taps2pfb", "tapsforphase", "quant", "io", "models", "utils",
 ]

@@ -126,7 +126,11 @@ __host__ __device__ __forceinline__ size_t bank_bytes(int T, int L,
   return ((size_t)T * L * elem + 15) & ~(size_t)15;
 }
 
-template <typename X, typename W, typename Out, bool kBankInSmem>
+// Entry is a tag type named after the extern "C" entry point
+// (entry::mr_polyphase_<name>), so a profiler trace names each kernel by
+// its entry; it takes no part in the code.
+template <typename Entry, typename X, typename W, typename Out,
+          bool kBankInSmem>
 __global__ void __launch_bounds__(kThreads)
 polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
                  const W* __restrict__ bank, Out* __restrict__ y,
@@ -184,7 +188,7 @@ polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   }
 }
 
-template <typename X, typename W, typename Out>
+template <typename Entry, typename X, typename W, typename Out>
 int launch(const void* x, const void* hist, const void* bank, void* y,
            int64_t C, int64_t xlen, int T, int L, int M, int phi0,
            int64_t d0, int64_t n_out, void* stream) {
@@ -205,8 +209,8 @@ int launch(const void* x, const void* hist, const void* bank, void* y,
   const int64_t n_tiles = (n_out + tile - 1) / tile;
   const dim3 grid((unsigned)(n_tiles < kMaxGridX ? n_tiles : kMaxGridX),
                   (unsigned)(C < kMaxGridY ? C : kMaxGridY));
-  auto kern = bank_smem ? polyphase_kernel<X, W, Out, true>
-                        : polyphase_kernel<X, W, Out, false>;
+  auto kern = bank_smem ? polyphase_kernel<Entry, X, W, Out, true>
+                        : polyphase_kernel<Entry, X, W, Out, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -228,12 +232,15 @@ extern "C" {
 // kErrTooLarge when one tile's span cannot fit in shared memory. One entry
 // per (signal, tap, output) triple the modes use: mr_polyphase_<name>.
 #define MR_POLYPHASE(name, X, W, Out)                                        \
+  namespace entry {                                                          \
+  struct mr_polyphase_##name;                                                \
+  }                                                                          \
   int mr_polyphase_##name(const void* x, const void* hist, const void* bank, \
                           void* y, int64_t C, int64_t xlen, int T, int L,    \
                           int M, int phi0, int64_t d0, int64_t n_out,        \
                           void* stream) {                                    \
-    return launch<X, W, Out>(x, hist, bank, y, C, xlen, T, L, M, phi0, d0,  \
-                             n_out, stream);                                 \
+    return launch<entry::mr_polyphase_##name, X, W, Out>(                   \
+        x, hist, bank, y, C, xlen, T, L, M, phi0, d0, n_out, stream);        \
   }
 
 MR_POLYPHASE(f32, float, float, float)

@@ -137,20 +137,26 @@ class FIRFilter:
                        else None)
         self.params = _kernel_for(h, ratio_or_rate, nphi, polyorder,
                                   self.device or "cpu")
+        if self.device is not None:  # "cuda" names the card's index
+            self.device = self.params.device
         self.state: FilterState | None = None
 
     @property
     def history(self):
         return None if self.state is None else self.state.history
 
+    def _pin(self, device):
+        """Pin the stream, its kernel and any state, to ``device``."""
+        self.params = self.params.to(device)
+        self.device = self.params.device
+        if self.state is not None:  # a setphase before the first chunk
+            self.state = FilterState(
+                history=self.state.history.to(self.device),
+                phase=self.state.phase, deficit=self.state.deficit)
+
     def _ensure_state(self, x):
         if self.device is None:  # the first chunk pins the stream
-            self.device = x.device
-            self.params = self.params.to(x.device)
-            if self.state is not None:  # a setphase before the first chunk
-                self.state = FilterState(
-                    history=self.state.history.to(x.device),
-                    phase=self.state.phase, deficit=self.state.deficit)
+            self._pin(x.device)
         if self.state is None:
             self.state = init_state(self.params, x.shape[:-1], x.dtype)
         elif self.state.history.shape[:-1] != x.shape[:-1]:

@@ -4,7 +4,11 @@
   its launch count and its plain PyTorch version.
 - ``resample``: the arbitrary-rate and Farrow kernel (``csrc/resample.cu``),
   channel-major and time-major, its launch counts and its plain versions.
-- ``build``: nvcc build at first use into ``build/`` and ctypes loading.
+- ``probe``: the copy and expand probes (``csrc/probe.cu``) that
+  ``utils.metrics`` times as the card's memory ceilings, their launch
+  counts and their plain versions.
+- ``build``: nvcc (g++ for the host ring buffer) build at first use into
+  ``build/`` and ctypes loading.
 
 Nothing here builds or loads a kernel at import time.
 """

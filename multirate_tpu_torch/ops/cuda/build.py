@@ -1,19 +1,23 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
-Each source under ``multirate_tpu_torch/csrc/`` compiles by hand into a
-shared library with a plain C interface (no PyTorch headers, so a build
+Each CUDA source under ``multirate_tpu_torch/csrc/`` compiles by hand into
+a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas=-v -o build/<name>-<hash>/lib<name>.so \\
          csrc/<name>.cu
 
+The host-only ring buffer ``csrc/mr_ring.cpp`` compiles the same way with
+g++ (``-O3 -std=c++17 -shared -fPIC``), so it builds where there is no
+nvcc.
+
 The output goes to ``build/`` at the repository root, at first use, in a
 directory keyed by a hash of the source, the headers beside it
-(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
-an unchanged one loads at once. ``-Xptxas=-v`` writes each
-kernel's registers, shared memory and spills to ``build.log`` beside the
-library. Nothing is built when a module is imported.
+(``csrc/*.cuh``, for CUDA sources) and the flags, so an edited source or
+header rebuilds and an unchanged one loads at once. ``-Xptxas=-v`` writes
+each kernel's registers, shared memory and spills to ``build.log`` beside
+the library. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -27,14 +31,15 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "check_aligned",
-           "load_polyphase", "load_resample"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "GXX_FLAGS", "build",
+           "check_aligned", "load_polyphase", "load_resample", "load_probe"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -45,15 +50,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` if needed; return the library's path."""
+def build(name: str, force: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` with nvcc, or the host source
+    ``csrc/<name>.cpp`` with g++, if needed (always with ``force``); return
+    the library's path."""
     src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
+    if src.is_file():
+        cmd, flags = [_nvcc()], NVCC_FLAGS
+        headers = sorted(CSRC_DIR.glob("*.cuh"))
+    else:
+        src = CSRC_DIR / f"{name}.cpp"
+        cmd, flags, headers = ["g++"], GXX_FLAGS, []
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    for header in headers:
         key.update(header.read_bytes())
     out_dir = BUILD_DIR / f"{name}-{key.hexdigest()[:16]}"
     lib = out_dir / f"lib{name}.so"
-    if lib.is_file():
+    if lib.is_file() and not force:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     # compile to a temporary name, then rename: a concurrent or interrupted
@@ -61,11 +74,12 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([*cmd, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True, check=False)
         (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+            raise RuntimeError(f"{Path(cmd[0]).name} failed on {src.name}:"
+                               f"\n{proc.stderr}")
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
@@ -105,6 +119,26 @@ def load_resample() -> ctypes.CDLL:
     for name in ENTRIES.values():
         fn = getattr(lib, f"mr_resample_{name}")
         fn.argtypes = args + ([i32] if name == "f32" else []) + [p]
+        fn.restype = i32
+    lib.mr_error_string.argtypes = [i32]
+    lib.mr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_probe() -> ctypes.CDLL:
+    """The copy and expand probe library (built at first use), argtypes set
+    for ``mr_probe_copy`` and each ``mr_probe_<name>`` of
+    ``probe.EXPAND``."""
+    from .probe import EXPAND
+
+    lib = ctypes.CDLL(str(build("probe")))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.mr_probe_copy.argtypes = [p, p, i64, p]
+    lib.mr_probe_copy.restype = i32
+    for name in EXPAND.values():
+        fn = getattr(lib, f"mr_probe_{name}")
+        fn.argtypes = [p, p, i64, i32, i32, p]
         fn.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions on the card: polyphase
-(rational family, in float32, the quantized modes, float64 and complex)
-and resample (arbitrary rate and Farrow, channel-major and time-major in
-float32, channel-major in float64 and complex).
+(rational family, in float32, the quantized modes, float64 and complex),
+resample (arbitrary rate and Farrow, channel-major and time-major in
+float32, channel-major in float64 and complex) and the copy and expand
+probes; and the runtime on the card: StreamingResampler's block loop
+with no synchronizing call, and a profiler trace holding the kernel.
 
 Marked ``gpu``: it skips without a CUDA device. It imports no JAX, so it
 runs on a machine with the card alone:
@@ -12,9 +14,11 @@ Tolerance: max|dy| <= 1e-5 * max|y| (the same float32 products, summed in
 another order; bf16 products are exact in float32; complex64 the same);
 1e-12 * max|y| for float64 and complex128; int8 equal (exact integer
 sums); narrow stores within one ulp of the store type; counts and states
-exact.
+exact; the probes bit for bit.
 """
 
+import json
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 
 import multirate_tpu_torch as mt
 from multirate_tpu_torch.ops.cuda import polyphase as pp
+from multirate_tpu_torch.ops.cuda import probe
 from multirate_tpu_torch.ops.cuda import resample as rs
 from multirate_tpu_torch.utils.testing import rel_max_err, ulps_apart
 
@@ -226,3 +231,96 @@ def test_wide_resample_matches_plain_on_gpu(entry, rate, nphi, polyorder,
     assert (sk.phase, sk.deficit) == (sp.phase, sp.deficit)
     assert torch.equal(sk.history, sp.history)
     assert rel_max_err(yk, yp) <= _tol(xt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 100_003])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8, torch.complex128])
+def test_probe_copy_matches_plain_on_gpu(dtype, offset, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(10)
+    buf = _wide(rng, n + offset, dtype if dtype != torch.int8
+                else torch.float64)
+    buf = (buf * 16).to(dtype) if dtype == torch.int8 else buf
+    x = buf.cuda()[offset:]  # a source at an odd element offset
+    before = probe.launches["copy"]
+    y = probe.copy(x)
+    torch.cuda.synchronize()
+    assert probe.launches["copy"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y.view(torch.uint8),
+                       probe.copy_plain(x).view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 128), (777, 128), (33, 4)])
+@pytest.mark.parametrize("ratio", [1, 2, 4, 8])
+@pytest.mark.parametrize("odt", [torch.float32, torch.bfloat16,
+                                 torch.float16, torch.int8])
+def test_probe_expand_matches_plain_on_gpu(odt, ratio, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.standard_normal(shape) * 3).astype(
+        np.float32)).cuda()
+    name = probe.EXPAND[odt]
+    before = probe.launches[name]
+    y = probe.expand(x, ratio, odt)
+    torch.cuda.synchronize()
+    assert probe.launches[name] == before + 1
+    want = probe.expand_plain(x, ratio, odt)
+    assert y.dtype == want.dtype and torch.equal(y, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [Fraction(147, 160), 0.76543])
+def test_stream_push_loop_never_syncs_on_gpu(spec):
+    # per-block counts are host ints and blocks go up through pinned
+    # memory: the loop makes no synchronizing call
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(12)
+    h = (mt.firdes(24 * 7, 0.5 / 7, mt.kaiser, beta=7.0) * 7
+         ).astype(np.float32)
+    x = rng.standard_normal(5 * 4096 + 999).astype(np.float32)
+    s = mt.io.StreamingResampler(mt.FIRFilter(h, spec, device="cuda"),
+                                 block_size=4096)
+    s.push(x[:10])  # first use: builds and loads outside the guard
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        i = 10
+        while i < len(x):
+            n = min(int(rng.integers(100, 5000)), len(x) - i)
+            s.push(x[i:i + n])
+            i += n
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = s.flush()
+    whole = mt.filt(h, torch.from_numpy(x).cuda(), spec).cpu().numpy()
+    assert got.shape == whole.shape
+    assert rel_max_err(got, whole) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_trace_holds_the_polyphase_kernel_on_gpu(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = mt.models.DATToCD(device="cuda")
+    x = torch.randn(1 << 16, device="cuda")
+    d(x)  # build and load outside the trace
+    d.reset()
+    with mt.utils.trace(str(tmp_path)):
+        with mt.utils.annotate("resample-block"):
+            d(x)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    assert "resample-block" in names
+    assert any("mr_polyphase_f32" in n for e, n in zip(events, names)
+               if e.get("cat") == "kernel")

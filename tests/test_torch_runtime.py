@@ -1,0 +1,614 @@
+"""The port's runtime and utilities on the CPU, against the JAX package:
+the native ring buffer and ``io.StreamingResampler``, checkpoint files,
+``models.Resampler``/``DATToCD``, the debug checks, profiler traces and
+the throughput/roofline metrics with the probe kernels' plain versions.
+
+Tolerances:
+- counts, phase, deficit and ring contents: exact;
+- a stream against JAX's stream or the port's whole-block ``filt``:
+  max|dy| <= 1e-6 * max|y| (the same float32 dots; only the einsum's
+  blocking changes with the block size), 1e-5 * max|y| against JAX where
+  only the reduction order of the taps differs;
+- a resumed or reloaded stream against the uninterrupted one with the same
+  block boundaries: bit for bit;
+- designed taps against JAX's: 1e-7 (both round the same float64 design
+  to float32);
+- the probes' plain versions against numpy transcriptions of the Pallas
+  bodies: equal.
+"""
+
+import json
+import os
+import threading
+from fractions import Fraction
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import multirate_tpu as mr
+import multirate_tpu_torch as mt
+from multirate_tpu.io import StreamingResampler as JaxStreamingResampler
+from multirate_tpu.utils import metrics as jmetrics
+from multirate_tpu_torch.io import RingBuffer, StreamingResampler
+from multirate_tpu_torch.ops.cuda import probe
+from multirate_tpu_torch.utils import metrics
+from multirate_tpu_torch.utils.testing import rel_max_err
+
+TOL_STREAM, TOL_JAX, TOL_TAPS = 1e-6, 1e-5, 1e-7
+
+
+def _taps():
+    return (mr.firdes(24 * 21, 0.5 / 21, mr.kaiser, beta=7.0) * 21
+            ).astype(np.float32)
+
+
+def _push_random(s, x, rng, lo=100, hi=5000, pull=None):
+    """Push ``x`` in seeded random chunks of lo..hi samples."""
+    i = 0
+    while i < len(x):
+        n = min(int(rng.integers(lo, hi)), len(x) - i)
+        s.push(x[i:i + n])
+        if pull is not None:
+            pull.append(s.pull())
+        i += n
+
+
+# --- the ring (mirrors tests/test_io.py) -----------------------------------
+
+def test_ring_builds_into_build_dir():
+    path = mt.io.build_native()
+    assert os.path.basename(os.path.dirname(os.path.dirname(path))) == "build"
+    assert "native" not in path.split(os.sep)
+
+
+def test_ring_basic():
+    r = RingBuffer(1024)
+    assert r.capacity >= 1024 and len(r) == 0
+    data = np.arange(100, dtype=np.float32)
+    assert r.push(data) == 100
+    np.testing.assert_array_equal(r.pop_block(64), data[:64])
+    assert len(r) == 36
+    assert r.pop_block(64) is None
+    np.testing.assert_array_equal(r.drain(), data[64:])
+
+
+def test_ring_pop_block_is_a_copy():
+    # the native pop returns a scratch buffer that the next pop overwrites
+    r = RingBuffer(64)
+    r.push(np.arange(32, dtype=np.float32))
+    a = r.pop_block(16)
+    b = r.pop_block(16)
+    np.testing.assert_array_equal(a, np.arange(16))
+    np.testing.assert_array_equal(b, np.arange(16, 32))
+
+
+def test_ring_wraparound():
+    r = RingBuffer(64)
+    cap = r.capacity
+    for rep in range(10):
+        data = np.arange(rep, rep + cap - 8, dtype=np.float32)
+        assert r.push(data) == data.size
+        np.testing.assert_array_equal(r.pop_block(data.size), data)
+
+
+def test_ring_full_rejects():
+    r = RingBuffer(64)
+    cap = r.capacity
+    assert r.push(np.zeros(cap, np.float32)) == cap
+    assert r.push(np.ones(1, np.float32)) == 0
+
+
+def test_ring_int16_conversion():
+    r = RingBuffer(256)
+    pcm = np.array([-32768, -16384, 0, 16384, 32767], dtype=np.int16)
+    r.push(pcm)
+    np.testing.assert_array_equal(r.drain(),
+                                  pcm.astype(np.float32) / 32768.0)
+
+
+def test_ring_threaded_producer_consumer():
+    rng = np.random.default_rng(0)
+    total = 200_000
+    data = rng.standard_normal(total).astype(np.float32)
+    r = RingBuffer(1 << 14)
+    out = []
+
+    def produce():
+        i = 0
+        while i < total:
+            n = min(int(rng.integers(1, 4096)), total - i)
+            while r.push(data[i:i + n]) == 0:
+                pass  # full: spin
+            i += n
+
+    t = threading.Thread(target=produce)
+    t.start()
+    got = 0
+    while got < total:
+        blk = r.pop_block(min(1024, total - got))
+        if blk is None:
+            if not t.is_alive():
+                tail = r.drain(total - got)
+                out.append(tail)
+                got += tail.size
+            continue
+        out.append(blk)
+        got += blk.size
+    t.join(timeout=60)
+    assert not t.is_alive()
+    np.testing.assert_array_equal(np.concatenate(out), data)
+
+
+# --- StreamingResampler ----------------------------------------------------
+
+@pytest.mark.parametrize("spec", [Fraction(147, 160), 1.2345])
+def test_streaming_resampler_matches_jax_and_whole(spec):
+    h = _taps()
+    x = np.random.default_rng(1).standard_normal(50_000).astype(np.float32)
+    whole = mt.filt(h, torch.from_numpy(x), spec).numpy()
+
+    s = StreamingResampler(mt.FIRFilter(h, spec, device="cpu"),
+                           block_size=8192)
+    _push_random(s, x, np.random.default_rng(2))
+    got = s.flush()
+    sj = JaxStreamingResampler(mr.FIRFilter(h, spec), block_size=8192)
+    _push_random(sj, x, np.random.default_rng(2))
+    got_j = sj.flush()
+
+    assert got.dtype == np.float32 and got.shape == whole.shape
+    assert got.shape == got_j.shape
+    assert rel_max_err(got, whole) <= TOL_STREAM
+    assert rel_max_err(got, got_j) <= TOL_JAX
+    st = s.stats()
+    assert st["blocks"] == 50_000 // 8192 and st["ended"]
+    assert st["consumed_samples"] == 50_000
+    assert st["produced_samples"] == whole.size
+    assert set(st) == set(sj.stats())
+
+
+@pytest.mark.parametrize("model", ["DATToCD", "Resampler"])
+def test_streaming_resampler_takes_a_model(model):
+    # the smoke's form: a StreamingResampler around a models object
+    x = np.random.default_rng(3).standard_normal(30_000).astype(np.float32)
+    m = (mt.models.DATToCD(device="cpu") if model == "DATToCD"
+         else mt.models.Resampler(1 / 2.123456789, device="cpu"))
+    whole = m(torch.from_numpy(x)).numpy()
+    m.reset()
+    s = StreamingResampler(m, block_size=4096)
+    _push_random(s, x, np.random.default_rng(4))
+    got = s.flush()
+    assert got.shape == whole.shape
+    assert rel_max_err(got, whole) <= TOL_STREAM
+
+
+def test_streaming_flush_exact_and_ended():
+    h = _taps()
+    x = np.random.default_rng(5).standard_normal(10_000).astype(np.float32)
+    whole = mt.filt(h, torch.from_numpy(x), Fraction(147, 160)).numpy()
+    s = StreamingResampler(mt.FIRFilter(h, Fraction(147, 160), device="cpu"),
+                           block_size=4096)
+    s.push(x)
+    got = s.flush()
+    assert got.shape == whole.shape
+    assert rel_max_err(got, whole) <= TOL_STREAM
+    # the true tail's closed-form count, as JAX's padded flush trims to
+    assert s.stats()["produced_samples"] == whole.size
+    with pytest.raises(RuntimeError):
+        s.push(x[:10])
+    s.reset()
+    s.push(x)
+    np.testing.assert_array_equal(s.flush(), got)
+
+
+@pytest.mark.parametrize("spec", [Fraction(147, 160), 1.2345])
+def test_streaming_kill_and_resume(spec, tmp_path):
+    ckpt = str(tmp_path / "stream.ckpt.npz")
+    h = _taps()
+    x = np.random.default_rng(6).standard_normal(40_000).astype(np.float32)
+    ref = StreamingResampler(mt.FIRFilter(h, spec, device="cpu"),
+                             block_size=4096)
+    ref.push(x)
+    uninterrupted = ref.flush()
+
+    s = StreamingResampler(mt.FIRFilter(h, spec, device="cpu"),
+                           block_size=4096, checkpoint_every=2,
+                           checkpoint_path=ckpt)
+    part1 = []
+    _push_random(s, x[:24_000], np.random.default_rng(7), 500, 3000, part1)
+    del s  # everything in memory is lost
+
+    s2 = StreamingResampler(mt.FIRFilter(h, spec, device="cpu"),
+                            block_size=4096, checkpoint_every=2,
+                            checkpoint_path=ckpt)
+    consumed = s2.resume()
+    assert 0 < consumed <= 24_000 and consumed % (2 * 4096) == 0
+    s2.push(x[consumed:])
+    tail = s2.flush()
+    at = s2.stats()["produced_samples"] - tail.size
+    np.testing.assert_array_equal(tail, uninterrupted[at:])
+    np.testing.assert_array_equal(np.concatenate(part1)[:at],
+                                  uninterrupted[:at])
+
+
+# --- checkpoint files (mirrors tests/test_streaming.py) ---------------------
+
+@pytest.mark.parametrize("spec,polyorder", [(Fraction(7, 5), None),
+                                            (1.3333, None), (0.7, 3)])
+def test_checkpoint_file_roundtrip(spec, polyorder, tmp_path):
+    from multirate_tpu_torch.utils import load_state, save_state
+
+    rng = np.random.default_rng(8)
+    h = rng.standard_normal(30).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal(200).astype(np.float32))
+    f = mt.FIRFilter(h, spec, 32, polyorder, device="cpu")
+    f.filt(x[:100])
+    path = str(tmp_path / "state.npz")
+    save_state(path, f.state)
+    y_rest = f.filt(x[100:])
+    g = mt.FIRFilter(h, spec, 32, polyorder, device="cpu")
+    g.state = load_state(path, device="cpu")
+    assert torch.equal(g.filt(x[100:]), y_rest)
+
+
+def test_checkpoint_phase_is_int64_exact(tmp_path):
+    # the arbitrary/Farrow phase is a 32-bit-fraction accumulator
+    from multirate_tpu_torch.ops.params import FilterState
+    from multirate_tpu_torch.utils import load_state, save_state
+
+    u = (31 << 32) + 0xDEADBEEF
+    st = FilterState(history=torch.zeros(3), phase=u, deficit=-7)
+    path = str(tmp_path / "s.npz")
+    save_state(path, st)
+    with np.load(path) as z:
+        assert z["phase"].dtype == np.int64
+    back = load_state(path, device="cpu")
+    assert (back.phase, back.deficit) == (u, -7)
+
+
+@pytest.mark.parametrize("spec", [Fraction(147, 160), 1.2345])
+def test_jax_checkpoint_loads_in_port(spec, tmp_path):
+    from multirate_tpu.utils import save_state as jax_save_state
+    from multirate_tpu_torch.utils import load_state
+
+    h = _taps()
+    x = np.random.default_rng(9).standard_normal(12_000).astype(np.float32)
+    fj = mr.FIRFilter(h, spec)
+    fj.filt(x[:7001])
+    path = str(tmp_path / "jax.npz")
+    jax_save_state(path, fj.state)
+    yj = np.asarray(fj.filt(x[7001:]))
+
+    g = mt.FIRFilter(h, spec, device="cpu")
+    g.state = load_state(path, device="cpu", h_min=g.params.h_min)
+    y = g.filt(torch.from_numpy(x[7001:])).numpy()
+    assert y.shape == yj.shape
+    assert rel_max_err(y, yj) <= TOL_STREAM
+
+
+def test_port_checkpoint_loads_in_jax(tmp_path):
+    # arbitrary rate: both packages carry the same history length
+    from multirate_tpu.utils import load_state as jax_load_state
+    from multirate_tpu_torch.utils import save_state
+
+    h = _taps()
+    x = np.random.default_rng(10).standard_normal(6_000).astype(np.float32)
+    f = mt.FIRFilter(h, 1.2345, device="cpu")
+    f.filt(torch.from_numpy(x[:3001]))
+    path = str(tmp_path / "port.npz")
+    save_state(path, f.state)
+    y = f.filt(torch.from_numpy(x[3001:])).numpy()
+
+    fj = mr.FIRFilter(h, 1.2345)
+    fj.filt(x[:10])
+    fj.state = jax_load_state(path)
+    yj = np.asarray(fj.filt(x[3001:]))
+    assert yj.shape == y.shape
+    assert rel_max_err(y, yj) <= TOL_JAX
+
+
+def test_checkpoint_bf16_history(tmp_path):
+    from multirate_tpu_torch.utils import load_state, save_state
+
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.standard_normal(60).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(500).astype(np.float32))
+    f = mt.FIRFilter(h.bfloat16(), Fraction(3, 4), device="cpu")
+    f.filt(x[:200].bfloat16())
+    assert f.state.history.dtype == torch.bfloat16
+    path = str(tmp_path / "bf16.npz")
+    save_state(path, f.state)
+    with np.load(path) as z:
+        assert z["history"].dtype == np.float32
+    y_rest = f.filt(x[200:].bfloat16())
+    g = mt.FIRFilter(h.bfloat16(), Fraction(3, 4), device="cpu")
+    g.state = load_state(path, device="cpu")
+    assert g.state.history.dtype == torch.bfloat16
+    assert torch.equal(g.filt(x[200:].bfloat16()), y_rest)
+
+
+# --- models ------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,args,kw", [
+    ("DATToCD", (), {}),
+    ("Resampler", (Fraction(3, 2),), {"attenuation": 50.0}),
+    ("Resampler", (1.4142135,), {"attenuation": 50.0}),
+    ("Resampler", (0.7,), {"polyorder": 3})])
+def test_models_match_jax(name, args, kw):
+    import multirate_tpu.models as jm
+
+    x = np.random.default_rng(12).standard_normal(3200).astype(np.float32)
+    jmod = getattr(jm, name)(*args, **kw)
+    pmod = getattr(mt.models, name)(*args, device="cpu", **kw)
+    assert pmod.taps.dtype == np.float32
+    np.testing.assert_allclose(pmod.taps, jmod.taps, rtol=0, atol=TOL_TAPS)
+    assert type(pmod.kernel).__name__ == type(jmod.kernel).__name__
+    y = pmod(torch.from_numpy(x)).numpy()
+    yj = np.asarray(jmod(x))
+    assert y.dtype == np.float32 and y.shape == yj.shape
+    assert rel_max_err(y, yj) <= TOL_JAX
+
+
+def test_dattocd_runs_the_float32_kernel():
+    d = mt.models.DATToCD(device="cpu")
+    assert d.kernel.bank.dtype == torch.float32
+    y = d(torch.ones(3200))
+    assert y.dtype == torch.float32 and y.shape == (2940,)
+
+
+# --- debug -------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec,polyorder", [
+    (Fraction(7, 5), None), (Fraction(1, 4), None), (1.234, None),
+    (0.8765, 4)])
+def test_check_block_and_indices_match_jax(spec, polyorder):
+    from multirate_tpu.utils import check_indices as jax_check_indices
+    from multirate_tpu_torch.utils import check_block, check_indices
+
+    rng = np.random.default_rng(13)
+    h = rng.standard_normal(36)
+    x = rng.standard_normal(500)
+    if isinstance(spec, float):
+        p = mt.make_kernel(h, rate=spec, polyorder=polyorder, device="cpu")
+        jp = mr.make_kernel(h, rate=spec, polyorder=polyorder)
+    else:
+        p = mt.make_kernel(h, ratio=spec, device="cpu")
+        jp = mr.make_kernel(h, ratio=spec)
+    st = mt.init_state(p, (), torch.float64)
+    if hasattr(p, "nphi"):
+        st = mt.setphase(p, st, 0.37)
+    y, count, st2 = check_block(p, st, torch.from_numpy(x), path="kernel",
+                                rtol=1e-8, atol=1e-9)
+    assert count == y.shape[-1]
+    for phase0, deficit0 in ((st.phase, st.deficit),
+                             (st2.phase, st2.deficit)):
+        assert check_indices(p, phase0, deficit0, 500) == \
+            jax_check_indices(jp, phase0, deficit0, 500)
+
+
+def test_check_block_reports_a_divergence(monkeypatch):
+    from multirate_tpu_torch.ops import compute
+    from multirate_tpu_torch.utils import check_block
+
+    p = mt.make_kernel(np.ones(8), ratio=Fraction(3, 2), device="cpu")
+    st = mt.init_state(p, (), torch.float64)
+    bad = dict(compute._POLYPHASE)
+    bad["kernel"] = lambda *a, **k: compute._POLYPHASE["windows"](
+        *a, **k) + 1.0
+    monkeypatch.setattr(compute, "_POLYPHASE", bad)
+    with pytest.raises(AssertionError, match="diverges from windows"):
+        check_block(p, st, torch.ones(100, dtype=torch.float64),
+                    path="kernel")
+
+
+# --- profiling (mirrors tests/test_profiling.py) ----------------------------
+
+def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
+    from multirate_tpu_torch.utils import annotate, trace
+
+    h = np.random.default_rng(14).standard_normal(64).astype(np.float32)
+    f = mt.FIRFilter(h, Fraction(3, 2), device="cpu")
+    with trace(str(tmp_path)):
+        with annotate("resample-block"):
+            y = f.filt(torch.ones(8192))
+    assert y.numel() > 0
+    files = [n for n in os.listdir(tmp_path) if n.endswith(".pt.trace.json")]
+    assert len(files) == 1
+    with open(tmp_path / files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("name") == "resample-block" for e in events)
+
+
+def test_annotate_is_nop_without_trace():
+    from multirate_tpu_torch.utils import annotate
+
+    with annotate("idle-region"):
+        v = float(torch.randn(4).sum())
+    assert np.isfinite(v)
+
+    @annotate("decorated")
+    def twice(a):
+        return 2 * a
+
+    assert twice(3) == twice(4) - 2 == 6
+
+
+# --- metrics -----------------------------------------------------------------
+
+@pytest.mark.parametrize("rate,itemsize,bw", [
+    (147 / 160, 4, 3350.0), (4.0, 2, 819.0), (1 / 2.123456789, 8, 1640.0),
+    (0.25, 1, 3350.0)])
+def test_hbm_roofline_matches_jax(rate, itemsize, bw):
+    assert metrics.hbm_roofline_samples_per_s(rate, itemsize, bw) == \
+        jmetrics.hbm_roofline_samples_per_s(rate, itemsize, bw)
+
+
+def test_known_bandwidth_is_the_card_only():
+    assert metrics.KNOWN_HBM_GBPS == {"NVIDIA H100 80GB HBM3": 3350.0}
+    assert metrics._roofline_fraction(1e9, 0.9, 4, "cpu") is None
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError):
+            metrics.hbm_roofline_samples_per_s(0.9)
+
+
+@pytest.mark.parametrize("frac", [None, 0.4567])
+def test_throughput_report_str_matches_jax(frac):
+    args = (0.0123, 8_000_000, 7_350_000, 6.5e8, 5.97e8, frac)
+    assert str(metrics.ThroughputReport(*args)) == \
+        str(jmetrics.ThroughputReport(*args))
+
+
+@pytest.mark.parametrize("spec,lead,xlen", [
+    (Fraction(147, 160), (), 4096), (Fraction(1, 4), (2,), 1000),
+    (1.2345, (), 3000), (0.7, (3,), 2048)])
+def test_measure_chained_counts_match_jax(spec, lead, xlen):
+    rng = np.random.default_rng(15)
+    h = rng.standard_normal(48).astype(np.float32)
+    po = 3 if spec == 0.7 else None
+    if isinstance(spec, float):
+        p = mt.make_kernel(h, rate=spec, polyorder=po, device="cpu")
+        jp = mr.make_kernel(h, rate=spec, polyorder=po)
+    else:
+        p = mt.make_kernel(h, ratio=spec, device="cpu")
+        jp = mr.make_kernel(h, ratio=spec)
+    x = torch.from_numpy(rng.standard_normal((*lead, xlen)).astype(
+        np.float32))
+    rep = metrics.measure_chained(p, mt.init_state(p, lead), x, repeat=3,
+                                  iters=2)
+    # JAX's formula (utils/metrics.py:188-190)
+    n_in = int(np.prod(x.shape))
+    n_out = int(mr.outputlength(jp, xlen)) * (n_in // xlen)
+    assert (rep.in_samples, rep.out_samples) == (n_in, n_out)
+    assert rep.seconds > 0 and rep.roofline_fraction is None
+    assert rep.in_samples_per_s == pytest.approx(n_in / rep.seconds)
+
+
+def test_measure_and_chained_fn_time_on_the_cpu():
+    x = torch.randn(1000)
+    rep = metrics.measure(torch.cumsum, x, 0, in_samples=1000,
+                          out_samples=1000, iters=3, warmup=1, device="cpu")
+    assert rep.seconds > 0 and rep.roofline_fraction is None
+    assert metrics.chained_fn_seconds(torch.cumsum, x, 0, repeat=4,
+                                      iters=2, target_t1=0.01) > 0
+
+
+def _copy_body(xa):
+    """metrics.py:334-335: the tile stored relabelled, the same flat
+    bytes."""
+    JT, W = xa.shape
+    return xa.reshape(8 * JT, W // 8)
+
+
+def _expand_body(v, ratio, odt):
+    """metrics.py:393-398."""
+    wide = np.concatenate([v] * ratio, axis=1)
+    if odt == jnp.int8:
+        wide = np.clip(wide * np.float32(32.0), -127, 127)
+    return wide.astype(odt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8",
+                                   "complex128"])
+def test_copy_plain_matches_the_pallas_body(dtype):
+    rng = np.random.default_rng(16)
+    v = rng.standard_normal((16, 1024))
+    if dtype == "complex128":
+        v = v + 1j * rng.standard_normal((16, 1024))
+    jdt = jnp.dtype(dtype)
+    a = (v * 16).astype(jdt) if dtype == "int8" else v.astype(jdt)
+    x = mt.ops.params.to_tensor(a)
+    before = dict(probe.launches)
+    for y in (probe.copy_plain(x), probe.copy(x)):
+        want = _copy_body(a).reshape(-1)
+        got = y.reshape(-1)
+        got = (got.float().numpy().astype(jdt) if dtype == "bfloat16"
+               else got.numpy())
+        np.testing.assert_array_equal(got, want)
+    assert probe.launches == before  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 4, 8])
+@pytest.mark.parametrize("odt", ["float32", "bfloat16", "float16", "int8"])
+def test_expand_plain_matches_the_pallas_body(odt, ratio):
+    rng = np.random.default_rng(17)
+    # values that round and clip: the int8 clip, halfway cases for bf16
+    v = (rng.standard_normal((40, 128)) * 3).astype(np.float32)
+    v[0, :8] = [0.0, -0.0, 3.96875, -3.96875, 4.1, -4.1, 1 + 2**-8, 1e-30]
+    want = _expand_body(v, ratio, jnp.dtype(odt))
+    tdt = getattr(torch, odt)
+    before = dict(probe.launches)
+    for y in (probe.expand_plain(torch.from_numpy(v), ratio, tdt),
+              probe.expand(torch.from_numpy(v), ratio, tdt)):
+        assert y.dtype == tdt and tuple(y.shape) == want.shape
+        got = y.float().numpy() if odt == "bfloat16" else y.numpy()
+        np.testing.assert_array_equal(got, want.astype(got.dtype))
+    assert probe.launches == before
+
+
+def test_probe_wrappers_refuse_what_the_kernel_does_not_take():
+    x = torch.zeros(4, 128)
+    with pytest.raises(TypeError):
+        probe.expand(x.double(), 2)
+    with pytest.raises(TypeError):
+        probe.expand(x, 2, torch.float64)
+    with pytest.raises(ValueError):
+        probe.expand(x, 0)
+    with pytest.raises(ValueError):
+        probe.copy(torch.zeros(4, 8).t())
+    with pytest.raises(ValueError):
+        probe.copy(torch.zeros(4, device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16, torch.int8,
+                                   torch.complex128])
+def test_stream_copy_counts_bytes_as_jax(dtype, monkeypatch):
+    sec = 1e-3
+    calls = []
+
+    def fixed(fn, device, launches):
+        calls.append(fn())
+        return sec
+
+    monkeypatch.setattr(metrics, "_probe_seconds", fixed)
+    n = 40_000
+    gbps = metrics.stream_copy_gbps(n_floats=n, dtype=dtype, device="cpu")
+    isz = torch.empty((), dtype=dtype or torch.float32).element_size()
+    # JAX's formula (utils/metrics.py:352) on the elements copied
+    assert gbps == 2 * isz * n / sec / 1e9
+    (y,) = calls
+    assert y.numel() == n and y.dtype == (dtype or torch.float32)
+
+
+@pytest.mark.parametrize("ratio", [1, 4])
+@pytest.mark.parametrize("odt", [None, torch.bfloat16, torch.float16,
+                                 torch.int8])
+def test_stream_expand_counts_bytes_as_jax(odt, ratio, monkeypatch):
+    sec = 2e-3
+    calls = []
+
+    def fixed(fn, device, launches):
+        calls.append(fn())
+        return sec
+
+    monkeypatch.setattr(metrics, "_probe_seconds", fixed)
+    n = 128 * 300
+    gbps = metrics.stream_expand_gbps(ratio=ratio, n_floats=n,
+                                      out_dtype=odt, device="cpu")
+    osz = torch.empty((), dtype=odt or torch.float32).element_size()
+    # JAX's formula (utils/metrics.py:440) on the rows expanded
+    assert gbps == (4 + ratio * osz) * n / sec / 1e9
+    (y,) = calls
+    assert tuple(y.shape) == (300, ratio * 128)
+
+
+def test_utils_exports_the_jax_names():
+    import multirate_tpu.utils as ju
+
+    skip = {"interpret_kernels", "on_relay_backend"}
+    assert set(ju.__all__) - skip <= set(mt.utils.__all__)
+    for name in ("io", "models", "utils"):
+        assert name in mt.__all__
+    assert {"RingBuffer", "StreamingResampler", "build_native"} <= set(
+        mt.io.__all__)
+    assert set(mt.models.__all__) == {"Resampler", "DATToCD"}
