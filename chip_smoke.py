@@ -19,16 +19,26 @@ prints one line:
    filter types at the headline taps and at short taps, plus a bank too
    large for shared memory and a wide decimation, fresh and mid-phase
    entry states, one channel and two channels at xlen 80007: counts and
-   states equal exactly, outputs within 1e-5 * max|y|;
+   states equal exactly, outputs within 1e-5 * max|y|; then the kernel's
+   variants (``polyphase.plan``: ``reg``, ``slide``, ``bcast``, and the
+   ``general`` one forced) against the plain version at VARIANT_GEOMETRIES
+   (each compiled T, L = 1, T outside the set, Q over a block's threads, a
+   bank over shared memory), fresh and mid-phase, one and two channels at
+   xlen 80,007, with all outputs, 1, 33 and one more than a tile, each
+   launch counted by entry point and variant (3c and 3d do the same for
+   their entry points);
 4. the slice at full size: one 8 M-sample block through ``filt`` (relative
    RMS against the float64 ``naivefilt`` oracle on the first 200 000
    outputs <= 8e-5) and the same samples through ``FIRFilter`` in 250 000-
    sample chunks (counts and state equal, chunked-vs-whole RMS <= 1e-6),
-   with the kernel's launch count read around these two runs alone;
+   with the kernel's launch count read around these two runs alone (all
+   through the register variant);
 5. times: kernel and plain version at the headline block, CUDA events,
    median of 7 runs after a warm-up; the kernel alone for one launch
    after a 256 MB write that evicts the 50 MB L2, and at 1//1, 4//1 and
-   1//4 with T = 24 random taps on the same 8 M samples.
+   1//4 with T = 24 random taps on the same 8 M samples, and one
+   65,536-sample block; every polyphase time here and in 5c-5e is taken
+   for the planned variant and for the general one in turn.
 
 Then the same three steps for the arbitrary/Farrow path:
 
@@ -77,7 +87,9 @@ instantiations:
    (the 4//1 row also with float32 stores), and of one PyTorch call
    computing the same function where there is one
    (``conv1d`` with TF32 off: the 4//1 row, and 1//1, 1//4 and 4//1 at
-   T = 24 beside phase 5's kernel times).
+   T = 24 beside phase 5's kernel times); and ``bench.py``'s
+   ``standard_147taps`` and ``decim_1_4`` (``firdes(147, 0.2, kaiser,
+   beta=7.0)`` at 1//1 and 1//4 on the 8 M samples) with ``conv1d``.
 
 Then the same three steps for the float64 and complex modes of every
 filter type (``bench.py``'s rows ``rational_147_160_c64`` and
@@ -131,16 +143,19 @@ Then the same three steps for the runtime and its probe kernels
    equal to the uninterrupted stream bit for bit. Each wrapper's launch
    count around these streams equal to their blocks plus one flush each.
    ``utils.check_block`` on the card for the four rational-family types,
-   arbitrary and Farrow; a ``utils.trace`` of one ``DATToCD`` block inside
+   arbitrary and Farrow (rtol 1e-4, atol 1e-5 of max|y|); a
+   ``utils.trace`` of one ``DATToCD`` block inside
    ``utils.annotate("resample-block")`` whose Chrome trace holds the
-   annotation and a kernel event named ``mr_polyphase_f32``. Prints
+   annotation and a kernel event of the register variant,
+   ``polyphase_reg<entry::mr_polyphase_f32, ...>``. Prints
    ``stats()``, the stream's rate (Msps in, from the first push to the
    end of ``flush``) and one block's kernel time alone (CUDA events), the
    share of the stream's wall time that the kernels fill;
 5e. times: ``utils.metrics.stream_copy_gbps()`` (32 M float32) and
    ``stream_expand_gbps()`` (8 M inputs at 1:4) with each store type, as
    GB/s and as a share of 3.35 TB/s (over 105% fails: the probe would be
-   reading the cache), with each probe's launch count over those calls;
+   reading the cache; these ceilings are the denominators of every "% of
+   copy ceiling"), with each probe's launch count over those calls;
    each probe kernel after an L2 eviction against its bound, its plain
    version and ``Tensor.copy_`` / ``torch.cat`` (one call for the float32
    store; a cast store takes two, so none); ``measure_chained`` on the 8 M
@@ -152,8 +167,9 @@ Then the same three steps for the runtime and its probe kernels
 
 Then a JSON line of the kernels (each with its bound: the larger of the
 bytes it must move over 3.35 TB/s and its multiply-adds over the card's
-peak for their type), the ``nvidia-smi`` name and power-limit line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failure exits
+peak for their type; a polyphase row also with the variant it launched and
+the general variant's time), the ``nvidia-smi`` name and power-limit line,
+and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without the last line. Imports nothing of JAX.
 """
 
@@ -204,6 +220,16 @@ PROBE_EXPAND_SHAPES = ((1, 128), (777, 128), (65_536, 128), (33, 4))
 PROBE_RATIOS = (1, 2, 4, 8)
 MAX_CEILING_SHARE = 1.05  # a probe over 105% of 3.35 TB/s reads the cache
 STREAM_CHUNKS = (100, 5000)  # 4e: seeded chunk sizes pushed to the ring
+# 3, 3c, 3d: the polyphase kernel's variants, each against the plain
+# version: (T, L, M) at each compiled T of the register variant (24 at
+# 147//160, 37 at 7//6) and of the sliding one (37 and 24 at 4//1), L = 1
+# (broadcast) at T = 147 and 24, and the general variant's geometries
+# (T = 30 outside the set; Q = 1031, more groups than a block's threads;
+# 48 taps, a complex128 bank over 96 KB)
+VARIANT_GEOMETRIES = ((24, 147, 160), (37, 7, 6), (37, 4, 1), (24, 4, 1),
+                      (147, 1, 1), (147, 1, 4), (24, 1, 1), (30, 1000, 999),
+                      (24, 1031, 1030), (48, 147, 160))
+VARIANT_XLEN = 80_007
 
 
 class SmokeFailure(Exception):
@@ -257,8 +283,11 @@ def phase_build():
         log = (lib.parent / "build.log").read_text()
         usage = [ln.split("info    : ")[-1] for ln in log.splitlines()
                  if "registers" in ln]
+        spills = [ln.strip() for ln in log.splitlines() if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         print(f"[2 build] {lib.relative_to(build.BUILD_DIR.parent)}; "
-              f"ptxas: {' | '.join(usage) or 'none (host code)'}")
+              f"ptxas: {' | '.join(usage) or 'none (host code)'}; "
+              f"spills: {' | '.join(spills) or 'none'}")
     print(f"[2 build] {len(names)} libraries built in parallel in "
           f"{secs:.1f} s")
 
@@ -285,13 +314,85 @@ def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL):
     return err
 
 
+def _variant_matrix(torch, dev, pp, entries):
+    """Each of ``entries`` (polyphase entry points) through the variant
+    ``plan`` picks and through the general variant, against the plain
+    version, at VARIANT_GEOMETRIES: one channel and two at xlen 80,007,
+    fresh and mid-phase entry states, all outputs, 1, 33 and one more than
+    a tile. Checks that the planned variant was launched. Returns (cases,
+    {entry: worst error}, {variant: launches})."""
+    from multirate_tpu_torch.utils.testing import ulps_apart
+
+    rng = np.random.default_rng(7)
+    dtypes = {name: key for key, name in pp.ENTRIES.items()}
+    worst, used, n_cases = dict.fromkeys(entries, 0.0), {}, 0
+    for entry in entries:
+        x_dt, b_dt, o_dt = dtypes[entry]
+        tol = 1e-12 if x_dt in (torch.float64, torch.complex128) else \
+            TOL_KERNEL
+        for T, L, M in VARIANT_GEOMETRIES:
+            bank = _probe_source(torch, rng, (T, L), b_dt).to(dev)
+            x = _probe_source(torch, rng, (2, VARIANT_XLEN), x_dt).to(dev)
+            hist = _probe_source(torch, rng, (2, T - 1), x_dt).to(dev)
+            for C, state, count in ((1, "fresh", "all"), (2, "mid", "all"),
+                                    (1, "mid", 1), (2, "fresh", 33),
+                                    (1, "fresh", "tile+1")):
+                phi0, d0 = (1, 1) if state == "fresh" else (L // 2 + 1, 3)
+                n_all = ((VARIANT_XLEN - d0) * L - (phi0 - 1)) // M + 1
+                if count == "tile+1":
+                    count = pp.plan(T, L, M, n_all, x_dt, b_dt,
+                                    C).tile_outputs + 1
+                n = n_all if count == "all" else min(count, n_all)
+                args = (x[:C], hist[:C], bank, L, M, phi0, d0, n)
+                yp = pp.polyphase_plain(*args, out_dtype=o_dt)
+                floor = tol * max(float(yp.abs().max()), 1e-30)
+                for variant in (None, "general"):
+                    p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant)
+                    key = f"{entry}/{p.variant}"
+                    before = pp.launches_by_variant[key]
+                    y = pp.polyphase(*args, out_dtype=o_dt, variant=variant)
+                    torch.cuda.synchronize()
+                    case = (f"{key} T={T} {L}//{M} C={C} {state} n={n}")
+                    check(pp.launches_by_variant[key] == before + 1,
+                          f"{case}: not launched once")
+                    check(y.dtype == yp.dtype and y.shape == yp.shape,
+                          f"{case}: {y.dtype} {tuple(y.shape)}")
+                    if x_dt == torch.int8:
+                        err = float((y - yp).abs().max())
+                        check(err == 0, f"{case}: int8 differs by {err}")
+                    elif o_dt in (torch.bfloat16, torch.float16):
+                        err = ulps_apart(y, yp, o_dt, floor)
+                        check(err <= 1, f"{case}: {err} ulps apart")
+                    else:
+                        err = float((y - yp).abs().max()) / max(
+                            float(yp.abs().max()), 1e-30)
+                        check(err <= tol, f"{case}: rel err {err:.3e}")
+                    worst[entry] = max(worst[entry], err)
+                    used[p.variant] = used.get(p.variant, 0) + 1
+                    n_cases += 1
+    return n_cases, worst, used
+
+
+def _reset_counts(pp):
+    """Set the polyphase wrapper's launch counts (by entry point and by
+    entry point and variant) to 0."""
+    for counts in (pp.launches, pp.launches_by_variant):
+        for k in counts:
+            counts[k] = 0
+
+
+def _by_variant(pp):
+    """The nonzero launch counts by entry point and variant."""
+    return {k: v for k, v in pp.launches_by_variant.items() if v}
+
+
 def _rel_rms(got, ref):
     """Relative RMS of got - ref, real or complex (moduli)."""
     return float(np.sqrt(np.mean(np.abs(got - ref) ** 2)
                          / np.mean(np.abs(ref) ** 2)))
 
 
-def phase_kernel_vs_plain(mt, torch, dev):
+def phase_kernel_vs_plain(mt, torch, dev, pp):
     rng = np.random.default_rng(1)
     h_head = headline_taps(mt)
     h_short = (mt.firdes(24 * 5, 0.5 / 5, mt.kaiser, beta=7.8562) * 5
@@ -327,8 +428,10 @@ def phase_kernel_vs_plain(mt, torch, dev):
                 worst = max(worst, _compare(mt, torch, params, st, x, False,
                                             case))
                 n_cases += 1
+    n_var, w_var, used = _variant_matrix(torch, dev, pp, ("f32",))
     print(f"[3 kernel vs plain] {n_cases} cases, counts and states exact, "
-          f"worst max|dy|/max|y| {worst:.3e} (limit {TOL_KERNEL})")
+          f"worst max|dy|/max|y| {worst:.3e} (limit {TOL_KERNEL}); "
+          f"variants: {n_var} f32 cases {used}, worst {w_var['f32']:.3e}")
 
 
 def phase_slice(mt, torch, dev, pp):
@@ -341,8 +444,7 @@ def phase_slice(mt, torch, dev, pp):
     x = torch.from_numpy(x_np).to(dev)
     n_want = mt.outputlength(N_HEAD, ratio)
 
-    for k in pp.launches:
-        pp.launches[k] = 0
+    _reset_counts(pp)
     y = mt.filt(h, x, ratio)
     f = mt.FIRFilter(h, ratio)
     parts = [f.filt(x[i:i + CHUNK]) for i in range(0, N_HEAD, CHUNK)]
@@ -351,6 +453,8 @@ def phase_slice(mt, torch, dev, pp):
 
     check(launches == 1 + len(parts) == sum(pp.launches.values()),
           f"kernel launched {pp.launches}, want f32 {1 + len(parts)}")
+    check(_by_variant(pp) == {"f32/reg": launches},
+          f"variants launched {_by_variant(pp)}, want f32/reg {launches}")
     check(y.device == x.device and y.dtype == torch.float32
           and tuple(y.shape) == (n_want,), f"filt gave {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "non-finite outputs")
@@ -374,7 +478,8 @@ def phase_slice(mt, torch, dev, pp):
     print(f"[4 slice] 147//160 on {N_HEAD} samples -> {n_want} outputs; "
           f"oracle rel RMS {rel:.3e} (limit {TOL_ORACLE}); FIRFilter "
           f"{len(parts)} chunks of {CHUNK}: chunked-vs-whole RMS "
-          f"{rms_chunk:.3e} (limit {TOL_CHUNKED}); kernel launches {launches}")
+          f"{rms_chunk:.3e} (limit {TOL_CHUNKED}); kernel launches {launches}"
+          f" {_by_variant(pp)}")
     return h, x, launches, ref
 
 
@@ -414,7 +519,8 @@ def phase_times(mt, torch, h, x, pp, card):
     max_abs = float((yk - yp).abs().max())
     check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
           f"headline kernel vs plain max abs err {max_abs:.3e}")
-    ms = _time_ms(torch, lambda: pp.polyphase(*args), iters=20)
+    variant = pp.plan(24, 147, 160, n, x.dtype, params.bank.dtype).variant
+    ms, general_ms = _time_variants(torch, pp, args)
     plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(*args), iters=2)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=x.device)
     cold_ms = _time_ms(torch, lambda: pp.polyphase(*args), iters=1,
@@ -426,18 +532,45 @@ def phase_times(mt, torch, h, x, pp, card):
         bank = torch.randn(24, L, generator=g, device=x.device)
         hist = torch.zeros(1, 23, device=x.device)
         n_g = mt.outputlength(N_HEAD, Fraction(L, M))
-        g_ms = _time_ms(torch, lambda: pp.polyphase(
-            x2, hist, bank, L, M, 1, 1, n_g), iters=20)
-        geo.append(f"{L}//{M} {g_ms:.4f} ms ({N_HEAD / g_ms / 1e3:.1f} "
-                   f"Msps in)")
-    print(f"[5 times] 147//160 block of {N_HEAD}: kernel {ms:.4f} ms "
-          f"({N_HEAD / ms / 1e3:.1f} Msps in, {n / ms / 1e3:.1f} Msps out), "
-          f"one launch after an L2 flush {cold_ms:.4f} ms, "
+        g_args = (x2, hist, bank, L, M, 1, 1, n_g)
+        g_ms, g_general = _time_variants(torch, pp, g_args)
+        g_bound = _polyphase_bound(torch, g_args, torch.float32, "f32")[0]
+        geo.append(f"{L}//{M} {_plan_of(pp, g_args).variant} {g_ms:.4f} ms "
+                   f"({N_HEAD / g_ms / 1e3:.1f} Msps in), general "
+                   f"{g_general:.4f} ms, bound {g_bound:.4f} ms")
+    # one 65,536-sample block of the stream (phase 4e): the grid's fill
+    n_b = mt.outputlength(1 << 16, Fraction(147, 160))
+    b_args = (x2[:, :1 << 16], h2, params.bank, 147, 160, 1, 1, n_b)
+    b_ms, b_general = _time_variants(torch, pp, b_args)
+    print(f"[5 times] 147//160 block of {N_HEAD}: kernel ({variant}) "
+          f"{ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} Msps in, "
+          f"{n / ms / 1e3:.1f} Msps out), general variant {general_ms:.4f} "
+          f"ms, one launch after an L2 flush {cold_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms ({N_HEAD / plain_ms / 1e3:.1f} Msps in);"
           f" max abs err {max_abs:.3e}; T=24 random taps: {'; '.join(geo)};"
-          f" card: {card}")
-    return max_abs, ms, plain_ms, _polyphase_bound(torch, args,
-                                                   torch.float32, "f32")
+          f" a 65,536-sample block ({_plan_of(pp, b_args)}): "
+          f"{b_ms * 1e3:.2f} us, general {b_general * 1e3:.2f} us; "
+          f"card: {card}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                general_ms=general_ms, variant=variant,
+                **dict(zip(("bound_ms", "bound_by"), _polyphase_bound(
+                    torch, args, torch.float32, "f32"))))
+
+
+def _plan_of(pp, args):
+    """The plan of one polyphase call on ``args``."""
+    x, _, bank, L, M, _, _, n = args
+    return pp.plan(bank.shape[0], L, M, n, x.dtype, bank.dtype, x.shape[0])
+
+
+def _time_variants(torch, pp, args, out_dtype=None):
+    """(ms of the planned variant, ms of the general variant) of one
+    polyphase call, timed in turns in this run."""
+    planned = _time_ms(torch, lambda: pp.polyphase(*args, out_dtype=out_dtype),
+                       iters=20)
+    general = _time_ms(torch, lambda: pp.polyphase(
+        *args, out_dtype=out_dtype, variant="general"), iters=20)
+    return planned, general
 
 
 def phase_resample_vs_plain(mt, torch, dev):
@@ -729,6 +862,9 @@ def phase_quant_vs_plain(mt, torch, dev, pp):
                         check(err <= 1, f"{case}: {err} ulps apart")
                     worst[mode] = max(worst[mode], err)
                     n_cases += 1
+    n_var, w_var, used = _variant_matrix(torch, dev, pp, tuple(modes))
+    print(f"[3c quantized vs plain] variants: {n_var} cases {used}, worst "
+          + ", ".join(f"{m} {w_var[m]:.3g}" for m in modes))
     print(f"[3c quantized vs plain] {n_cases} cases, counts and states "
           f"exact; worst: bf16 max|dy|/max|y| {worst['bf16']:.3e} (limit "
           f"{TOL_KERNEL}), int8 max|dy| {worst['s8']:g} (limit 0), narrow "
@@ -754,8 +890,7 @@ def phase_quant_slice(mt, torch, dev, pp, x, ref):
                            store_dtype=torch.bfloat16)
     chunks = range(0, N_HEAD, CHUNK)
 
-    for k in pp.launches:
-        pp.launches[k] = 0
+    _reset_counts(pp)
     yb = mt.filt(hb, xb, ratio)
     fb = mt.FIRFilter(hb, ratio, device=dev)
     parts_b = [fb.filt(xb[i:i + CHUNK]) for i in chunks]
@@ -774,6 +909,11 @@ def phase_quant_slice(mt, torch, dev, pp, x, ref):
     want = dict.fromkeys(pp.launches, 0)
     want.update(bf16=blocks, s8=blocks, f32_bf16out=blocks)
     check(launches == want, f"polyphase launches {launches}, want {want}")
+    by_variant = _by_variant(pp)
+    check(by_variant == {"bf16/reg": blocks, "s8/reg": blocks,
+                         "f32_bf16out/slide": blocks},
+          f"variants launched {by_variant}, want the register variant "
+          f"(147//160) and the sliding one (4//1)")
     n_want = mt.outputlength(N_HEAD, ratio)
     t_end = n_want * 160
     end = (t_end % 147 + 1, 1 + t_end // 147 - N_HEAD)
@@ -838,7 +978,7 @@ def phase_quant_slice(mt, torch, dev, pp, x, ref):
         f"{n_out} bf16: {ulps:g} bf16 ulps at most from the float32 kernel "
         f"(limit 1), {n_diff} outputs differ from its round to nearest; "
         f"{len(parts_o)} chunks bit-identical")
-    print(f"[4c quantized slice] {'; '.join(notes)}; launches {launches}")
+    print(f"[4c quantized slice] {'; '.join(notes)}; launches {by_variant}")
     return {"bf16": launches["bf16"], "s8": launches["s8"],
             "f32_bf16out": launches["f32_bf16out"]}
 
@@ -901,8 +1041,7 @@ def phase_quant_times(mt, torch, x, pp, card):
                              * float(yp.abs().max())) <= 1,
                   f"{name}: kernel vs plain beyond one ulp")
         del yp
-        ms = _time_ms(torch, lambda: pp.polyphase(*args, out_dtype=store),
-                      iters=20)
+        ms, general_ms = _time_variants(torch, pp, args, store)
         plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(
             *args, out_dtype=store), iters=2)
         library_ms, wide = None, ""
@@ -923,12 +1062,15 @@ def phase_quant_times(mt, torch, x, pp, card):
         kind = {"bf16": "bf16", "s8": "int8"}.get(entry, "f32")
         bound = _polyphase_bound(torch, args,
                                  store or pp.ACCUMULATOR[xs.dtype], kind)
+        variant = _plan_of(pp, args).variant
         out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=library_ms)
+                         library_ms=library_ms, general_ms=general_ms,
+                         variant=variant)
         notes.append(
-            f"{name} kernel {ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} Msps in)"
-            f"{wide}, plain {plain_ms:.4f} ms, library "
+            f"{name} kernel ({variant}) {ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} "
+            f"Msps in){wide}, general variant {general_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
             f"bound {bound[0]:.4f} ms ({bound[1]}), max abs err {max_abs:.3e}")
 
@@ -955,6 +1097,41 @@ def phase_quant_times(mt, torch, x, pp, card):
                                  torch.float32, "f32")
         lib_notes.append(f"{L}//{M} {lib_ms:.4f} ms (kernel bound "
                          f"{bound[0]:.4f} ms, {bound[1]})")
+    # bench.py's standard_147taps and decim_1_4 (bench.py:435-445):
+    # firdes(147, 0.2, kaiser, beta=7.0) on the 8 M samples
+    bank = mt.make_kernel(h147, ratio=1, device=x.device).bank  # (147, 1)
+    hist = torch.zeros(1, 146, device=x.device)
+    for name, M in (("standard_147taps", 1), ("decim_1_4", 4)):
+        n_b = mt.outputlength(N_HEAD, Fraction(1, M))
+        args = (x1, hist, bank, 1, M, 1, 1, n_b)
+        yk = pp.polyphase(*args)
+        yp = pp.polyphase_plain(*args)
+
+        def lib(M=M, n_b=n_b):
+            with fp32():
+                return _conv_dec(torch, x1, bank, M, n_b)
+        torch.cuda.synchronize()
+        max_abs = float((yk - yp).abs().max())
+        scale = float(yp.abs().max())
+        check(max_abs <= TOL_KERNEL * scale,
+              f"{name}: kernel vs plain max abs err {max_abs:.3e}")
+        check(float((lib() - yk).abs().max()) <= TOL_KERNEL * scale,
+              f"{name}: conv1d disagrees")
+        del yk, yp
+        ms, general_ms = _time_variants(torch, pp, args)
+        plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(*args), iters=2)
+        library_ms = _time_ms(torch, lib, iters=5)
+        bound = _polyphase_bound(torch, args, torch.float32, "f32")
+        variant = _plan_of(pp, args).variant
+        out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=library_ms, general_ms=general_ms,
+                         variant=variant)
+        notes.append(
+            f"{name} kernel ({variant}) {ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} "
+            f"Msps in), general variant {general_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, conv1d {library_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), max abs err {max_abs:.3e}")
     print(f"[5c quantized times] {'; '.join(notes)}; conv1d (TF32 off) at "
           f"T = 24 random taps: {'; '.join(lib_notes)}; card: {card}")
     return out
@@ -1058,6 +1235,9 @@ def phase_wide_vs_plain(mt, torch, dev, pp, rs):
                               f"{case}: {entry} not launched once")
                         worst[entry] = max(worst[entry], err)
                         n_rs += 1
+    n_var, w_var, used = _variant_matrix(torch, dev, pp, tuple(WIDE))
+    print(f"[3d wide vs plain] polyphase variants: {n_var} cases {used}, "
+          f"worst " + ", ".join(f"{e} {w_var[e]:.3e}" for e in WIDE))
     print(f"[3d wide vs plain] {n_pp} polyphase and {n_rs} resample cases "
           f"(time-major ones through the channel-major entry point), counts "
           f"and states exact; worst max|dy|/max|y|: "
@@ -1104,8 +1284,7 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
                                      32),
             "Farrow": pool.submit(naivefilt_farrow, ha64, x64_np[:n_far],
                                   0.4709, 32, 4)}
-        for k in pp.launches:
-            pp.launches[k] = 0
+        _reset_counts(pp)
         for k in rs.launches:
             rs.launches[k] = 0
         rs.launches_tm = 0
@@ -1121,6 +1300,7 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
                          f, xs))
         torch.cuda.synchronize()
         launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
+        by_variant = _by_variant(pp)
         refs = {k: v.result() for k, v in oracles.items()}
 
     blocks = 1 + len(chunks)
@@ -1128,6 +1308,8 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
     want[0].update(c64=blocks, f64=blocks)
     want[1].update(f64=2 * blocks)
     check(launches == want, f"launches {launches}, want {want}")
+    check(by_variant == {"c64/reg": blocks, "f64/reg": blocks},
+          f"variants launched {by_variant}, want the register variant")
     refs["c64"] = ref + 1j * refs["c64"][:N_ORACLE]
     refs["f64"] = refs["f64"][:N_ORACLE]
     limits = {"rational_147_160_c64": ("c64", TOL_ORACLE, TOL_CHUNKED),
@@ -1161,7 +1343,7 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
                      f"chunks: chunked-vs-whole RMS {rms_chunk:.3e} (limit "
                      f"{tol_chunked:g})")
     print(f"[4d wide slice] {'; '.join(notes)}; launches polyphase "
-          f"{ {k: v for k, v in launches[0].items() if v} }, resample "
+          f"{by_variant}, resample "
           f"{ {k: v for k, v in launches[1].items() if v} }")
     return xc, x64, {"polyphase_c64": launches[0]["c64"],
                      "polyphase_f64": launches[0]["f64"],
@@ -1190,15 +1372,23 @@ def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
         check(max_abs <= tol * float(yp.abs().max()),
               f"{name}: kernel vs plain max abs err {max_abs:.3e}")
         del yk, yp
-        ms = _time_ms(torch, lambda: kern(*args), iters=20)
+        extra, tag, general = {}, "", ""
+        if kern is pp.polyphase:
+            ms, general_ms = _time_variants(torch, pp, args)
+            extra = dict(general_ms=general_ms,
+                         variant=_plan_of(pp, args).variant)
+            tag = f" ({extra['variant']})"
+            general = f", general variant {general_ms:.4f} ms"
+        else:
+            ms = _time_ms(torch, lambda: kern(*args), iters=20)
         plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
         library_ms = None if lib is None else _time_ms(torch, lib, iters=5)
         out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=library_ms)
+                         library_ms=library_ms, **extra)
         notes.append(
-            f"{name} kernel {ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} Msps in), "
-            f"plain {plain_ms:.4f} ms, library "
+            f"{name} kernel{tag} {ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} "
+            f"Msps in){general}, plain {plain_ms:.4f} ms, library "
             f"{'none' if lib is None else f'{library_ms:.4f} ms'}, bound "
             f"{bound[0]:.4f} ms ({bound[1]}), max abs err {max_abs:.3e}")
 
@@ -1254,15 +1444,16 @@ def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
               f"{entry}: conv1d disagrees")
         max_abs = float((yk.double() - yp.double()).abs().max())
         del yk, yp, y_lib
-        ms = _time_ms(torch, lambda: pp.polyphase(*args, out_dtype=store),
-                      iters=20)
+        ms, general_ms = _time_variants(torch, pp, args, store)
         plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(
             *args, out_dtype=store), iters=2)
         library_ms = _time_ms(torch, lib, iters=5)
         bound = _polyphase_bound(torch, args, store,
                                  "bf16" if dt == torch.bfloat16 else "f32")
         notes.append(
-            f"interp_4_1 {entry} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"interp_4_1 {entry} kernel ({_plan_of(pp, args).variant}) "
+            f"{ms:.4f} ms, general variant {general_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} "
             f"ms, library {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
             f"({bound[1]}), max abs err {max_abs:.3e}")
     print(f"[5d wide times] {'; '.join(notes)}; card: {card}")
@@ -1270,7 +1461,8 @@ def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
 
 
 def _probe_source(torch, rng, n, dtype):
-    """n seeded samples in ``dtype`` (int8 as 16 x a standard normal)."""
+    """Seeded samples of shape ``n`` in ``dtype`` (int8 as 16 x a standard
+    normal)."""
     if dtype == torch.int8:
         return torch.from_numpy((rng.standard_normal(n) * 16).astype(
             np.int8))
@@ -1372,8 +1564,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
           "models built the wrong kernels")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "stream.ckpt.npz")
-        for k in pp.launches:
-            pp.launches[k] = 0
+        _reset_counts(pp)
         for k in rs.launches:
             rs.launches[k] = 0
         s_d, y_d, sec_d = uninterrupted(d, 7, True)
@@ -1394,6 +1585,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
         tail = s_k2.flush()
         torch.cuda.synchronize()
         launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
+        by_variant = _by_variant(pp)
 
     blocks = (s_d.stats()["blocks"], s_r.stats()["blocks"],
               blocks_k + s_k2.stats()["blocks"])
@@ -1403,6 +1595,8 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
     want[0]["f32"] = blocks[0] + 1 + blocks[2] + 1
     want[1]["f32"] = blocks[1] + 1
     check(launches == want, f"launches {launches}, want {want}")
+    check(by_variant == {"f32/reg": want[0]["f32"]},
+          f"variants launched {by_variant}, want the register variant")
 
     for label, model, y, s, sec, spec in (
             ("DATToCD 147//160", d, y_d, s_d, sec_d, (ratio,)),
@@ -1450,7 +1644,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
     notes.append(f"kill at {int(0.6 * N_HEAD)} samples, resumed from "
                  f"{consumed} (output {at}): prefix and tail equal to the "
                  f"uninterrupted stream bit for bit")
-    notes.append(f"launches polyphase f32 {launches[0]['f32']}, resample "
+    notes.append(f"launches polyphase {by_variant}, resample "
                  f"f32 {launches[1]['f32']} (blocks {blocks} plus a flush "
                  f"each)")
 
@@ -1468,9 +1662,16 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
             ("Farrow", mt.make_kernel(ha, rate=0.4709, polyorder=4,
                                       device=dev))):
         st = _entry_state(mt, p, (), torch.float32, xb, "mid")
-        mt.utils.check_block(p, st, xb, path="kernel")
+        # the smoke's kernel tolerance, 1e-5 of max|y|, as the absolute
+        # one: the 3,528 headline taps as one FIR or 1//4 decimator give
+        # outputs of ~12, whose float32 sums in another order differ by
+        # more than check_block's default 1e-5
+        scale = float(mt.filt_block(p, st, xb, path="windows")[0].abs().max())
+        mt.utils.check_block(p, st, xb, path="kernel",
+                             atol=TOL_KERNEL * scale)
     notes.append("check_block passes on the card for 147//160, 1//1, 4//1, "
-                 "1//4, arbitrary and Farrow (mid-stream entry)")
+                 "1//4, arbitrary and Farrow (mid-stream entry; atol 1e-5 "
+                 "of max|y|)")
 
     # a trace of one DATToCD block
     d.reset()
@@ -1483,6 +1684,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
         with open(os.path.join(tmp, name)) as fh:
             events = json.load(fh)["traceEvents"]
     kern = [e for e in events if e.get("cat") == "kernel"
+            and "polyphase_reg" in e.get("name", "")
             and "mr_polyphase_f32" in e.get("name", "")]
     check(any(e.get("name") == "resample-block" for e in events)
           and len(kern) == 1,
@@ -1604,14 +1806,21 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
         check(max_abs <= tol * float(yp.abs().max()),
               f"{name}: kernel vs plain max abs err {max_abs:.3e}")
         del yk, yp
-        ms = _time_ms(torch, lambda: kern(*args), iters=20)
+        tag, general = "", ""
+        if kern is pp.polyphase:
+            ms, general_ms = _time_variants(torch, pp, args)
+            tag = f" ({_plan_of(pp, args).variant})"
+            general = f", general variant {general_ms:.4f} ms"
+        else:
+            ms = _time_ms(torch, lambda: kern(*args), iters=20)
         plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
         out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound[0], bound_by=bound[1],
                          library_ms=None)
-        wide_notes.append(f"{name} kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                          f"ms, library none, bound {bound[0]:.4f} ms "
-                          f"({bound[1]}), max abs err {max_abs:.3e}")
+        wide_notes.append(f"{name} kernel{tag} {ms:.4f} ms{general}, plain "
+                          f"{plain_ms:.4f} ms, library none, bound "
+                          f"{bound[0]:.4f} ms ({bound[1]}), max abs err "
+                          f"{max_abs:.3e}")
 
     p = mt.make_kernel(h64, ratio=(147, 160), device=dev)
     hist = torch.zeros(1, p.h_min, dtype=torch.complex128, device=dev)
@@ -1657,7 +1866,7 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
         phase_build()
-        phase_kernel_vs_plain(mt, torch, dev)
+        phase_kernel_vs_plain(mt, torch, dev, pp)
         phase_resample_vs_plain(mt, torch, dev)
         phase_quant_vs_plain(mt, torch, dev, pp)
         phase_wide_vs_plain(mt, torch, dev, pp, rs)
@@ -1667,8 +1876,7 @@ def main() -> int:
         q_launches = phase_quant_slice(mt, torch, dev, pp, x, ref)
         xc, xd, w_launches = phase_wide_slice(mt, torch, dev, pp, rs, x, ref)
         phase_runtime(mt, torch, dev, pp, rs, x, card)
-        max_abs, ms, plain_ms, bound = phase_times(mt, torch, h, x, pp,
-                                                   card)
+        head = phase_times(mt, torch, h, x, pp, card)
         rows = phase_resample_times(mt, torch, xa, x64, rs, card)
         q_rows = phase_quant_times(mt, torch, x, pp, card)
         w_rows = phase_wide_times(mt, torch, xc, xd, pp, rs, card)
@@ -1687,12 +1895,8 @@ def main() -> int:
         "source": "multirate_tpu_torch/csrc/polyphase.cu",
         "replaces": zc,
         "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound[0],
-        "bound_by": bound[1],
         "library_ms": None,
+        **head,
     }, {
         # times at the reference's harness rate; the other rows: phase 5b
         "name": "resample_f32",

@@ -62,6 +62,7 @@ from .ops import (
     FIRFarrow,
     FilterState,
     PHASE_FRAC_BITS,
+    PHASE_ONE,
     filt,
     filt_block,
     filt_block_tm,
@@ -91,7 +92,7 @@ __all__ = [
     "make_kernel",
     "FIRFilter", "FIRStandard", "FIRInterpolator", "FIRDecimator",
     "FIRRational", "FIRArbitrary", "FIRFarrow", "FilterState",
-    "PHASE_FRAC_BITS",
+    "PHASE_FRAC_BITS", "PHASE_ONE",
     "filt", "filt_block", "filt_block_tm", "init_state",
     "inputlength", "max_outputs",
     "nextphase", "outputlength", "polyfit", "polyval", "pfb2pnfb", "reset",

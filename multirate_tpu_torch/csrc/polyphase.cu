@@ -20,56 +20,87 @@
 // The standard FIR is (L, M) = (1, 1), the interpolator (L, 1), the
 // decimator (1, M); their banks are the reversed taps as (T, 1).
 //
-// One template serves every mode, by signal type X (x and the history), tap
-// type W (the bank) and output type Out:
+// One template per variant serves every mode, by signal type X (x and the
+// history), tap type W (the bank) and output type Out:
 // - float32, float64: an FMA in that type into an accumulator of that type;
 // - complex64, complex128 (float2/double2, interleaved as torch stores
-//   them: no planar split, which at the 8 M complex64 row would cost a read
-//   and write of 64 MB of x and a recombine of 59 MB of y, more traffic
-//   than the kernel's whole bound): against a real bank of their precision
-//   2 real FMAs per tap, against a complex bank 4 (mac.cuh);
-// - bf16 (the TPU's single bf16 MXU pass with f32 accumulation): span and
-//   bank are staged widened to float; a bf16 x bf16 product is exact in
-//   float32, so the FMA adds exact products. Global reads stay 2 bytes;
-// - int8 (the TPU's s8 x s8 -> s32 pass): span and bank staged as int8,
-//   integer multiply-accumulate in int32, exact, so chunked == whole bit for
-//   bit. The caller keeps T * 128 * 127 below 2^31;
+//   them: no planar split, which at the 8 M complex64 row would cost more
+//   traffic than the kernel's whole bound): against a real bank of their
+//   precision 2 real FMAs per tap, against a complex bank 4 (mac.cuh);
+// - bf16 (the TPU's single bf16 MXU pass with f32 accumulation): staged
+//   widened to float; a bf16 x bf16 product is exact in float32;
+// - int8 (the TPU's s8 x s8 -> s32 pass): staged as int8, exact int32 sums
+//   (__dp4a on packed bytes in the register variant), so chunked == whole
+//   bit for bit. The caller keeps T * 128 * 127 below 2^31;
 // - narrow store (out_dtype): the float32 accumulator is stored through
-//   __float2bfloat16_rn / __float2half_rn, round to nearest even, as
-//   acc.astype(bf16) in JAX.
+//   __float2bfloat16_rn / __float2half_rn, round to nearest even.
 //
-// Design (correct and simple first):
-// - grid.y walks channels, grid.x walks tiles of up to 1024 outputs; a block
-//   loops over tiles (grid-stride), so the bank is staged once per block;
-// - the bank (T*L staged elements, 14 KB in float at the 147//160 headline,
-//   28 KB in double, 56 KB in complex128) is staged in shared memory when it
-//   fits in 96 KB, else read through the L1 cache; the span follows it at a
-//   16-byte boundary;
-// - each tile's input span (about tile*M/L + T samples) is loaded
-//   cooperatively and coalesced into shared memory, reading the history
-//   tail or x by index: there is no [history ++ x] concat in device memory;
-// - each thread computes whole outputs, a T-term dot from shared memory,
-//   and stores them coalesced;
-// - tile bases are int64 (t_n passes 2^31 near 13 M outputs at M = 160);
-//   offsets inside a tile are int32 (the host keeps tile*M below 2^31).
+// What bounds it. Device memory moves sizeof(X) bytes per input and
+// sizeof(Out)*L/M per output (62 MB, 18.3 us at 3.35 TB/s, for the 8 M
+// float32 headline block at 147//160); the multiply-adds (176 M there) take
+// 5.3 us at 67 TFLOP/s float32. So the kernel is bound by bytes, unless the
+// dot's operands come from shared memory: at one 4-byte shared read per
+// multiply-add the headline moves 705 MB through shared memory, more than
+// 24 us at ~30 TB/s, and a warp's reads at lane strides of about M/L words
+// conflict across banks. Each variant is about keeping shared reads per
+// multiply-add well under one. Tensor cores would not help: float32 needs
+// full float32 products (TF32's ~1e-3 fails the 8e-5 oracle tripwire), and
+// every mode is bound by bytes once shared reads are cut.
 //
-// Bound: device memory moves sizeof(X) bytes per input and sizeof(Out)*L/M
-// bytes per output (about 62 MB, 18 us at 3.35 TB/s, for the 8 M-sample
-// float32 headline block; 45 MB for bf16 in, 37 MB for int8 in, 123 MB and
-// 37 us for float64 or complex64), so the kernel is memory-bound in
-// principle (float64 at the H100's 34 TFLOP/s FP64 rate needs 10 us for the
-// headline's 176 M multiply-adds). This first version reads two
-// shared-memory words per multiply-add (T = 24 at the headline), and a
-// warp's tap reads (columns (r0 + 13j) mod 147) conflict across banks, so it
-// is bound by shared-memory wavefronts, not by HBM, in every mode (measured
-// times: PERF.md); 8- and 16-byte words take more wavefronts still. Keeping
-// each thread on one phase, so its T taps sit in registers, is the next
-// step.
+// Four variants, chosen by the host (ops/cuda/polyphase.py plan()), never
+// after a failure:
+// - "bcast" (L == 1: the FIR and the decimators, any T): every output has
+//   the same taps, read from shared memory at one address per warp (a
+//   broadcast). The span is split by input phase mod M, so a 1//M
+//   decimation becomes M stride-1 dots; each thread owns R consecutive
+//   outputs (R odd: lanes R words apart never share a bank) and slides a
+//   rotating window of R registers, one shared read per step feeding R
+//   multiply-adds. Tap rows are zero-padded to a multiple of R, so the
+//   unrolled steps carry no branch.
+// - "slide" (interpolators, M / gcd(L, M) == 1, T in {24, 37}): outputs n
+//   and n + Q (Q = L / gcd) share their phase and their windows start one
+//   input apart, so a thread keeps one phase's T taps in registers and
+//   computes R outputs of that phase from one run of T + R - 1 window
+//   words: (T + R - 1) / R shared reads a multiply-add's T.
+// - "reg" (other L > 1, T in {24, 37}, Q <= 256*R, windows of R
+//   neighbouring outputs within E samples): each thread owns R
+//   neighbouring outputs of one period of Q outputs and keeps their taps in
+//   registers for the whole launch, walking periods (P = M / gcd inputs
+//   apart) with the same registers. The R windows overlap, so each tap
+//   vector is stored shifted by its window's offset d_r <= E into U = T + E
+//   registers, zero outside, and the R dots read one run of U window words:
+//   U shared reads feed R*U multiply-adds (R = 4 for 4-byte taps, 2 for
+//   8-byte, 1 for 16-byte). int8 packs taps four to a register and reads
+//   aligned words, shifted into place with a funnel shift, into __dp4a.
+//   The cost is E/T more multiply-adds and R*U tap registers (ptxas reports
+//   them in build.log). Like the TPU's banded product, a non-finite sample
+//   reaches the E outputs whose padded (zero) taps cover it.
+// - "general" (anything else: other T, Q too large for the mapping, a bank
+//   over 96 KB such as 48 complex128 taps at 147//160): the first design,
+//   kept as is. Each thread computes whole outputs, two shared reads per
+//   multiply-add (window and bank), the bank in shared memory or read
+//   through L1; each tile is staged synchronously.
+// The three new variants stage each tile's input span with 16-byte
+// cp.async copies into a double buffer, so tile i + 1 loads while tile i
+// computes (a span that reaches into the history is stored synchronously;
+// there is no [history ++ x] in device memory). "slide" and "bcast" gather
+// a tile's outputs in shared memory before coalesced stores; "reg" stores
+// each thread's R neighbouring outputs straight to device memory, which
+// measured faster for it. "reg" and "slide" run a persistent grid of at
+// most the blocks the card holds at once, so taps load once a block;
+// "bcast" (taps in shared memory) runs one block a tile, which measured
+// faster for it (PERF.md).
+// Tiles are sized by the host so the grid fills the card (2 x 132 blocks
+// where there are enough outputs); "reg" takes tiles of about three
+// periods a thread, the fastest in a sweep on the H100. Tile bases are
+// int64 and offsets inside a tile int32.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mac.cuh"
 
@@ -77,13 +108,19 @@ namespace {
 
 using mr::mac;
 
-constexpr int kThreads = 256;
-constexpr int kMaxTile = 1024;     // outputs per tile
-constexpr int64_t kMaxGridX = 1024;
+constexpr int kThreads = 256;          // general
+constexpr int kRegThreads = 256;       // reg: at most this many per block
+constexpr int kRegTarget = 128;        // reg: groups x KT up to this many
+constexpr int kBcastThreads = 128;     // bcast
+constexpr int kSlideThreads = 128;     // slide
+constexpr int64_t kMaxGridX = 65535;
 constexpr int64_t kMaxGridY = 65535;
 constexpr size_t kSmemLimit = 227 * 1024;
 constexpr size_t kBankSmemLimit = 96 * 1024;
 constexpr int kErrTooLarge = -1;
+constexpr int kErrBadPlan = -2;
+
+enum Variant { kGeneral = 0, kReg = 1, kBcast = 2, kSlide = 3 };
 
 // The staged (shared-memory) types of a (signal, tap) pair and its
 // accumulator: the types themselves, but bf16 staged as float and int8
@@ -104,6 +141,24 @@ template <> struct Mode<int8_t, int8_t> {
   using Acc = int32_t;
 };
 
+// The register variant's outputs per thread R and tap padding E (U = T+E
+// registers a tap vector), and the broadcast variant's outputs per thread:
+// by the size of a staged tap and sample. Mirrored in ops/cuda/polyphase.py.
+// The register variant's blocks an SM must hold: 2 caps int8 and float64 at
+// 128 registers a thread, which ran them faster on the H100; the other
+// modes spill under that cap and ran slower (PERF.md).
+template <typename X, typename W> struct Shape {
+  using XS = typename Mode<X, W>::XStage;
+  using WS = typename Mode<X, W>::WStage;
+  static constexpr int kR = sizeof(WS) <= 4 ? 4 : (sizeof(WS) <= 8 ? 2 : 1);
+  static constexpr int kE = kR == 1 ? 0 : kR;
+  static constexpr int kRegMinBlocks =
+      sizeof(XS) == 1 || std::is_same<X, double>::value ? 2 : 1;
+  static constexpr int kBcastR =
+      sizeof(XS) <= 4 ? 9 : (sizeof(XS) <= 8 ? 5 : 3);
+  static constexpr int kSlideR = kBcastR;
+};
+
 template <typename T>
 __device__ __forceinline__ T stage(T v) { return v; }
 __device__ __forceinline__ float stage(__nv_bfloat16 v) {
@@ -121,10 +176,89 @@ __device__ __forceinline__ void store(__half* p, float v) {
 
 // Bytes of a staged bank, rounded up so the span after it is 16-byte
 // aligned (a complex128 span word is a 16-byte load).
-__host__ __device__ __forceinline__ size_t bank_bytes(int T, int L,
-                                                      size_t elem) {
-  return ((size_t)T * L * elem + 15) & ~(size_t)15;
+__host__ __device__ __forceinline__ size_t round16(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
 }
+
+// Bytes of a raw buffer for n samples of size sz: the copy starts up to 15
+// bytes early (at a 16-byte boundary), and int8 reads whole words past the
+// end.
+__host__ __device__ __forceinline__ size_t raw_bytes(int64_t n, size_t sz) {
+  return round16((size_t)n * sz + 16) + 16;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
+}
+
+// Stage xext[e0, e0 + n) of one channel into ``raw`` as raw samples; returns
+// the index in raw of sample e0 (the same in every thread). Where the span
+// lies in x and the channel's x is 16-byte aligned, threads issue 16-byte
+// cp.async copies from the 16-byte boundary at or below it (bytes past x's
+// end are filled with zeros) and return at once, so the copy overlaps what
+// the block does next; a span that reaches into the history is stored
+// synchronously.
+template <typename X>
+__device__ __forceinline__ int stage_raw(X* raw, const X* hc, const X* xc,
+                                         int H, int64_t xlen, int64_t e0,
+                                         int n) {
+  if (e0 >= H && ((uintptr_t)xc & 15) == 0) {
+    const char* base = reinterpret_cast<const char*>(xc);
+    const int64_t b0 = (e0 - H) * (int64_t)sizeof(X);
+    const int64_t a0 = b0 & ~(int64_t)15;
+    const int64_t end = xlen * (int64_t)sizeof(X);
+    const int chunks = (int)((b0 - a0 + (int64_t)n * sizeof(X) + 15) / 16);
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+      const int64_t a = a0 + 16 * (int64_t)c;
+      const int64_t left = end - a;
+      const int bytes = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
+      cp_async16(reinterpret_cast<char*>(raw) + 16 * c, base + (bytes ? a : 0),
+                 bytes);
+    }
+    return (int)((b0 - a0) / (int64_t)sizeof(X));
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int64_t e = e0 + i;
+    raw[i] = e < H ? hc[e] : (e - H < xlen ? xc[e - H] : X{});
+  }
+  return 0;
+}
+
+// At most as many blocks of ``kern`` as the card holds at once: the plan's
+// grid is an upper bound, and a persistent block loads its taps once.
+template <typename K>
+int64_t resident_grid(K kern, int block, size_t smem, int64_t grid_x) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1)
+    return grid_x;
+  const int64_t cap = (int64_t)per_sm * sms;
+  return grid_x < cap ? grid_x : cap;
+}
+
+int gcd(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// ---------------------------------------------------------------- general
 
 // Entry is a tag type named after the extern "C" entry point
 // (entry::mr_polyphase_<name>), so a profiler trace names each kernel by
@@ -142,7 +276,7 @@ polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   WStage* s_bank = reinterpret_cast<WStage*>(smem_raw);
   XStage* s_x = reinterpret_cast<XStage*>(
-      smem_raw + (kBankInSmem ? bank_bytes(T, L, sizeof(WStage)) : 0));
+      smem_raw + (kBankInSmem ? round16((size_t)T * L * sizeof(WStage)) : 0));
   if (kBankInSmem) {
     // published by the __syncthreads below, before any use
     for (int i = threadIdx.x; i < T * L; i += blockDim.x)
@@ -188,36 +322,533 @@ polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   }
 }
 
+// Shared bytes of the general variant's tile of ``tile`` outputs (-1 when
+// it cannot fit); sets *bank_smem.
+int64_t general_smem(int T, int L, int M, int tile, size_t xs, size_t ws,
+                     bool* bank_smem) {
+  const size_t b_bytes = round16((size_t)T * L * ws);
+  *bank_smem = b_bytes <= kBankSmemLimit;
+  const size_t span = (size_t)((L - 1 + (int64_t)(tile - 1) * M) / L + T);
+  const size_t smem = (*bank_smem ? b_bytes : 0) + span * xs;
+  return smem <= kSmemLimit ? (int64_t)smem : -1;
+}
+
 template <typename Entry, typename X, typename W, typename Out>
-int launch(const void* x, const void* hist, const void* bank, void* y,
-           int64_t C, int64_t xlen, int T, int L, int M, int phi0,
-           int64_t d0, int64_t n_out, void* stream) {
+int launch_general(const void* x, const void* hist, const void* bank, void* y,
+                   int64_t C, int64_t xlen, int T, int L, int M, int phi0,
+                   int64_t d0, int64_t n_out, int tile, int64_t grid_x,
+                   cudaStream_t stream) {
   using XStage = typename Mode<X, W>::XStage;
   using WStage = typename Mode<X, W>::WStage;
-  if (C <= 0 || n_out <= 0) return cudaSuccess;
-  const size_t b_bytes = bank_bytes(T, L, sizeof(WStage));
-  const bool bank_smem = b_bytes <= kBankSmemLimit;
-  const size_t avail = kSmemLimit - (bank_smem ? b_bytes : 0);
-  auto span_max = [&](int nb) {
-    return (size_t)((L - 1 + (int64_t)(nb - 1) * M) / L + T);
-  };
-  int tile = kMaxTile;
-  while (tile > 1 && span_max(tile) * sizeof(XStage) > avail) tile /= 2;
-  if (span_max(tile) * sizeof(XStage) > avail) return kErrTooLarge;
-  const size_t smem =
-      (bank_smem ? b_bytes : 0) + span_max(tile) * sizeof(XStage);
+  bool bank_smem = false;
+  if (tile < 1) return kErrBadPlan;
+  const int64_t smem = general_smem(T, L, M, tile, sizeof(XStage),
+                                    sizeof(WStage), &bank_smem);
+  if (smem < 0) return kErrTooLarge;
   const int64_t n_tiles = (n_out + tile - 1) / tile;
-  const dim3 grid((unsigned)(n_tiles < kMaxGridX ? n_tiles : kMaxGridX),
-                  (unsigned)(C < kMaxGridY ? C : kMaxGridY));
   auto kern = bank_smem ? polyphase_kernel<Entry, X, W, Out, true>
                         : polyphase_kernel<Entry, X, W, Out, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)grid_x, (unsigned)(C < kMaxGridY ? C : kMaxGridY));
+  kern<<<grid, kThreads, smem, stream>>>(
       (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, T, L,
       M, phi0, d0, n_out, tile, n_tiles);
   return cudaGetLastError();
+}
+
+// -------------------------------------------------------------------- reg
+
+// The register variant's geometry for one launch (host and device).
+struct RegGeom {
+  int Qp;      // outputs of one period (a multiple of Q, at least R)
+  int Pp;      // inputs of one period
+  int G;       // thread groups of R outputs in a period
+  int KT;      // threads per group: periods k = kl, kl + KT, ... of a tile
+  int K;       // periods per tile
+  int span;    // staged samples of a tile
+  int block;   // threads per block
+  size_t smem;  // shared bytes: a double buffer of raw samples
+};
+
+// -1 if the geometry does not fit the variant (D > E, Q too large). xs is
+// the size of a raw sample (the double buffer holds raw samples).
+int reg_geom(int T, int L, int M, int K, int R, int E, size_t xs,
+             RegGeom* g) {
+  const int gg = gcd(L, M);
+  const int Q = L / gg, P = M / gg;
+  const int m = Q >= R ? 1 : (R + Q - 1) / Q;
+  g->Qp = m * Q;
+  g->Pp = m * P;
+  g->G = (g->Qp + R - 1) / R;
+  if (L < 2 || K < 1 || g->G > kRegThreads) return -1;
+  if (((int64_t)(R - 1) * M + L - 1) / L > E) return -1;  // d_r <= E
+  const int kt = kRegTarget / g->G > 1 ? kRegTarget / g->G : 1;
+  g->KT = kt < K ? kt : K;
+  g->K = K;
+  g->block = (g->G * g->KT + 31) / 32 * 32;
+  const int64_t base_max =
+      ((int64_t)L - 1 + (int64_t)(g->G - 1) * R * M) / L;
+  const int64_t span = (int64_t)(K - 1) * g->Pp + base_max + T + E;
+  g->span = (int)span;
+  g->smem = 2 * raw_bytes(span, xs);
+  return g->smem <= kSmemLimit ? 0 : -1;
+}
+
+template <typename Entry, typename X, typename W, typename Out, int T>
+__global__ void __launch_bounds__(kRegThreads, Shape<X, W>::kRegMinBlocks)
+polyphase_reg(const X* __restrict__ x, const X* __restrict__ hist,
+              const W* __restrict__ bank, Out* __restrict__ y, int64_t C,
+              int64_t xlen, int L, int M, int phi0, int64_t d0,
+              int64_t n_out, RegGeom g, int64_t n_tiles) {
+  using XS = typename Mode<X, W>::XStage;
+  using WS = typename Mode<X, W>::WStage;
+  using Acc = typename Mode<X, W>::Acc;
+  constexpr int R = Shape<X, W>::kR;
+  constexpr int U = T + Shape<X, W>::kE;
+  constexpr bool kInt8 = sizeof(XS) == 1;
+  constexpr int U4 = (U + 3) / 4;  // int8: packed words of a tap vector
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  X* const raw0 = reinterpret_cast<X*>(smem_raw);
+  X* const raw1 = reinterpret_cast<X*>(smem_raw + raw_bytes(g.span, sizeof(X)));
+  const int H = T - 1;
+  const int r0 = phi0 - 1;  // every tile starts at a period: same phase
+  const int tid = threadIdx.x;
+  const bool active = tid < g.G * g.KT;
+  const int gi = active ? tid % g.G : 0;
+  const int kl = tid / g.G;
+  const int j0 = gi * R;  // first output of the group in a period
+  const int nvalid = g.Qp - j0 < R ? g.Qp - j0 : R;
+  const int base = (int)(((int64_t)r0 + (int64_t)j0 * M) / L);
+
+  // Output j0 + r reads window words base + d_r + t; its taps go to
+  // registers shifted by d_r, so all R dots read words base + s, s < U.
+  WS B[kInt8 ? 1 : R][kInt8 ? 1 : U];
+  int32_t Bp[kInt8 ? R : 1][kInt8 ? U4 : 1];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t tr = r0 + (int64_t)(j0 + r) * M;
+    const int ph = (int)(tr % L);
+    const int d = (int)(tr / L) - base;
+    const bool ok = active && r < nvalid;
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int q = 0; q < U4; ++q) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int t = 4 * q + b - d;
+          const int8_t v = ok && t >= 0 && t < T ? bank[t * L + ph] : 0;
+          word |= (uint32_t)(uint8_t)v << (8 * b);
+        }
+        Bp[r][q] = (int32_t)word;
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < U; ++s) {
+        const int t = s - d;
+        B[r][s] = ok && t >= 0 && t < T ? stage(bank[t * L + ph])
+                                        : mr::zero<WS>();
+      }
+    }
+  }
+
+  // work item w: channel w / n_tiles, tile w % n_tiles; tile i + 1's span
+  // is copied while tile i computes
+  auto prefetch = [&](int64_t w, X* buf) {
+    const int64_t c = w / n_tiles;
+    const int64_t n0 = (w - c * n_tiles) * g.K * g.Qp;
+    return stage_raw(buf, hist + c * H, x + c * xlen, H, xlen,
+                     d0 - 1 + (r0 + n0 * M) / L, g.span);
+  };
+  const int64_t total = C * n_tiles;
+  int64_t w = blockIdx.x;
+  int lead = w < total ? prefetch(w, raw0) : 0;
+  cp_async_commit();
+  for (int cur = 0; w < total; w += gridDim.x, cur ^= 1) {
+    const int lead_next =
+        w + gridDim.x < total ? prefetch(w + gridDim.x, cur ? raw0 : raw1)
+                              : 0;
+    cp_async_commit();
+    cp_async_wait_one();  // tile w has landed
+    __syncthreads();
+    const int64_t c = w / n_tiles;
+    const int64_t n0 = (w - c * n_tiles) * g.K * g.Qp;
+    const X* buf = cur ? raw1 : raw0;  // 16-byte aligned
+    const X* s_x = buf + lead;
+    Out* const yc = y + c * n_out + n0;
+    const int nt = (int)(n_out - n0 < (int64_t)g.K * g.Qp
+                             ? n_out - n0 : (int64_t)g.K * g.Qp);
+    for (int k = kl; active && k < g.K; k += g.KT) {
+      const int jt = k * g.Qp + j0;  // tile-relative output
+      if (jt >= nt) break;
+      const int a = k * g.Pp + base;
+      Acc acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = mr::zero<Acc>();
+      if constexpr (kInt8) {
+        // whole words of the aligned buffer, shifted into place
+        const int ab = lead + a;
+        const int32_t* w32 = reinterpret_cast<const int32_t*>(buf) + (ab >> 2);
+        const int sh = 8 * (ab & 3);
+        int32_t lo = w32[0];
+#pragma unroll
+        for (int q = 0; q < U4; ++q) {
+          const int32_t hi = w32[q + 1];
+          const int32_t v = (int32_t)__funnelshift_r((uint32_t)lo,
+                                                     (uint32_t)hi, sh);
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = __dp4a(v, Bp[r][q], acc[r]);
+          lo = hi;
+        }
+      } else {
+        const X* wx = s_x + a;
+#pragma unroll
+        for (int s = 0; s < U; ++s) {
+          const XS v = stage(wx[s]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = mac(acc[r], v, B[r][s]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r < nvalid && jt + r < nt) store(yc + jt + r, acc[r]);
+    }
+    __syncthreads();  // buf is read before the next prefetch refills it
+    lead = lead_next;
+  }
+}
+
+template <typename Entry, typename X, typename W, typename Out, int T>
+int launch_reg_t(const void* x, const void* hist, const void* bank, void* y,
+                 int64_t C, int64_t xlen, int L, int M, int phi0, int64_t d0,
+                 int64_t n_out, int K, int64_t grid_x, cudaStream_t stream) {
+  RegGeom g;
+  if (reg_geom(T, L, M, K, Shape<X, W>::kR, Shape<X, W>::kE, sizeof(X),
+               &g) != 0)
+    return kErrBadPlan;
+  const size_t smem = g.smem;
+  const int64_t n_tiles = (n_out + (int64_t)K * g.Qp - 1) / ((int64_t)K * g.Qp);
+  if (C * n_tiles < grid_x) return kErrBadPlan;
+  auto kern = polyphase_reg<Entry, X, W, Out, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  grid_x = resident_grid(kern, g.block, smem, grid_x);
+  kern<<<(unsigned)grid_x, g.block, smem, stream>>>(
+      (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L, M,
+      phi0, d0, n_out, g, n_tiles);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ slide
+
+// The sliding variant's geometry: interpolators (M / gcd(L, M) == 1, so the
+// outputs of one phase class read windows one input apart).
+struct SlideGeom {
+  int Q;      // outputs a period (phase classes)
+  int KG;     // threads a class: groups of R periods
+  int K;      // periods per tile (a multiple of R)
+  int span;   // staged samples of a tile
+  int block;  // threads per block
+  size_t out_offset, smem;
+};
+
+int slide_geom(int T, int L, int M, int K, int R, size_t xs, size_t os,
+               SlideGeom* g) {
+  const int gg = gcd(L, M);
+  g->Q = L / gg;
+  if (M / gg != 1 || L < 2 || g->Q > kSlideThreads || K < 1 || K % R)
+    return -1;
+  const int kg = kSlideThreads / g->Q;
+  g->KG = kg < K / R ? kg : K / R;
+  g->K = K;
+  g->block = (g->Q * g->KG + 31) / 32 * 32;
+  g->span = K + T + R;  // windows start at most one sample into a period
+  g->out_offset = 2 * raw_bytes(g->span, xs);
+  g->smem = g->out_offset + round16((size_t)K * g->Q * os);
+  return g->smem <= kSmemLimit ? 0 : -1;
+}
+
+template <typename Entry, typename X, typename W, typename Out, int T>
+__global__ void __launch_bounds__(kSlideThreads)
+polyphase_slide(const X* __restrict__ x, const X* __restrict__ hist,
+                const W* __restrict__ bank, Out* __restrict__ y, int64_t C,
+                int64_t xlen, int L, int M, int phi0, int64_t d0,
+                int64_t n_out, SlideGeom g, int64_t n_tiles) {
+  using XS = typename Mode<X, W>::XStage;
+  using WS = typename Mode<X, W>::WStage;
+  using Acc = typename Mode<X, W>::Acc;
+  constexpr int R = Shape<X, W>::kSlideR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  X* const raw0 = reinterpret_cast<X*>(smem_raw);
+  X* const raw1 = reinterpret_cast<X*>(smem_raw + raw_bytes(g.span, sizeof(X)));
+  Out* const s_y = reinterpret_cast<Out*>(smem_raw + g.out_offset);
+  const int H = T - 1;
+  const int r0 = phi0 - 1;  // every tile starts at a period: same phase
+  const int tid = threadIdx.x;
+  const bool active = tid < g.Q * g.KG;
+  const int c = active ? tid % g.Q : 0;  // phase class
+  const int kg = tid / g.Q;
+  const int64_t tc = r0 + (int64_t)c * M;
+  const int ph = (int)(tc % L);
+  const int base = (int)(tc / L);  // 0 or 1
+  WS b[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) b[t] = stage(bank[t * L + ph]);
+
+  auto prefetch = [&](int64_t w, X* buf) {
+    const int64_t ch = w / n_tiles;
+    const int64_t n0 = (w - ch * n_tiles) * g.K * g.Q;
+    return stage_raw(buf, hist + ch * H, x + ch * xlen, H, xlen,
+                     d0 - 1 + (r0 + n0 * M) / L, g.span);
+  };
+  const int64_t total = C * n_tiles;
+  int64_t w = blockIdx.x;
+  int lead = w < total ? prefetch(w, raw0) : 0;
+  cp_async_commit();
+  for (int cur = 0; w < total; w += gridDim.x, cur ^= 1) {
+    const int lead_next =
+        w + gridDim.x < total ? prefetch(w + gridDim.x, cur ? raw0 : raw1)
+                              : 0;
+    cp_async_commit();
+    cp_async_wait_one();  // tile w has landed
+    __syncthreads();
+    const int64_t ch = w / n_tiles;
+    const int64_t n0 = (w - ch * n_tiles) * g.K * g.Q;
+    const X* s_x = (cur ? raw1 : raw0) + lead + base;
+    const int nt = (int)(n_out - n0 < (int64_t)g.K * g.Q
+                             ? n_out - n0 : (int64_t)g.K * g.Q);
+    // periods kb .. kb + R - 1 of class c: output (kb + r) * Q + c reads
+    // window words kb + r + t
+    for (int kb = kg * R; active && kb * g.Q < nt; kb += g.KG * R) {
+      Acc acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = mr::zero<Acc>();
+#pragma unroll
+      for (int j = 0; j < T + R - 1; ++j) {
+        const XS v = stage(s_x[kb + j]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (j - r >= 0 && j - r < T) acc[r] = mac(acc[r], v, b[j - r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int jt = (kb + r) * g.Q + c;
+        if (jt < nt) store(s_y + jt, acc[r]);
+      }
+    }
+    __syncthreads();  // the raw buffer is read, s_y written
+    Out* yc = y + ch * n_out + n0;
+    for (int i = tid; i < nt; i += blockDim.x) yc[i] = s_y[i];
+    lead = lead_next;
+  }
+}
+
+template <typename Entry, typename X, typename W, typename Out, int T>
+int launch_slide_t(const void* x, const void* hist, const void* bank, void* y,
+                   int64_t C, int64_t xlen, int L, int M, int phi0,
+                   int64_t d0, int64_t n_out, int K, int64_t grid_x,
+                   cudaStream_t stream) {
+  SlideGeom g;
+  if (slide_geom(T, L, M, K, Shape<X, W>::kSlideR, sizeof(X), sizeof(Out),
+                 &g) != 0)
+    return kErrBadPlan;
+  const int64_t n_tiles = (n_out + (int64_t)K * g.Q - 1) / ((int64_t)K * g.Q);
+  if (C * n_tiles < grid_x) return kErrBadPlan;
+  auto kern = polyphase_slide<Entry, X, W, Out, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+  if (err != cudaSuccess) return err;
+  grid_x = resident_grid(kern, g.block, g.smem, grid_x);
+  kern<<<(unsigned)grid_x, g.block, g.smem, stream>>>(
+      (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L, M,
+      phi0, d0, n_out, g, n_tiles);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ bcast
+
+// The broadcast variant's layout: the bank and the span split by input phase
+// mod M into rows p < min(M, T) (TQ taps a row, zero-padded to a multiple
+// of R; SP samples a row), after a double buffer of raw samples that the
+// next tile's copy fills.
+struct BcastGeom {
+  int rows, SP, TQ, span;
+  size_t bank_bytes, raw, x_offset, out_offset, smem;
+};
+
+int bcast_geom(int T, int M, int tile, int R, size_t xsz, size_t xs,
+               size_t ws, size_t os, BcastGeom* g) {
+  if (tile < 1 || tile % (kBcastThreads * R)) return -1;
+  g->rows = M < T ? M : T;
+  g->TQ = ((T + M - 1) / M + R - 1) / R * R;  // taps a row, zero-padded
+  g->span = (tile - 1) * M + T;
+  const int row = tile + g->TQ + R;
+  const int skew = M > 1 && M <= 32 ? 32 / M : 1;  // staging stores: banks
+  g->SP = (row + 31) / 32 * 32 + skew;
+  g->bank_bytes = round16((size_t)g->rows * g->TQ * ws);
+  g->raw = raw_bytes(g->span, xsz);
+  g->x_offset = g->bank_bytes + 2 * g->raw;
+  g->out_offset = g->x_offset + round16((size_t)g->rows * g->SP * xs);
+  g->smem = g->out_offset + round16((size_t)tile * os);
+  return g->smem <= kSmemLimit ? 0 : -1;
+}
+
+template <typename Entry, typename X, typename W, typename Out>
+__global__ void __launch_bounds__(kBcastThreads)
+polyphase_bcast(const X* __restrict__ x, const X* __restrict__ hist,
+                const W* __restrict__ bank, Out* __restrict__ y, int64_t C,
+                int64_t xlen, int T, int M, int64_t d0, int64_t n_out,
+                int tile, BcastGeom g, int64_t n_tiles) {
+  using XS = typename Mode<X, W>::XStage;
+  using WS = typename Mode<X, W>::WStage;
+  using Acc = typename Mode<X, W>::Acc;
+  constexpr int R = Shape<X, W>::kBcastR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WS* s_b = reinterpret_cast<WS*>(smem_raw);
+  X* const raw0 = reinterpret_cast<X*>(smem_raw + g.bank_bytes);
+  X* const raw1 = reinterpret_cast<X*>(smem_raw + g.bank_bytes + g.raw);
+  XS* s_x = reinterpret_cast<XS*>(smem_raw + g.x_offset);
+  Out* s_y = reinterpret_cast<Out*>(smem_raw + g.out_offset);
+  const int H = T - 1;
+  const int tid = threadIdx.x;
+  // bank[t] at row t % M, column t / M, zeros after; published by the
+  // first sync below
+  for (int i = tid; i < g.rows * g.TQ; i += blockDim.x) {
+    const int t = (i % g.TQ) * M + i / g.TQ;
+    s_b[i] = t < T ? stage(bank[t]) : mr::zero<WS>();
+  }
+
+  // work item w: channel w / n_tiles, tile w % n_tiles; tile i + 1's span
+  // is copied while tile i computes
+  auto prefetch = [&](int64_t w, X* buf) {
+    const int64_t c = w / n_tiles;
+    const int64_t n0 = (w - c * n_tiles) * tile;
+    return stage_raw(buf, hist + c * H, x + c * xlen, H, xlen,
+                     d0 - 1 + n0 * M, g.span);  // L = 1: every phase is 1
+  };
+  const int64_t total = C * n_tiles;
+  int64_t w = blockIdx.x;
+  int lead = w < total ? prefetch(w, raw0) : 0;
+  cp_async_commit();
+  for (int cur = 0; w < total; w += gridDim.x, cur ^= 1) {
+    const int lead_next =
+        w + gridDim.x < total ? prefetch(w + gridDim.x, cur ? raw0 : raw1)
+                              : 0;
+    cp_async_commit();
+    cp_async_wait_one();  // tile w has landed
+    __syncthreads();      // ... for every thread; s_x is free
+    // split by phase; every column is written (zeros past the span), so
+    // the zero taps of a padded row only ever meet finite samples
+    const X* s_raw = (cur ? raw1 : raw0) + lead;
+    for (int idx = tid; idx < g.rows * g.SP; idx += blockDim.x) {
+      const int p = idx / g.SP;
+      const int i = (idx - p * g.SP) * M + p;
+      s_x[idx] = i < g.span ? stage(s_raw[i]) : mr::zero<XS>();
+    }
+    __syncthreads();
+
+    const int64_t c = w / n_tiles;
+    const int64_t n0 = (w - c * n_tiles) * tile;
+    const int nt = (int)(n_out - n0 < tile ? n_out - n0 : tile);
+    for (int j0 = tid * R; j0 < nt; j0 += blockDim.x * R) {
+      Acc acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = mr::zero<Acc>();
+      // output j0 + r, tap t = q*M + p reads row p, column j0 + r + q
+      for (int p = 0; p < g.rows; ++p) {
+        const int Tp = (T - p + M - 1) / M;  // this row's taps, then zeros
+        const XS* wp = s_x + p * g.SP + j0;
+        const WS* b = s_b + p * g.TQ;
+        XS win[R];  // win[(q + i) % R] holds wp[q + i]
+#pragma unroll
+        for (int i = 0; i < R - 1; ++i) win[i] = wp[i];
+        for (int q0 = 0; q0 < Tp; q0 += R) {
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            win[(u + R - 1) % R] = wp[q0 + u + R - 1];
+            const WS tap = b[q0 + u];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              acc[r] = mac(acc[r], win[(u + r) % R], tap);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (j0 + r < nt) store(s_y + j0 + r, acc[r]);
+    }
+    __syncthreads();  // s_y written
+    Out* yc = y + c * n_out + n0;
+    for (int i = tid; i < nt; i += blockDim.x) yc[i] = s_y[i];
+    lead = lead_next;
+  }
+}
+
+template <typename Entry, typename X, typename W, typename Out>
+int launch_bcast(const void* x, const void* hist, const void* bank, void* y,
+                 int64_t C, int64_t xlen, int T, int L, int M, int phi0,
+                 int64_t d0, int64_t n_out, int tile, int64_t grid_x,
+                 cudaStream_t stream) {
+  using XS = typename Mode<X, W>::XStage;
+  using WS = typename Mode<X, W>::WStage;
+  BcastGeom g;
+  if (L != 1 || phi0 != 1 ||
+      bcast_geom(T, M, tile, Shape<X, W>::kBcastR, sizeof(X), sizeof(XS),
+                 sizeof(WS), sizeof(Out), &g) != 0)
+    return kErrBadPlan;
+  const int64_t n_tiles = (n_out + tile - 1) / tile;
+  if (C * n_tiles < grid_x) return kErrBadPlan;
+  auto kern = polyphase_bcast<Entry, X, W, Out>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)grid_x, kBcastThreads, g.smem, stream>>>(
+      (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, T, M,
+      d0, n_out, tile, g, n_tiles);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ entry
+
+template <typename Entry, typename X, typename W, typename Out>
+int launch(const void* x, const void* hist, const void* bank, void* y,
+           int64_t C, int64_t xlen, int T, int L, int M, int phi0,
+           int64_t d0, int64_t n_out, int variant, int tile, int64_t grid_x,
+           void* stream) {
+  if (C <= 0 || n_out <= 0) return cudaSuccess;
+  if (grid_x < 1 || grid_x > kMaxGridX) return kErrBadPlan;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case kGeneral:
+      return launch_general<Entry, X, W, Out>(x, hist, bank, y, C, xlen, T, L,
+                                              M, phi0, d0, n_out, tile,
+                                              grid_x, s);
+    case kReg:
+      if (T == 24)
+        return launch_reg_t<Entry, X, W, Out, 24>(
+            x, hist, bank, y, C, xlen, L, M, phi0, d0, n_out, tile, grid_x, s);
+      if (T == 37)
+        return launch_reg_t<Entry, X, W, Out, 37>(
+            x, hist, bank, y, C, xlen, L, M, phi0, d0, n_out, tile, grid_x, s);
+      return kErrBadPlan;
+    case kSlide:
+      if (T == 24)
+        return launch_slide_t<Entry, X, W, Out, 24>(
+            x, hist, bank, y, C, xlen, L, M, phi0, d0, n_out, tile, grid_x, s);
+      if (T == 37)
+        return launch_slide_t<Entry, X, W, Out, 37>(
+            x, hist, bank, y, C, xlen, L, M, phi0, d0, n_out, tile, grid_x, s);
+      return kErrBadPlan;
+    case kBcast:
+      return launch_bcast<Entry, X, W, Out>(x, hist, bank, y, C, xlen, T, L,
+                                            M, phi0, d0, n_out, tile, grid_x,
+                                            s);
+    default:
+      return kErrBadPlan;
+  }
 }
 
 }  // namespace
@@ -228,9 +859,14 @@ extern "C" {
 // hist of the signal type, bank of the tap type, all contiguous, on the
 // current device, complex ones 8- or 16-byte aligned. The caller guarantees
 // that every window lies inside [history ++ x]: d0 >= 1, 1 <= phi0 <= L and
-// d0 + ((phi0-1) + (n_out-1)*M) / L <= xlen. Returns a cudaError_t code, or
-// kErrTooLarge when one tile's span cannot fit in shared memory. One entry
-// per (signal, tap, output) triple the modes use: mr_polyphase_<name>.
+// d0 + ((phi0-1) + (n_out-1)*M) / L <= xlen. ``variant`` (0 general, 1 reg,
+// 2 bcast, 3 slide), ``tile`` (general and bcast: outputs; reg and slide:
+// periods) and
+// ``grid_x`` come from the host's plan (ops/cuda/polyphase.py plan()).
+// Returns a cudaError_t code, kErrTooLarge when one tile's span cannot fit
+// in shared memory, or kErrBadPlan when the variant does not take the
+// geometry. One entry per (signal, tap, output) triple the modes use:
+// mr_polyphase_<name>.
 #define MR_POLYPHASE(name, X, W, Out)                                        \
   namespace entry {                                                          \
   struct mr_polyphase_##name;                                                \
@@ -238,9 +874,11 @@ extern "C" {
   int mr_polyphase_##name(const void* x, const void* hist, const void* bank, \
                           void* y, int64_t C, int64_t xlen, int T, int L,    \
                           int M, int phi0, int64_t d0, int64_t n_out,        \
+                          int variant, int tile, int64_t grid_x,             \
                           void* stream) {                                    \
     return launch<entry::mr_polyphase_##name, X, W, Out>(                   \
-        x, hist, bank, y, C, xlen, T, L, M, phi0, d0, n_out, stream);        \
+        x, hist, bank, y, C, xlen, T, L, M, phi0, d0, n_out, variant, tile,  \
+        grid_x, stream);                                                     \
   }
 
 MR_POLYPHASE(f32, float, float, float)
@@ -260,6 +898,7 @@ MR_POLYPHASE(c128c, double2, double2, double2)
 
 const char* mr_error_string(int code) {
   if (code == kErrTooLarge) return "tile span exceeds shared memory";
+  if (code == kErrBadPlan) return "the variant does not take this plan";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -23,15 +23,24 @@
 // counting, so the kernel's only job is to keep enough 16-byte accesses in
 // flight.
 //
-// Design (correct and simple first): grid-stride loops of 256 threads.
-// - copy: each thread moves 16-byte words to a destination that the wrapper
-//   allocates (16-byte aligned); the source may sit at any byte offset (a
-//   view), so it is read in the widest word its address allows (16, 8, 4,
-//   2 or 1 bytes) and the pieces assembled into one 16-byte store. The last
-//   nbytes % 16 bytes are copied one per thread (the masked tail).
-// - expand: each thread reads 4 consecutive floats as one 16-byte load and
-//   stores them, cast, ratio times: 16-byte stores for float32, 8 for the
-//   16-bit types, 4 for int8 (W % 4 == 0 keeps every store aligned).
+// Design.
+// - copy: one block of 256 threads for each 8 KB chunk, each thread moving
+//   two 16-byte words, coalesced, both loads issued before the stores; the
+//   grid covers the whole copy (15,625 blocks for 32 M float32), so the
+//   block scheduler keeps every SM full to the end. Tried on the H100 and
+//   slower (PERF.md): a grid-stride loop with one load in flight a thread,
+//   a persistent grid of 132 x 8 blocks with 8 loads in flight a thread,
+//   with or without streaming cache hints, and a TMA bulk copy through a
+//   ring of shared-memory stages (cp.async.bulk with an mbarrier). The
+//   destination is allocated by the wrapper (16-byte aligned); the source
+//   may sit at any byte offset (a view), so it is read in the widest word
+//   its address allows (16, 8, 4, 2 or 1 bytes) and the pieces assembled
+//   into one 16-byte store. A partial last chunk is masked and the last
+//   nbytes % 16 bytes are copied one per thread.
+// - expand: a grid-stride loop of 256 threads; each thread reads 4
+//   consecutive floats as one 16-byte load and stores them, cast, ratio
+//   times: 16-byte stores for float32, 8 for the 16-bit types, 4 for int8
+//   (W % 4 == 0 keeps every store aligned).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -42,6 +51,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks of 256 on each SM
+constexpr int kCopyUnroll = 2;  // 16-byte words a thread
 constexpr int kErrBadArg = -1;
 
 int64_t blocks_for(int64_t work) {
@@ -49,31 +59,49 @@ int64_t blocks_for(int64_t work) {
   return b < 1 ? 1 : (b < kMaxBlocks ? b : kMaxBlocks);
 }
 
+// 16 bytes of src at word i, read in words of the source's alignment.
+template <typename Word>
+__device__ __forceinline__ uint4 load16(const unsigned char* src, int64_t i) {
+  constexpr int kWords = 16 / sizeof(Word);
+  union {
+    uint4 v;
+    Word w[kWords];
+  } u;
+  const Word* s = reinterpret_cast<const Word*>(src + 16 * i);
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) u.w[k] = s[k];
+  return u.v;
+}
+
 template <typename Word>
 __global__ void __launch_bounds__(kThreads)
 copy_kernel(const unsigned char* __restrict__ src,
             unsigned char* __restrict__ dst, int64_t nbytes) {
-  constexpr int kWords = 16 / sizeof(Word);
   const int64_t n16 = nbytes / 16;
-  const int64_t t0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = t0; i < n16; i += stride) {
-    union {
-      uint4 v;
-      Word w[kWords];
-    } u;
-    const Word* s = reinterpret_cast<const Word*>(src + 16 * i);
+  const int64_t i0 = (int64_t)blockIdx.x * kCopyUnroll * blockDim.x +
+                     threadIdx.x;
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  uint4 v[kCopyUnroll];
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) u.w[k] = s[k];
-    reinterpret_cast<uint4*>(dst)[i] = u.v;
+  for (int k = 0; k < kCopyUnroll; ++k) {
+    const int64_t i = i0 + (int64_t)k * blockDim.x;
+    if (i < n16) v[k] = load16<Word>(src, i);
+  }
+#pragma unroll
+  for (int k = 0; k < kCopyUnroll; ++k) {
+    const int64_t i = i0 + (int64_t)k * blockDim.x;
+    if (i < n16) d[i] = v[k];
   }
   const int64_t tail = nbytes - 16 * n16;
+  const int64_t t0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t0 < tail) dst[16 * n16 + t0] = src[16 * n16 + t0];
 }
 
 template <typename Word>
 int launch_copy(const void* src, void* dst, int64_t nbytes, void* stream) {
-  copy_kernel<Word><<<(unsigned)blocks_for(nbytes / 16), kThreads, 0,
+  const int64_t per_block = (int64_t)kCopyUnroll * kThreads;
+  const int64_t blocks = (nbytes / 16 + per_block - 1) / per_block;
+  copy_kernel<Word><<<(unsigned)(blocks < 1 ? 1 : blocks), kThreads, 0,
                       (cudaStream_t)stream>>>(
       (const unsigned char*)src, (unsigned char*)dst, nbytes);
   return cudaGetLastError();

@@ -97,7 +97,8 @@ def load_polyphase() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name in ENTRIES.values():
         fn = getattr(lib, f"mr_polyphase_{name}")
-        fn.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i64, i64, p]
+        fn.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i64, i64,
+                       i32, i32, i64, p]
         fn.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p

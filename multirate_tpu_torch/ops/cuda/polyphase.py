@@ -29,9 +29,22 @@ the wrapper launches the hand-written kernel in ``csrc/polyphase.cu`` (see
 its header for the design and what bounds it); on a CPU tensor it runs
 ``polyphase_plain``, the same function in plain PyTorch. There is no
 fallback from one to the other.
+
+The kernel has four variants (``VARIANTS``), chosen by ``plan`` from the
+shape alone, never after a failure: ``bcast`` broadcasts the one tap vector
+of an L == 1 filter (FIR, decimators) from shared memory, ``slide`` keeps
+one phase's taps in registers and slides over its window (interpolators,
+T in ``REG_TAPS``), ``reg`` keeps the taps of four neighbouring outputs in
+registers (other L > 1, T in ``REG_TAPS``), and ``general`` takes every
+other geometry. ``plan`` also sizes the tile and the grid so that the grid
+fills the card. ``polyphase(..., variant="general")`` forces the general
+variant, for timing against it.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -39,7 +52,8 @@ from ..indexing import rational_indices
 from ..precision import fp32
 from .build import check_aligned, load_polyphase
 
-__all__ = ["polyphase", "polyphase_plain", "launches"]
+__all__ = ["polyphase", "polyphase_plain", "plan", "Plan", "launches",
+           "launches_by_variant", "VARIANTS", "REG_TAPS"]
 
 # The kernel's entry point (``mr_polyphase_<name>``, one instantiation of
 # csrc/polyphase.cu) for each (signal, taps, output) dtype triple, and each
@@ -63,12 +77,194 @@ ENTRIES = {
 ACCUMULATOR = {_F32: _F32, torch.bfloat16: _F32, torch.int8: torch.int32,
                _F64: _F64, _C64: _C64, _C128: _C128}
 
-# Kernel launches made by ``polyphase`` in this process, by entry point.
-# Each grows by one where its kernel is launched and nowhere else; a caller
-# may reset them.
+# The kernel's variants, by the number its entry points take.
+VARIANTS = ("general", "reg", "bcast", "slide")
+# Taps per phase the register and sliding variants are compiled for.
+REG_TAPS = (24, 37)
+
+# Kernel launches made by ``polyphase`` in this process, by entry point, and
+# by entry point and variant (``"f32/reg"``). Each grows by one where its
+# kernel is launched and nowhere else; a caller may reset them.
 launches = dict.fromkeys(ENTRIES.values(), 0)
+launches_by_variant = {f"{e}/{v}": 0 for e in ENTRIES.values()
+                       for v in VARIANTS}
 
 _LIMIT = 1 << 20  # L and M bound: keeps in-tile offsets inside int32
+
+# The launch geometry of csrc/polyphase.cu, mirrored here so that the host
+# plans every launch (the C launcher checks the plan and refuses a bad one).
+_REG_THREADS, _REG_TARGET = 256, 128
+_BCAST_THREADS = _SLIDE_THREADS = 128
+_SMEM_LIMIT, _BANK_SMEM_LIMIT = 227 * 1024, 96 * 1024
+_SMEM_TARGET = 48 * 1024  # per block, so that several blocks share an SM
+_FILL = 2 * 132           # blocks that fill the H100's SMs twice
+_SLIDE_REPEATS = 8        # slide: periods a thread computes in a tile, at most
+# reg: periods a thread computes in a tile, and periods a tile, at least
+# (the fastest tiles of a sweep on the H100, PERF.md)
+_REG_PERIODS, _REG_MIN_TILE = 3, 6
+_MAX_GRID = 65535         # grid.x, at most (the kernels loop over tiles)
+_MAX_GENERAL_GRID = 1024
+# bytes of a staged signal or tap element (bf16 is staged as float)
+_STAGED = {torch.float32: 4, torch.bfloat16: 4, torch.int8: 1,
+           torch.float64: 8, torch.complex64: 8, torch.complex128: 16}
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up(a: int, b: int) -> int:
+    """a rounded up to a multiple of b."""
+    return _ceil(a, b) * b
+
+
+def _raw_bytes(n: int, size: int) -> int:
+    """csrc/polyphase.cu ``raw_bytes``: a buffer of n raw samples."""
+    return _up(n * size + 16, 16) + 16
+
+
+class Plan(NamedTuple):
+    """One launch: the variant, its tile as the kernel takes it (outputs;
+    for ``reg`` and ``slide``, periods of Q = L/gcd(L, M) outputs or
+    more), blocks on grid.x (``reg`` and ``slide``: at most; their
+    launcher keeps no more than the card holds at once), shared bytes a
+    block (at most: the output type may be narrower than the
+    accumulator's), and the outputs of one tile."""
+    variant: str
+    tile: int
+    grid: int
+    smem: int
+    tile_outputs: int
+
+
+def _shape(xs: int, ws: int):
+    """csrc/polyphase.cu ``Shape`` by staged sample and tap size: (R, E) of
+    ``reg`` (outputs a thread, tap padding) and R of ``bcast`` and
+    ``slide``."""
+    r = 4 if ws <= 4 else (2 if ws <= 8 else 1)
+    return r, (0 if r == 1 else r), (9 if xs <= 4 else (5 if xs <= 8 else 3))
+
+
+def _reg_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
+    R, E, _ = _shape(xs, ws)
+    g = math.gcd(L, M)
+    Q, P = L // g, M // g
+    m = 1 if Q >= R else _ceil(R, Q)
+    Qp, Pp = m * Q, m * P  # a period: Qp outputs, Pp inputs
+    G = _ceil(Qp, R)
+    if (T not in REG_TAPS or L < 2 or G > _REG_THREADS
+            or ((R - 1) * M + L - 1) // L > E):
+        return None
+    base_max = (L - 1 + (G - 1) * R * M) // L
+
+    def smem(K):  # a double buffer of raw samples
+        return 2 * _raw_bytes((K - 1) * Pp + base_max + T + E, xsz)
+
+    if smem(1) > _SMEM_LIMIT:
+        return None
+    kt = max(1, _REG_TARGET // G)
+    k_want = max(kt * _REG_PERIODS, _REG_MIN_TILE)
+    k_fit = 1
+    while k_fit < k_want and smem(k_fit + 1) <= _SMEM_TARGET:
+        k_fit += 1
+    periods = _ceil(n_out, Qp)
+    K = max(1, min(k_fit, periods * channels // _FILL))
+    return Plan("reg", K, min(_ceil(periods, K) * channels, _MAX_GRID),
+                smem(K), K * Qp)
+
+
+def _bcast_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
+    R = _shape(xs, ws)[2]
+    if L != 1:
+        return None
+    rows, TQ = min(M, T), _up(_ceil(T, M), R)  # tap rows, zero-padded
+    skew = 32 // M if 1 < M <= 32 else 1
+    per = _BCAST_THREADS * R
+
+    def smem(kb):  # bank, raw double buffer, split rows, outputs
+        tile = kb * per
+        sp = _up(tile + TQ + R, 32) + skew
+        return (_up(rows * TQ * ws, 16)
+                + 2 * _raw_bytes((tile - 1) * M + T, xsz)
+                + _up(rows * sp * xs, 16) + _up(tile * osz, 16))
+
+    if smem(1) > _SMEM_LIMIT:
+        return None
+    kb_fit = 1
+    while smem(kb_fit + 1) <= _SMEM_TARGET:
+        kb_fit += 1
+    kb = max(1, min(kb_fit, n_out * channels // (_FILL * per)))
+    return Plan("bcast", kb * per,
+                min(_ceil(n_out, kb * per) * channels, _MAX_GRID), smem(kb),
+                kb * per)
+
+
+def _slide_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
+    R = _shape(xs, ws)[2]
+    g = math.gcd(L, M)
+    Q = L // g
+    if T not in REG_TAPS or M // g != 1 or L < 2 or Q > _SLIDE_THREADS:
+        return None
+    kg = _SLIDE_THREADS // Q
+
+    def smem(K):  # a double buffer of raw samples, then a tile's outputs
+        return 2 * _raw_bytes(K + T + R, xsz) + _up(K * Q * osz, 16)
+
+    k_fit = R
+    while (k_fit < kg * R * _SLIDE_REPEATS
+           and smem(k_fit + R) <= _SMEM_TARGET):
+        k_fit += R
+    periods = _ceil(n_out, Q)
+    K = max(R, min(k_fit, periods * channels // _FILL // R * R))
+    return Plan("slide", K, min(_ceil(periods, K) * channels, _MAX_GRID),
+                smem(K), K * Q)
+
+
+def _general_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
+    b_bytes = _up(T * L * ws, 16)
+    bank = b_bytes if b_bytes <= _BANK_SMEM_LIMIT else 0
+
+    def smem(tile):
+        return bank + ((L - 1 + (tile - 1) * M) // L + T) * xs
+
+    tile = 1024
+    while tile > 32 and _ceil(n_out, tile) * channels < _FILL:
+        tile //= 2
+    while tile > 1 and smem(tile) > _SMEM_LIMIT:
+        tile //= 2
+    if smem(tile) > _SMEM_LIMIT:
+        return None
+    return Plan("general", tile, min(_ceil(n_out, tile), _MAX_GENERAL_GRID),
+                smem(tile), tile)
+
+
+_PLANNERS = {"reg": _reg_plan, "bcast": _bcast_plan, "slide": _slide_plan,
+             "general": _general_plan}
+
+
+def plan(T: int, L: int, M: int, n_out: int, x_dtype, bank_dtype,
+         channels: int = 1, variant: str | None = None) -> Plan:
+    """The launch of one polyphase call: the variant (by default the first
+    of ``bcast``, ``slide``, ``reg`` that takes the geometry, else
+    ``general``), the tile and the grid. Pure Python on the shape: the CPU tests check it.
+    Raises ValueError if ``variant`` is named and cannot take the call."""
+    xs, ws = _STAGED[x_dtype], _STAGED[bank_dtype]
+    xsz = torch.empty((), dtype=x_dtype).element_size()
+    osz = torch.empty((), dtype=ACCUMULATOR[x_dtype]).element_size()
+    n_out = max(int(n_out), 1)
+    if variant is not None:
+        if variant not in _PLANNERS:
+            raise ValueError(f"unknown variant {variant!r}; one of "
+                             f"{VARIANTS}")
+        order = (variant,)
+    else:
+        order = ("bcast", "slide", "reg", "general")
+    for name in order:
+        p = _PLANNERS[name](T, L, M, n_out, channels, xs, ws, xsz, osz)
+        if p is not None:
+            return p
+    raise ValueError(f"the {'/'.join(order)} variant cannot take T={T} "
+                     f"L={L} M={M} ({x_dtype} samples, {bank_dtype} taps)")
 
 
 def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
@@ -126,7 +322,7 @@ def _check(x, hist, bank, L, M, phi0, d0, n_out, out_dtype):
 
 
 def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
-              n_out: int, out_dtype=None) -> torch.Tensor:
+              n_out: int, out_dtype=None, variant=None) -> torch.Tensor:
     """y (C, n_out) from x (C, xlen), hist (C, T-1) and bank (T, L).
 
     x and hist share the signal type and bank has the tap type, a pair of
@@ -135,18 +331,24 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
     (``indexing.host_carry``). ``out_dtype`` is the output type, by
     default the accumulator's (``ACCUMULATOR``: the signal's type, float32
     for bfloat16, int32 for int8); float32 and bf16 signals also store
-    bfloat16 or float16. Raises on anything the kernel does not take.
+    bfloat16 or float16. ``variant`` names the kernel's variant (one of
+    ``VARIANTS``) in place of ``plan``'s choice, for timing. Raises on
+    anything the kernel does not take.
     """
     if x.dtype not in ACCUMULATOR:
         raise TypeError(f"no polyphase kernel for {x.dtype} samples")
     out_dtype = ACCUMULATOR[x.dtype] if out_dtype is None else out_dtype
     _check(x, hist, bank, L, M, phi0, d0, n_out, out_dtype)
+    shape = (bank.shape[0], L, M, n_out, x.dtype, bank.dtype, x.shape[0])
     if x.device.type == "cpu":
+        if variant is not None:
+            plan(*shape, variant)  # a named variant must take the call
         return polyphase_plain(x, hist, bank, L, M, phi0, d0, n_out,
                                out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no polyphase kernel for device {x.device}")
     check_aligned(x=x, hist=hist, bank=bank)
+    p = plan(*shape, variant)
     y = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -156,9 +358,11 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = entry(x.data_ptr(), hist.data_ptr(), bank.data_ptr(),
                     y.data_ptr(), x.shape[0], x.shape[1], bank.shape[0], L,
-                    M, phi0, d0, n_out, stream)
+                    M, phi0, d0, n_out, VARIANTS.index(p.variant), p.tile,
+                    p.grid, stream)
     if err != 0:
         raise RuntimeError("polyphase kernel launch failed: "
                            + load_polyphase().mr_error_string(err).decode())
     launches[name] += 1
+    launches_by_variant[f"{name}/{p.variant}"] += 1
     return y

@@ -17,7 +17,11 @@ loads in the other:
 
 A JAX history may be longer than the port's (the TPU's zero-copy path keeps
 ``ZC_S*g*M`` samples); ``h_min=`` keeps its trailing ``h_min`` samples, all
-that any output depends on, as ``convert.state_from_jax`` does.
+that any output depends on, as ``convert.state_from_jax`` does. The other
+way, ``history_len=`` zero-pads the port's ``h_min`` samples on the left to
+the length a JAX kernel carries (``params.history_len``), as
+``convert.state_to_jax`` does: JAX's zero-copy kernel reshapes the tail of
+the history it is given and needs that length.
 """
 
 from __future__ import annotations
@@ -35,14 +39,23 @@ _DTYPES = {str(t).removeprefix("torch."): t for t in (
     torch.bfloat16, torch.int8)}
 
 
-def state_to_host(state: FilterState) -> dict:
-    """Device -> host: a plain numpy dict, safe to serialize anywhere."""
-    h = state.history.detach().cpu()
+def state_to_host(state: FilterState, history_len: int | None = None
+                  ) -> dict:
+    """Device -> host: a plain numpy dict, safe to serialize anywhere; the
+    history zero-padded on the left to ``history_len`` samples if given."""
+    t = state.history.detach().cpu()
+    h = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if history_len is not None:
+        if history_len < h.shape[-1]:
+            raise ValueError(f"history_len {history_len} is shorter than "
+                             f"the {h.shape[-1]} samples the filter needs")
+        pad = [(0, 0)] * (h.ndim - 1) + [(history_len - h.shape[-1], 0)]
+        h = np.pad(h, pad)
     return {
-        "history": (h.float() if h.dtype == torch.bfloat16 else h).numpy(),
+        "history": h,
         "phase": np.asarray(state.phase, np.int64),
         "deficit": np.asarray(state.deficit, np.int64),
-        "history_dtype": np.asarray(str(h.dtype).removeprefix("torch.")),
+        "history_dtype": np.asarray(str(t.dtype).removeprefix("torch.")),
     }
 
 
@@ -67,8 +80,9 @@ def state_from_host(d: dict, device=None, h_min: int | None = None
                        phase=int(d["phase"]), deficit=int(d["deficit"]))
 
 
-def save_state(path: str, state: FilterState) -> None:
-    np.savez(path, **state_to_host(state))
+def save_state(path: str, state: FilterState,
+               history_len: int | None = None) -> None:
+    np.savez(path, **state_to_host(state, history_len))
 
 
 def load_state(path: str, device=None, h_min: int | None = None

@@ -4,9 +4,13 @@ Counterpart of ``multirate_tpu/utils/profiling.py`` (reference: the
 ``@time``/``@timed`` macros of the reference's tests and examples,
 runtests.jl:60, examples/Arb-Farrow Speed Comparison.jl:16-32):
 
-- ``trace(logdir)``: context manager around ``torch.profiler.profile`` for
-  CPU and (with a card) CUDA activities; on exit it writes a Chrome trace,
-  ``<host>.<pid>.<ns>.pt.trace.json``, into ``logdir``. On the card the
+- ``trace(logdir, *, create_perfetto_trace=False)``: context manager
+  around ``torch.profiler.profile`` for CPU and (with a card) CUDA
+  activities; on exit it writes a Chrome trace,
+  ``<host>.<pid>.<ns>.pt.trace.json``, into ``logdir``. Perfetto
+  (ui.perfetto.dev) opens that file as it is, so ``create_perfetto_trace``
+  (JAX's keyword, which adds a Perfetto protobuf there) writes nothing
+  more. On the card the
   trace holds each kernel launched inside, by its kernel name (the
   polyphase kernel's names carry their entry point, e.g.
   ``mr_polyphase_f32``).
@@ -32,9 +36,11 @@ __all__ = ["trace", "annotate"]
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str, *, create_perfetto_trace: bool = False):
     """Profile the enclosed work and write a Chrome trace into ``logdir``
-    (created if needed); yields ``logdir``."""
+    (created if needed); yields ``logdir``. The trace opens in Perfetto as
+    it is: ``create_perfetto_trace`` is accepted for JAX's signature and
+    changes nothing."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -233,8 +233,63 @@ def test_wide_resample_matches_plain_on_gpu(entry, rate, nphi, polyorder,
     assert rel_max_err(yk, yp) <= _tol(xt)
 
 
+# the polyphase kernel's variants: each compiled T of the register and
+# sliding variants, L = 1 (broadcast) and the general variant's geometries
+# (T outside the set; Q = 1031, more groups than a block's threads; a
+# 48-tap complex128 bank over 96 KB, read from global memory)
+VARIANT_GEOMETRIES = [(24, 147, 160), (37, 7, 6), (37, 4, 1), (24, 4, 1),
+                      (147, 1, 1), (147, 1, 4), (24, 1, 1), (30, 1000, 999),
+                      (24, 1031, 1030), (48, 147, 160)]
+
+
+def _signal(rng, shape, dtype):
+    if dtype == torch.int8:
+        return torch.from_numpy(np.clip(rng.standard_normal(shape) * 30,
+                                        -127, 127).astype(np.int8))
+    return _wide(rng, shape, dtype)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 100_003])
+@pytest.mark.parametrize("variant", [None, "general"], ids=["planned",
+                                                            "general"])
+@pytest.mark.parametrize("T,L,M", VARIANT_GEOMETRIES)
+@pytest.mark.parametrize("entry", sorted(set(pp.ENTRIES.values())))
+def test_polyphase_variants_match_plain_on_gpu(entry, T, L, M, variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x_dt, b_dt, o_dt = {v: k for k, v in pp.ENTRIES.items()}[entry]
+    rng = np.random.default_rng(11)
+    xlen = 80_007
+    x = _signal(rng, (2, xlen), x_dt).cuda()
+    hist = _signal(rng, (2, T - 1), x_dt).cuda()
+    bank = _signal(rng, (T, L), b_dt).cuda()
+    for C, (phi0, d0) in ((1, (1, 1)), (2, (L // 2 + 1, 3))):
+        n_all = ((xlen - d0) * L - (phi0 - 1)) // M + 1
+        tile = pp.plan(T, L, M, n_all, x_dt, b_dt, C).tile_outputs
+        for n in (n_all, 1, 33, min(tile + 1, n_all)):
+            args = (x[:C], hist[:C], bank, L, M, phi0, d0, n)
+            p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant)
+            key = f"{entry}/{p.variant}"
+            before = pp.launches_by_variant[key]
+            y = pp.polyphase(*args, out_dtype=o_dt, variant=variant)
+            yp = pp.polyphase_plain(*args, out_dtype=o_dt)
+            torch.cuda.synchronize()
+            assert pp.launches_by_variant[key] == before + 1
+            assert y.dtype == yp.dtype and y.shape == yp.shape
+            if x_dt == torch.int8:
+                assert torch.equal(y, yp)
+            elif o_dt in (torch.bfloat16, torch.float16):
+                assert ulps_apart(y, yp, o_dt,
+                                  TOL * float(yp.abs().max())) <= 1
+            else:
+                assert rel_max_err(y, yp) <= _tol(o_dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 100_003,
+                               # one 32 KB chunk of float32, several and a
+                               # partial last one, more than one per block
+                               8192, 24_676, 17_301_509])
 @pytest.mark.parametrize("offset", [0, 1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8, torch.complex128])

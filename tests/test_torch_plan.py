@@ -1,0 +1,150 @@
+"""The polyphase kernel's launch planner on the CPU: which variant each
+main-path row takes, the grid it gets and the offsets its tiles reach.
+
+``ops/cuda/polyphase.plan`` is pure Python on the call's shape; the CUDA
+launcher (``csrc/polyphase.cu``) takes its (variant, tile, grid) as given
+and refuses a plan it cannot run, so what is checked here is what the card
+runs. Exact: plans are integers.
+"""
+
+import math
+from fractions import Fraction
+
+import pytest
+import torch
+
+import multirate_tpu_torch as mt
+from multirate_tpu_torch.ops.cuda import polyphase as pp
+
+F32, BF16, S8 = torch.float32, torch.bfloat16, torch.int8
+F64, C64, C128 = torch.float64, torch.complex64, torch.complex128
+N_HEAD = 8_000_000
+N_147_160 = mt.outputlength(N_HEAD, Fraction(147, 160))
+
+# bench.py's rows and chip_smoke.py's: (T, L, M, outputs, signal, taps)
+MAIN_PATH = {
+    "rational_147_160": (24, 147, 160, N_147_160, F32, F32),
+    "rational_147_160_bf16": (24, 147, 160, N_147_160, BF16, BF16),
+    "rational_147_160_int8": (24, 147, 160, N_147_160, S8, S8),
+    "rational_147_160_c64": (24, 147, 160, N_147_160, C64, F32),
+    "rational_147_160_f64": (24, 147, 160, N_147_160, F64, F64),
+    "interp_4_1": (37, 4, 1, 4 * N_HEAD, F32, F32),
+    "interp_4_1_bf16_in": (37, 4, 1, 4 * N_HEAD, BF16, BF16),
+    "standard_147taps": (147, 1, 1, N_HEAD, F32, F32),
+    "decim_1_4": (147, 1, 4, N_HEAD // 4, F32, F32),
+    "stream_block_65536": (24, 147, 160,
+                           mt.outputlength(1 << 16, Fraction(147, 160)),
+                           F32, F32),
+    "fir_1_1_T24": (24, 1, 1, N_HEAD, F32, F32),
+    "decim_1_4_T24": (24, 1, 4, N_HEAD // 4, F32, F32),
+    "interp_4_1_T24": (24, 4, 1, 4 * N_HEAD, F32, F32),
+}
+NEW = {"reg", "bcast", "slide"}
+
+
+def _expected(L, M):
+    """The new variant for a geometry: the FIR and decimators broadcast
+    their one tap vector, interpolators slide, the rest keep taps in
+    registers."""
+    return "bcast" if L == 1 else ("slide" if M == 1 else "reg")
+
+
+@pytest.mark.parametrize("row", list(MAIN_PATH))
+def test_main_path_rows_take_a_new_variant(row):
+    T, L, M, n, x_dt, b_dt = MAIN_PATH[row]
+    p = pp.plan(T, L, M, n, x_dt, b_dt)
+    assert p.variant == _expected(L, M)
+    assert p.variant in NEW
+
+
+@pytest.mark.parametrize("case", [
+    # 48 taps at 147//160 in complex128 (chip_smoke 3d's bank over 96 KB)
+    (48, 147, 160, 50_000, C128, C128),
+    # taps per phase outside the compiled set
+    (30, 1000, 999, 30_000, F32, F32),
+    (30, 4, 1, 30_000, F32, F32),
+    (25, 147, 160, 50_000, F32, F32),
+    # windows too far apart for the register variant's padding (M/L > 4/3)
+    (24, 3, 5, 100_000, F32, F32),
+    # a period of Q = 1031 outputs: more groups of 4 than a block's threads
+    (24, 1031, 1030, 100_000, F32, F32),
+])
+def test_other_geometries_take_the_general_variant(case):
+    assert pp.plan(*case).variant == "general"
+
+
+@pytest.mark.parametrize("row", ["stream_block_65536", "rational_147_160",
+                                 "rational_147_160_f64", "decim_1_4",
+                                 "standard_147taps", "interp_4_1"])
+def test_grid_fills_the_card(row):
+    T, L, M, n, x_dt, b_dt = MAIN_PATH[row]
+    assert pp.plan(T, L, M, n, x_dt, b_dt).grid >= 2 * 132
+
+
+def test_stream_block_no_longer_makes_59_blocks():
+    T, L, M, n, x_dt, b_dt = MAIN_PATH["stream_block_65536"]
+    assert n == 60_212
+    for variant in (None, "general"):
+        assert pp.plan(T, L, M, n, x_dt, b_dt, variant=variant).grid >= 264
+
+
+def _tile_reach(p, T, L, M, x_dt, b_dt):
+    """The largest in-tile offset a plan makes the kernel compute in int32:
+    the general variant's r0 + j*M and its span, the register variant's
+    span, the broadcast variant's span."""
+    if p.variant == "general":
+        return max(L - 1 + (p.tile - 1) * M,
+                   (L - 1 + (p.tile - 1) * M) // L + T)
+    if p.variant == "bcast":
+        return (p.tile - 1) * M + T
+    if p.variant == "slide":
+        return p.tile * (L // math.gcd(L, M))
+    R, E, _ = pp._shape(pp._STAGED[x_dt], pp._STAGED[b_dt])
+    g = math.gcd(L, M)
+    Q, P = L // g, M // g
+    m = 1 if Q >= R else -(-R // Q)
+    G = -(-m * Q // R)
+    return (p.tile - 1) * m * P + (L - 1 + (G - 1) * R * M) // L + T + E
+
+
+@pytest.mark.parametrize("L,M", [(1, 1), (147, 160), (4, 1), (1, 4),
+                                 (1, (1 << 20) - 1), ((1 << 20) - 1, 1),
+                                 ((1 << 20) - 1, (1 << 20) - 3),
+                                 (1000, 999), (3, (1 << 20) - 5)])
+@pytest.mark.parametrize("dtypes", [(F32, F32), (S8, S8), (C128, C128)])
+@pytest.mark.parametrize("T", [1, 24, 37, 147])
+def test_tile_offsets_stay_inside_int32(L, M, dtypes, T):
+    n = 10_000_000
+    for variant in (None, "general"):
+        p = pp.plan(T, L, M, n, *dtypes, variant=variant)
+        assert 0 < p.tile and 0 < p.grid <= 65535
+        assert 0 < p.smem <= 227 * 1024
+        assert _tile_reach(p, T, L, M, *dtypes) < 2**31
+
+
+def test_a_named_variant_that_cannot_run_raises():
+    with pytest.raises(ValueError, match="reg"):
+        pp.plan(30, 147, 160, 1000, F32, F32, variant="reg")
+    with pytest.raises(ValueError, match="bcast"):
+        pp.plan(24, 147, 160, 1000, F32, F32, variant="bcast")
+    with pytest.raises(ValueError, match="unknown variant"):
+        pp.plan(24, 147, 160, 1000, F32, F32, variant="fast")
+
+
+@pytest.mark.parametrize("variant", [None, "general", "reg"])
+def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(variant):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5000, generator=g)
+    hist = torch.randn(2, 23, generator=g)
+    bank = torch.randn(24, 147, generator=g)
+    n = mt.outputlength(5000 - 1, Fraction(147, 160))
+    args = (x, hist, bank, 147, 160, 1, 1, n)
+    before = (dict(pp.launches), dict(pp.launches_by_variant))
+    y = pp.polyphase(*args, variant=variant)
+    assert torch.equal(y, pp.polyphase_plain(*args))
+    assert (pp.launches, pp.launches_by_variant) == before
+
+
+def test_launch_counts_cover_every_entry_and_variant():
+    assert set(pp.launches_by_variant) == {
+        f"{e}/{v}" for e in pp.ENTRIES.values() for v in pp.VARIANTS}
