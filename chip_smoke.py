@@ -14,7 +14,7 @@ prints one line:
 2. build: compiles the polyphase, resample and probe kernels from
    ``multirate_tpu_torch/csrc``, one nvcc each, and the host ring buffer
    with g++, all started together, and prints ptxas's registers and
-   spills;
+   spills for each instantiation;
 3. kernel vs plain version on the card, for the four rational-family
    filter types at the headline taps and at short taps, plus a bank too
    large for shared memory and a wide decimation, fresh and mid-phase
@@ -46,8 +46,14 @@ Then the same three steps for the arbitrary/Farrow path:
    and time-major, at rates 1/2.123456789, 0.4709, 0.9173, 1.0, 1.313 and
    2.5, nphi 32 and 7, 1 and 64 channels, fresh and after setphase(0.37)
    and one block; plus nphi 1024 at rate 0.3 past 2^20 outputs, a Farrow
-   table too large for shared memory, and rate 0.01, whose spans shrink
-   the tile: counts and states exact, outputs within 1e-5 * max|y|;
+   table too large for shared memory, rate 0.01, whose spans shrink the
+   tile, and ``models.Resampler``'s 73 taps a phase at 1/2.123456789 and
+   0.9173 on 1 and 3 channels: counts and states exact, outputs within
+   1e-5 * max|y|; every case also straight through the kernel's wrapper
+   with the variant ``resample.plan`` picks (``t10p2``, ``t10p5``,
+   ``t73p2`` or ``general``) and with the general one forced, each against
+   the plain version and the two equal bit for bit, each launch counted
+   by entry point and variant;
 4b. the slice at full width: ``filt`` and ``FIRFilter`` in 250 000-sample
    chunks on 8 M samples, arbitrary at 1/2.123456789 and Farrow at
    0.4709; 64-channel Farrow at 0.9173 on (64, 125 000) through ``filt``
@@ -56,9 +62,11 @@ Then the same three steps for the arbitrary/Farrow path:
    relative RMS against the float64 oracles on the first 200 000 outputs
    (``naivefilt`` <= 1e-4 for arbitrary at 1/2.123456789, the reference's
    dh wrap floor; ``naivefilt_farrow`` <= 8e-5), and each wrapper's launch
-   count around these runs equal to the number of blocks;
-5b. times of kernel and plain version for ``bench.py``'s six
-   arbitrary/Farrow rows, as in phase 5.
+   count around these runs equal to the number of blocks, each row through
+   its compiled variant (``t10p2`` arbitrary, ``t10p5`` Farrow);
+5b. times of kernel (the planned variant and the general one, in turns)
+   and plain version for ``bench.py``'s six arbitrary/Farrow rows, as in
+   phase 5.
 
 Then the same three steps for the quantized modes of the rational family
 (``bench.py``'s rows ``rational_147_160_bf16``, ``rational_147_160_int8``
@@ -100,11 +108,13 @@ filter type (``bench.py``'s rows ``rational_147_160_c64`` and
    the four rational-family types at the headline and short taps and a
    147//160 bank of 48 taps per phase (a complex128 bank too large for
    shared memory); arbitrary and Farrow at rates 1/2.123456789, 0.9173 and
-   2.5, nphi 32 and 7, and a Farrow table in global memory; fresh and
+   2.5, nphi 32 and 7, 9 channels at 1/2.123456789 (blocks of 8 channels
+   sharing taps, and one), and a Farrow table in global memory; fresh and
    mid-phase, one channel and two, channel-major and time-major (which
    runs the channel-major entry point on the transpose). Counts and states
    exact; outputs within 1e-5 * max|y| (complex64) or 1e-12 * max|y|
-   (float64, complex128);
+   (float64, complex128); the channel-major resample cases also through
+   the planned and the general variant, equal bit for bit;
 4d. the two rows at full width: 8 M complex64 samples (phase 4's samples
    as real parts, seeded standard normal imaginary parts) with the float32
    headline taps, and phase 4's samples in float64 with the float64
@@ -115,7 +125,8 @@ filter type (``bench.py``'s rows ``rational_147_160_c64`` and
    1/2.123456789 (<= 1e-4 against ``naivefilt``, the method's floor) and
    Farrow at 0.4709 (<= 1e-10 against ``naivefilt_farrow``) on the same
    float64 samples with the float64 bank, whole and chunked; each entry
-   point's launch count around these runs equal to the number of blocks;
+   point's launch count around these runs equal to the number of blocks
+   (the resample rows through ``f64/t10p2`` and ``f64/t10p5``);
 5d. times of kernel and plain version for the two rows and for arbitrary
    and Farrow in float64, as in phase 5, and for the three narrow-store
    entry points no bench row runs (``f32_f16out``, ``bf16_bf16out``,
@@ -128,8 +139,9 @@ Then the same three steps for the runtime and its probe kernels
 3e. the probe kernels against their plain versions: copies of float32,
    bfloat16, int8 and complex128 at lengths that are and are not
    multiples of 16 bytes, from sources at element offsets 0, 1 and 3;
-   expands of float32 rows at ratios 1, 2, 4 and 8 with float32, bfloat16,
-   float16 and int8 stores. Outputs equal bit for bit;
+   expands of float32 rows of 4, 12, 20 and 128 floats at ratios 1, 2, 4
+   and 8 with float32, bfloat16, float16 and int8 stores. Outputs equal
+   bit for bit;
 4e. the runtime at full width: phase 4's 8 M samples pushed in seeded
    random chunks of 100-5000 samples through
    ``io.StreamingResampler(models.DATToCD(device="cuda"))`` (blocks of
@@ -141,7 +153,8 @@ Then the same three steps for the runtime and its probe kernels
    every 16 blocks, the ``StreamingResampler`` deleted at 60% of the
    stream, resumed and re-fed from the consumed offset): prefix and tail
    equal to the uninterrupted stream bit for bit. Each wrapper's launch
-   count around these streams equal to their blocks plus one flush each.
+   count around these streams equal to their blocks plus one flush each
+   (the ``Resampler`` stream's through ``f32/t73p2``).
    ``utils.check_block`` on the card for the four rational-family types,
    arbitrary and Farrow (rtol 1e-4, atol 1e-5 of max|y|); a
    ``utils.trace`` of one ``DATToCD`` block inside
@@ -149,26 +162,32 @@ Then the same three steps for the runtime and its probe kernels
    annotation and a kernel event of the register variant,
    ``polyphase_reg<entry::mr_polyphase_f32, ...>``. Prints
    ``stats()``, the stream's rate (Msps in, from the first push to the
-   end of ``flush``) and one block's kernel time alone (CUDA events), the
-   share of the stream's wall time that the kernels fill;
+   end of ``flush``) and one block's kernel time alone (CUDA events; the
+   resample block also with the general variant), the share of the
+   stream's wall time that the kernels fill;
 5e. times: ``utils.metrics.stream_copy_gbps()`` (32 M float32) and
    ``stream_expand_gbps()`` (8 M inputs at 1:4) with each store type, as
    GB/s and as a share of 3.35 TB/s (over 105% fails: the probe would be
    reading the cache; these ceilings are the denominators of every "% of
    copy ceiling"), with each probe's launch count over those calls;
-   each probe kernel after an L2 eviction against its bound, its plain
-   version and ``Tensor.copy_`` / ``torch.cat`` (one call for the float32
-   store; a cast store takes two, so none); ``measure_chained`` on the 8 M
+   each probe kernel after an L2 eviction (a 256 MB write; the expand
+   probe also after a 256 MB read, which leaves the L2 no dirty lines to
+   write back) against its bound, its plain version and ``Tensor.copy_``
+   / ``torch.cat`` for the float32 store / one casting copy of the
+   broadcast rows for bf16 and f16 (none for int8, whose scale and clamp
+   take more calls); ``measure_chained`` on the 8 M
    headline block (Msps, roofline fraction against ``KNOWN_HBM_GBPS`` and
    against the measured copy ceiling); and kernel against plain version
    for the five entry points no earlier phase times (``mr_polyphase_c128``
    at 147//160; ``mr_resample_c64``, ``_c64c``, ``_c128``, ``_c128c`` at
-   1/2.123456789 with ``bench.py``'s bank), on 8 M samples.
+   1/2.123456789 with ``bench.py``'s bank), on 8 M samples; every
+   resample time here and in 5d for the planned and the general variant.
 
 Then a JSON line of the kernels (each with its bound: the larger of the
 bytes it must move over 3.35 TB/s and its multiply-adds over the card's
-peak for their type; a polyphase row also with the variant it launched and
-the general variant's time), the ``nvidia-smi`` name and power-limit line,
+peak for their type; a polyphase or resample row also with the variant it
+launched and the general variant's time; one expand row for each store
+type), the ``nvidia-smi`` name and power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without the last line. Imports nothing of JAX.
 """
@@ -216,7 +235,9 @@ TOL_ORACLE_FARROW_F64 = 1e-10
 # 3e: copy lengths (elements) and source offsets, expand shapes and ratios
 PROBE_COPY_LENGTHS = (0, 1, 7, 15, 16, 17, 4096, 1_000_003, 4_194_304)
 PROBE_OFFSETS = (0, 1, 3)
-PROBE_EXPAND_SHAPES = ((1, 128), (777, 128), (65_536, 128), (33, 4))
+# rows of 4, 12, 20 and 128 floats: every 16-byte store aligned, or not
+PROBE_EXPAND_SHAPES = ((1, 128), (777, 128), (65_536, 128), (33, 4),
+                       (45, 12), (29, 20), (1001, 20))
 PROBE_RATIOS = (1, 2, 4, 8)
 MAX_CEILING_SHARE = 1.05  # a probe over 105% of 3.35 TB/s reads the cache
 STREAM_CHUNKS = (100, 5000)  # 4e: seeded chunk sizes pushed to the ring
@@ -280,16 +301,48 @@ def phase_build():
     build.load_probe()
     secs = time.perf_counter() - t0
     for lib in libs:
-        log = (lib.parent / "build.log").read_text()
-        usage = [ln.split("info    : ")[-1] for ln in log.splitlines()
-                 if "registers" in ln]
-        spills = [ln.strip() for ln in log.splitlines() if "spill" in ln
-                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        rows = _ptxas_rows((lib.parent / "build.log").read_text())
+        spills = [f"{k} {sp}" for k, _, sp in rows if sp != "0/0"]
         print(f"[2 build] {lib.relative_to(build.BUILD_DIR.parent)}; "
-              f"ptxas: {' | '.join(usage) or 'none (host code)'}; "
-              f"spills: {' | '.join(spills) or 'none'}")
+              f"ptxas, registers (spill stores/loads, bytes) by "
+              f"instantiation: "
+              + (" | ".join(f"{k} {r} ({sp})" for k, r, sp in rows)
+                 or "none (host code)")
+              + f"; spills: {' | '.join(spills) or 'none'}")
     print(f"[2 build] {len(names)} libraries built in parallel in "
           f"{secs:.1f} s")
+
+
+def _ptxas_rows(log):
+    """(instantiation, registers, "spill stores/spill loads") for each
+    kernel of an nvcc -Xptxas=-v log, the instantiation demangled by
+    c++filt where the toolkit's host has it, template arguments kept."""
+    import re
+    import shutil
+
+    rows, name, spill = [], None, "0/0"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append([name, int(m.group(1)), spill])
+            name, spill = None, "0/0"
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, check=False)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, full in zip(rows, names):
+                # kernel<template args>, without namespaces and parameters
+                full = re.sub(r"\(anonymous namespace\)::|entry::", "", full)
+                r[0] = re.sub(r"^void |\((?!anonymous).*\)$", "", full)
+    return [tuple(r) for r in rows]
 
 
 def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL):
@@ -312,6 +365,55 @@ def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL):
            if yp.numel() else 0.0)
     check(err <= tol, f"{case}: rel err {err:.3e}")
     return err
+
+
+def _resample_variants(mt, torch, rs, params, st, x, time_major, case,
+                       tol=TOL_KERNEL):
+    """The resample kernel on one block, through the variant ``plan``
+    picks and through the general one, each against the plain version
+    (within ``tol`` of max|y|) and the two equal bit for bit, each launch
+    counted once by entry point and variant. Returns (max error, the
+    planned variant)."""
+    from multirate_tpu_torch.ops import indexing as idx
+
+    xlen = x.shape[0] if time_major else x.shape[-1]
+    n, _, _ = idx.host_carry(params, st.phase, st.deficit, xlen)
+    args = (x, st.history.to(x.dtype).contiguous(), params, st.phase,
+            st.deficit, n)
+    kern = rs.resample_tm if time_major else rs.resample
+    plain = rs.resample_tm_plain if time_major else rs.resample_plain
+    want = plain(*args)
+    scale = max(float(want.abs().max()) if want.numel() else 0.0, 1e-30)
+    entry = "tm" if time_major else rs.ENTRIES[x.dtype, params.table.dtype]
+    got, err = {}, 0.0
+    planned = _resample_plan(rs, args, time_major).variant
+    for variant in (None, "general"):
+        key = f"{entry}/{variant or planned}"
+        before = rs.launches_by_variant[key]
+        got[variant] = kern(*args, variant=variant)
+        torch.cuda.synchronize()
+        check(rs.launches_by_variant[key] == before + 1,
+              f"{case} {key}: not launched once")
+        check(got[variant].dtype == want.dtype
+              and got[variant].shape == want.shape,
+              f"{case} {key}: {got[variant].dtype} "
+              f"{tuple(got[variant].shape)}")
+        if want.numel():
+            e = float((got[variant] - want).abs().max()) / scale
+            check(e <= tol, f"{case} {key}: rel err {e:.3e}")
+            err = max(err, e)
+    check(torch.equal(got[None], got["general"]),
+          f"{case}: {planned} and general differ")
+    return err, planned
+
+
+def _resample_plan(rs, args, time_major, variant=None):
+    """The plan of one resample call on ``args`` (x, hist, params, u0, d0,
+    n_out)."""
+    x, _, p, _, _, n = args
+    C = x.shape[1] if time_major else x.shape[0]
+    return rs.plan(p.taps_per_phi, p.table.shape[0], p.nphi, p.delta_fx, n,
+                   C, x.dtype, p.table.dtype, time_major, variant)
 
 
 def _variant_matrix(torch, dev, pp, entries):
@@ -373,17 +475,21 @@ def _variant_matrix(torch, dev, pp, entries):
     return n_cases, worst, used
 
 
-def _reset_counts(pp):
-    """Set the polyphase wrapper's launch counts (by entry point and by
-    entry point and variant) to 0."""
-    for counts in (pp.launches, pp.launches_by_variant):
+def _reset_counts(kernel):
+    """Set a kernel's wrapper module's launch counts (polyphase or
+    resample: by entry point, by entry point and variant, and the
+    time-major count) to 0."""
+    for counts in (kernel.launches, kernel.launches_by_variant):
         for k in counts:
             counts[k] = 0
+    if hasattr(kernel, "launches_tm"):
+        kernel.launches_tm = 0
 
 
-def _by_variant(pp):
-    """The nonzero launch counts by entry point and variant."""
-    return {k: v for k, v in pp.launches_by_variant.items() if v}
+def _by_variant(kernel):
+    """The nonzero launch counts of a kernel's wrapper module (polyphase or
+    resample) by entry point and variant."""
+    return {k: v for k, v in kernel.launches_by_variant.items() if v}
 
 
 def _rel_rms(got, ref):
@@ -520,7 +626,7 @@ def phase_times(mt, torch, h, x, pp, card):
     check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
           f"headline kernel vs plain max abs err {max_abs:.3e}")
     variant = pp.plan(24, 147, 160, n, x.dtype, params.bank.dtype).variant
-    ms, general_ms = _time_variants(torch, pp, args)
+    ms, general_ms = _time_variants(torch, pp.polyphase, args)
     plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(*args), iters=2)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=x.device)
     cold_ms = _time_ms(torch, lambda: pp.polyphase(*args), iters=1,
@@ -533,7 +639,7 @@ def phase_times(mt, torch, h, x, pp, card):
         hist = torch.zeros(1, 23, device=x.device)
         n_g = mt.outputlength(N_HEAD, Fraction(L, M))
         g_args = (x2, hist, bank, L, M, 1, 1, n_g)
-        g_ms, g_general = _time_variants(torch, pp, g_args)
+        g_ms, g_general = _time_variants(torch, pp.polyphase, g_args)
         g_bound = _polyphase_bound(torch, g_args, torch.float32, "f32")[0]
         geo.append(f"{L}//{M} {_plan_of(pp, g_args).variant} {g_ms:.4f} ms "
                    f"({N_HEAD / g_ms / 1e3:.1f} Msps in), general "
@@ -541,7 +647,7 @@ def phase_times(mt, torch, h, x, pp, card):
     # one 65,536-sample block of the stream (phase 4e): the grid's fill
     n_b = mt.outputlength(1 << 16, Fraction(147, 160))
     b_args = (x2[:, :1 << 16], h2, params.bank, 147, 160, 1, 1, n_b)
-    b_ms, b_general = _time_variants(torch, pp, b_args)
+    b_ms, b_general = _time_variants(torch, pp.polyphase, b_args)
     print(f"[5 times] 147//160 block of {N_HEAD}: kernel ({variant}) "
           f"{ms:.4f} ms ({N_HEAD / ms / 1e3:.1f} Msps in, "
           f"{n / ms / 1e3:.1f} Msps out), general variant {general_ms:.4f} "
@@ -563,17 +669,17 @@ def _plan_of(pp, args):
     return pp.plan(bank.shape[0], L, M, n, x.dtype, bank.dtype, x.shape[0])
 
 
-def _time_variants(torch, pp, args, out_dtype=None):
-    """(ms of the planned variant, ms of the general variant) of one
-    polyphase call, timed in turns in this run."""
-    planned = _time_ms(torch, lambda: pp.polyphase(*args, out_dtype=out_dtype),
+def _time_variants(torch, kern, args, **kw):
+    """(ms of the planned variant, ms of the general variant) of one call of
+    a kernel's wrapper (``pp.polyphase``, ``rs.resample`` or
+    ``rs.resample_tm``), timed in turns in this run."""
+    planned = _time_ms(torch, lambda: kern(*args, **kw), iters=20)
+    general = _time_ms(torch, lambda: kern(*args, **kw, variant="general"),
                        iters=20)
-    general = _time_ms(torch, lambda: pp.polyphase(
-        *args, out_dtype=out_dtype, variant="general"), iters=20)
     return planned, general
 
 
-def phase_resample_vs_plain(mt, torch, dev):
+def phase_resample_vs_plain(mt, torch, dev, rs):
     rng = np.random.default_rng(2)
     ha = bench_taps(mt)
     specs = []  # (name, taps, rate, nphi, polyorder, channels, xlen)
@@ -583,6 +689,14 @@ def phase_resample_vs_plain(mt, torch, dev):
                 for ch, xlen in ((1, 200_003), (N_CH, 20_011)):
                     specs.append(("bench taps", ha, rate, nphi, po, ch,
                                   xlen))
+    # models.Resampler's design (T = 73 at nphi 32): its compiled variant
+    # (arbitrary) and the general one (Farrow, P+1 = 5); one channel in
+    # runs of outputs a thread (600,000 samples) and 3 channels
+    hr = mt.models.Resampler(R_REF, device="cpu").taps
+    for rate in (R_REF, 0.9173):
+        for po in (None, 4):
+            for ch, xlen in ((1, 600_000), (3, 20_011)):
+                specs.append(("Resampler taps", hr, rate, 32, po, ch, xlen))
     for po in (None, 3):
         # delta_fx near 2^43.7: u0 + n*delta_fx passes 2^63 near n = 2^19.3
         specs.append(("nphi 1024, T 2", rng.standard_normal(2048).astype(
@@ -593,7 +707,7 @@ def phase_resample_vs_plain(mt, torch, dev):
     for po in (None, 4):
         # spans of about 100 samples per output: the launcher halves the tile
         specs.append(("low rate", ha, 0.01, 32, po, N_CH, 200_003))
-    worst, n_cases, big_n = 0.0, 0, 0
+    worst, n_cases, big_n, used = 0.0, 0, 0, {}
     for name, h, rate, nphi, po, ch, xlen in specs:
         params = mt.make_kernel(h, rate=rate, nphi=nphi, polyorder=po,
                                 device=dev)
@@ -613,14 +727,21 @@ def phase_resample_vs_plain(mt, torch, dev):
                 case = (f"{name} {kind} rate={rate:.6g} nphi={nphi} "
                         f"C={ch} {entry} "
                         f"{'time' if time_major else 'channel'}-major")
-                worst = max(worst, _compare(mt, torch, params, st,
-                                            xt if time_major else x,
+                xs = xt if time_major else x
+                worst = max(worst, _compare(mt, torch, params, st, xs,
                                             time_major, case))
+                err, planned = _resample_variants(mt, torch, rs, params, st,
+                                                  xs, time_major, case)
+                worst = max(worst, err)
+                used[planned] = used.get(planned, 0) + 1
                 n_cases += 1
     check(big_n > 1 << 20, f"the nphi 1024 case made only {big_n} outputs")
+    check(set(used) == {"general", *rs.COMPILED.values()},
+          f"3b planned only {used}")
     print(f"[3b resample vs plain] {n_cases} cases (up to {big_n} outputs "
           f"at nphi 1024), counts and states exact, worst max|dy|/max|y| "
-          f"{worst:.3e} (limit {TOL_KERNEL})")
+          f"{worst:.3e} (limit {TOL_KERNEL}); each case also through the "
+          f"planned variant {used} and the general one, equal bit for bit")
 
 
 def phase_resample_slice(mt, torch, dev, rs):
@@ -636,9 +757,7 @@ def phase_resample_slice(mt, torch, dev, rs):
     x64 = torch.from_numpy(x64_np).to(dev)
     rows = (("arbitrary", R_REF, None), ("Farrow", 0.4709, 4))
 
-    for k in rs.launches:
-        rs.launches[k] = 0
-    rs.launches_tm = 0
+    _reset_counts(rs)
     runs = []
     for _, rate, po in rows:
         y = mt.filt(ha, x, rate, 32, po)
@@ -651,12 +770,19 @@ def phase_resample_slice(mt, torch, dev, rs):
                                         x64.t().contiguous())
     torch.cuda.synchronize()
     launches = (rs.launches["f32"], rs.launches_tm)
+    by_variant = _by_variant(rs)
 
     n_chunks = len(runs[0][1])
     want = (len(rows) * (1 + n_chunks) + 1, 1)
     check(launches == want and sum(rs.launches.values()) == want[0],
           f"resample launches {rs.launches}, time-major {rs.launches_tm}; "
           f"want f32 {want[0]}, time-major {want[1]}")
+    # every row through its compiled variant: T = 10, P+1 = 2 (arbitrary)
+    # or 5 (Farrow)
+    want_v = {"f32/t10p2": 1 + n_chunks, "f32/t10p5": 2 + n_chunks,
+              "tm/t10p5": 1}
+    check(by_variant == want_v,
+          f"variants launched {by_variant}, want {want_v}")
     notes = []
     for (label, rate, po), (y, parts, f) in zip(rows, runs):
         n_want = mt.outputlength(f.params, N_HEAD)
@@ -715,7 +841,8 @@ def phase_resample_slice(mt, torch, dev, rs):
                  f"{N_CH - 1}), time-major vs channel-major {tm_err:.3e} "
                  f"(limit {TOL_TM})")
     print(f"[4b resample slice] {'; '.join(notes)}; launches "
-          f"channel-major {launches[0]}, time-major {launches[1]}")
+          f"channel-major {launches[0]}, time-major {launches[1]}, by "
+          f"variant {by_variant}")
     return x, x64, launches
 
 
@@ -745,19 +872,21 @@ def phase_resample_times(mt, torch, x, x64, rs, card):
         max_abs = float((yk - yp).abs().max())
         check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
               f"{name}: kernel vs plain max abs err {max_abs:.3e}")
-        ms = _time_ms(torch, lambda: kern(*args), iters=20)
+        ms, general_ms = _time_variants(torch, kern, args)
         plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
         # x, history and table read once, outputs written once; each
         # output takes T * (P + 1) multiply-adds (arbitrary: P = 1)
         nbytes = sum(t.numel() * t.element_size()
                      for t in (xs, st.history, p.bank)) + C * n * 4
+        variant = _resample_plan(rs, args, tm).variant
         out[name] = (max_abs, ms, plain_ms,
                      _bound(nbytes, C * n * p.bank.numel() // p.nphi,
-                            "f32"))
-        notes.append(f"{name} kernel {ms:.4f} ms ({xs.numel() / ms / 1e3:.1f}"
-                     f" Msps in), plain {plain_ms:.4f} ms, max abs err "
-                     f"{max_abs:.3e}, bound {out[name][3][0]:.4f} ms "
-                     f"({out[name][3][1]})")
+                            "f32"), general_ms, variant)
+        notes.append(f"{name} kernel ({variant}) {ms:.4f} ms "
+                     f"({xs.numel() / ms / 1e3:.1f} Msps in), general "
+                     f"variant {general_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"max abs err {max_abs:.3e}, bound "
+                     f"{out[name][3][0]:.4f} ms ({out[name][3][1]})")
     print(f"[5b resample times] {'; '.join(notes)}; card: {card}")
     return out
 
@@ -1041,7 +1170,8 @@ def phase_quant_times(mt, torch, x, pp, card):
                              * float(yp.abs().max())) <= 1,
                   f"{name}: kernel vs plain beyond one ulp")
         del yp
-        ms, general_ms = _time_variants(torch, pp, args, store)
+        ms, general_ms = _time_variants(torch, pp.polyphase, args,
+                                        out_dtype=store)
         plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(
             *args, out_dtype=store), iters=2)
         library_ms, wide = None, ""
@@ -1118,7 +1248,7 @@ def phase_quant_times(mt, torch, x, pp, card):
         check(float((lib() - yk).abs().max()) <= TOL_KERNEL * scale,
               f"{name}: conv1d disagrees")
         del yk, yp
-        ms, general_ms = _time_variants(torch, pp, args)
+        ms, general_ms = _time_variants(torch, pp.polyphase, args)
         plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(*args), iters=2)
         library_ms = _time_ms(torch, lib, iters=5)
         bound = _polyphase_bound(torch, args, torch.float32, "f32")
@@ -1190,11 +1320,16 @@ def phase_wide_vs_plain(mt, torch, dev, pp, rs):
     resample = [("bench taps", ha, rate, nphi, po, shapes)
                 for rate in (R_REF, 0.9173, 2.5) for nphi in (32, 7)
                 for po in (None, 4)]
+    # nine channels: blocks of 8 sharing each output's taps, and a group of
+    # one, in every type
+    resample += [("bench taps", ha, R_REF, 32, po, ((9, 20_011),))
+                 for po in (None, 4)]
     # a (5, 10, 2048) Farrow table, read from global memory in every type
     resample.append(("global table", rng.standard_normal(20_480), 0.9, 2048,
                      4, ((2, 20_011),)))
     worst = dict.fromkeys(WIDE, 0.0)
     n_pp = n_rs = 0
+    rs_used, n_group = {}, 0
     for entry, (sig_name, taps_name, tol) in WIDE.items():
         sig, tdt = getattr(torch, sig_name), getattr(torch, taps_name)
         for label, h, ratio in rational:
@@ -1234,12 +1369,34 @@ def phase_wide_vs_plain(mt, torch, dev, pp, rs):
                               == (before[0] + 1, before[1]),
                               f"{case}: {entry} not launched once")
                         worst[entry] = max(worst[entry], err)
+                        # the channel-major entry point, planned and
+                        # general (time-major blocks of these types run it
+                        # on the transpose)
+                        if not tm:
+                            err, planned = _resample_variants(
+                                mt, torch, rs, params, st, x, False, case,
+                                tol)
+                            worst[entry] = max(worst[entry], err)
+                            rs_used[planned] = rs_used.get(planned, 0) + 1
+                            n_out = mt.outputlength(params, xlen, state=st)
+                            cb = _resample_plan(
+                                rs, (x, None, params, 0, 0, n_out),
+                                False).channels
+                            check(cb == (8 if ch >= 8 else 1),
+                                  f"{case}: {cb} channels a block")
+                            n_group += cb == 8
                         n_rs += 1
     n_var, w_var, used = _variant_matrix(torch, dev, pp, tuple(WIDE))
     print(f"[3d wide vs plain] polyphase variants: {n_var} cases {used}, "
           f"worst " + ", ".join(f"{e} {w_var[e]:.3e}" for e in WIDE))
+    check({"t10p2", "t10p5", "general"} <= set(rs_used),
+          f"3d planned only {rs_used}")
+    check(n_group == 4 * len(WIDE), f"3d: {n_group} 8-channel cases")
     print(f"[3d wide vs plain] {n_pp} polyphase and {n_rs} resample cases "
-          f"(time-major ones through the channel-major entry point), counts "
+          f"(time-major ones through the channel-major entry point; the "
+          f"channel-major ones also through the planned variant {rs_used} "
+          f"and the general one, equal bit for bit; {n_group} of them in "
+          f"blocks of 8 channels), counts "
           f"and states exact; worst max|dy|/max|y|: "
           + ", ".join(f"{e} {worst[e]:.3e} (limit {WIDE[e][2]:g})"
                       for e in WIDE))
@@ -1285,9 +1442,7 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
             "Farrow": pool.submit(naivefilt_farrow, ha64, x64_np[:n_far],
                                   0.4709, 32, 4)}
         _reset_counts(pp)
-        for k in rs.launches:
-            rs.launches[k] = 0
-        rs.launches_tm = 0
+        _reset_counts(rs)
         runs = []  # (label, whole block, chunk outputs, stream, samples)
         for label, h, spec, xs in (("rational_147_160_c64", h32, (ratio,), xc),
                                    ("rational_147_160_f64", h64, (ratio,),
@@ -1301,6 +1456,7 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
         torch.cuda.synchronize()
         launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
         by_variant = _by_variant(pp)
+        rs_variant = _by_variant(rs)
         refs = {k: v.result() for k, v in oracles.items()}
 
     blocks = 1 + len(chunks)
@@ -1310,6 +1466,8 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
     check(launches == want, f"launches {launches}, want {want}")
     check(by_variant == {"c64/reg": blocks, "f64/reg": blocks},
           f"variants launched {by_variant}, want the register variant")
+    check(rs_variant == {"f64/t10p2": blocks, "f64/t10p5": blocks},
+          f"resample variants launched {rs_variant}, want the compiled ones")
     refs["c64"] = ref + 1j * refs["c64"][:N_ORACLE]
     refs["f64"] = refs["f64"][:N_ORACLE]
     limits = {"rational_147_160_c64": ("c64", TOL_ORACLE, TOL_CHUNKED),
@@ -1343,8 +1501,7 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
                      f"chunks: chunked-vs-whole RMS {rms_chunk:.3e} (limit "
                      f"{tol_chunked:g})")
     print(f"[4d wide slice] {'; '.join(notes)}; launches polyphase "
-          f"{by_variant}, resample "
-          f"{ {k: v for k, v in launches[1].items() if v} }")
+          f"{by_variant}, resample {rs_variant}")
     return xc, x64, {"polyphase_c64": launches[0]["c64"],
                      "polyphase_f64": launches[0]["f64"],
                      "resample_f64": launches[1]["f64"]}
@@ -1372,15 +1529,12 @@ def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
         check(max_abs <= tol * float(yp.abs().max()),
               f"{name}: kernel vs plain max abs err {max_abs:.3e}")
         del yk, yp
-        extra, tag, general = {}, "", ""
-        if kern is pp.polyphase:
-            ms, general_ms = _time_variants(torch, pp, args)
-            extra = dict(general_ms=general_ms,
-                         variant=_plan_of(pp, args).variant)
-            tag = f" ({extra['variant']})"
-            general = f", general variant {general_ms:.4f} ms"
-        else:
-            ms = _time_ms(torch, lambda: kern(*args), iters=20)
+        ms, general_ms = _time_variants(torch, kern, args)
+        variant = (_plan_of(pp, args) if kern is pp.polyphase
+                   else _resample_plan(rs, args, False)).variant
+        extra = dict(general_ms=general_ms, variant=variant)
+        tag = f" ({variant})"
+        general = f", general variant {general_ms:.4f} ms"
         plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
         library_ms = None if lib is None else _time_ms(torch, lib, iters=5)
         out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -1444,7 +1598,8 @@ def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
               f"{entry}: conv1d disagrees")
         max_abs = float((yk.double() - yp.double()).abs().max())
         del yk, yp, y_lib
-        ms, general_ms = _time_variants(torch, pp, args, store)
+        ms, general_ms = _time_variants(torch, pp.polyphase, args,
+                                        out_dtype=store)
         plain_ms = _time_ms(torch, lambda: pp.polyphase_plain(
             *args, out_dtype=store), iters=2)
         library_ms = _time_ms(torch, lib, iters=5)
@@ -1458,6 +1613,28 @@ def phase_wide_times(mt, torch, xc, x64, pp, rs, card):
             f"({bound[1]}), max abs err {max_abs:.3e}")
     print(f"[5d wide times] {'; '.join(notes)}; card: {card}")
     return out
+
+
+def _expand_row(probe, odt):
+    """The kernels line's name of the expand probe with ``odt`` stores:
+    ``probe_expand`` (float32), ``probe_expand_bf16``, ..."""
+    name = probe.EXPAND[odt]
+    return "probe_expand" if name == "expand_f32" else f"probe_{name}"
+
+
+def _expand_library(torch, xe, ratio, odt):
+    """One PyTorch call computing ``probe.expand(xe, ratio, odt)``, or None:
+    ``cat`` for float32 stores; for bf16 and f16 one casting copy of the
+    rows broadcast ratio times (round to nearest even, as the kernel), whose
+    (R, ratio, W) result is (R, ratio*W) without a copy. int8 stores scale
+    and clamp first, which takes more calls."""
+    R, W = xe.shape
+    if odt == torch.float32:
+        return lambda: torch.cat([xe] * ratio, 1)
+    if odt in (torch.bfloat16, torch.float16):
+        return lambda: (xe[:, None, :].expand(-1, ratio, -1).to(odt)
+                        .view(R, ratio * W))
+    return None
 
 
 def _probe_source(torch, rng, n, dtype):
@@ -1511,9 +1688,10 @@ def phase_probe_vs_plain(torch, dev, probe):
     print(f"[3e probes vs plain] {n_copy} copies (float32, bfloat16, int8, "
           f"complex128; {len(PROBE_COPY_LENGTHS)} lengths from 0 to "
           f"{max(PROBE_COPY_LENGTHS)}; source offsets {PROBE_OFFSETS}) and "
-          f"{n_expand} expands (ratios {PROBE_RATIOS}; float32, bfloat16, "
-          f"float16 and int8 stores) equal to their plain versions bit for "
-          f"bit")
+          f"{n_expand} expands (rows of "
+          f"{sorted({w for _, w in PROBE_EXPAND_SHAPES})} floats; ratios "
+          f"{PROBE_RATIOS}; float32, bfloat16, float16 and int8 stores) "
+          f"equal to their plain versions bit for bit")
 
 
 def _stream(s, x_np, rng, stop=None):
@@ -1565,8 +1743,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "stream.ckpt.npz")
         _reset_counts(pp)
-        for k in rs.launches:
-            rs.launches[k] = 0
+        _reset_counts(rs)
         s_d, y_d, sec_d = uninterrupted(d, 7, True)
         s_r, y_r, sec_r = uninterrupted(r, 8, False)
         # the kill: a checkpoint every 16 blocks, the stream lost at 60%
@@ -1586,6 +1763,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
         torch.cuda.synchronize()
         launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
         by_variant = _by_variant(pp)
+        rs_variant = _by_variant(rs)
 
     blocks = (s_d.stats()["blocks"], s_r.stats()["blocks"],
               blocks_k + s_k2.stats()["blocks"])
@@ -1597,6 +1775,8 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
     check(launches == want, f"launches {launches}, want {want}")
     check(by_variant == {"f32/reg": want[0]["f32"]},
           f"variants launched {by_variant}, want the register variant")
+    check(rs_variant == {"f32/t73p2": want[1]["f32"]},
+          f"resample variants launched {rs_variant}, want f32/t73p2")
 
     for label, model, y, s, sec, spec in (
             ("DATToCD 147//160", d, y_d, s_d, sec_d, (ratio,)),
@@ -1611,6 +1791,9 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
         else:
             blk = (rs.resample, (x[:bs].view(1, -1), hist, p, 0, 1, n_b))
         blk_ms = _time_ms(torch, lambda: blk[0](*blk[1]), iters=20)
+        # the general variant in turn (the same call with it forced)
+        gen_ms = _time_ms(torch, lambda: blk[0](*blk[1], variant="general"),
+                          iters=20)
         busy = s.stats()["blocks"] * blk_ms / (sec * 1e3)
         whole = mt.filt(model.taps, x, *spec).cpu().numpy()
         check(y.dtype == np.float32 and y.shape == whole.shape
@@ -1631,7 +1814,8 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
             f"{N_HEAD / sec / 1e6:.1f} Msps in end to end ({sec:.4f} s "
             f"from the first push to the end of flush"
             f"{', push loop under sync debug mode error' if s is s_d else ''}"
-            f"); one block's kernel {blk_ms * 1e3:.2f} us against "
+            f"); one block's kernel {blk_ms * 1e3:.2f} us (general variant "
+            f"{gen_ms * 1e3:.2f} us) against "
             f"{sec * 1e3 / (st['blocks'] + 1):.3f} ms of the stream's wall "
             f"time a block: the kernels fill {busy:.2%} of it")
 
@@ -1644,9 +1828,8 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
     notes.append(f"kill at {int(0.6 * N_HEAD)} samples, resumed from "
                  f"{consumed} (output {at}): prefix and tail equal to the "
                  f"uninterrupted stream bit for bit")
-    notes.append(f"launches polyphase {by_variant}, resample "
-                 f"f32 {launches[1]['f32']} (blocks {blocks} plus a flush "
-                 f"each)")
+    notes.append(f"launches polyphase {by_variant}, resample {rs_variant} "
+                 f"(blocks {blocks} plus a flush each)")
 
     # check_block on the card: the four rational-family types, arbitrary
     # and Farrow
@@ -1735,6 +1918,12 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
     def cold(fn):
         return _time_ms(torch, fn, iters=1, before=flush.zero_)
 
+    def cold_clean(fn):
+        # evicted by a 256 MB read: the L2 holds no dirty lines, so the
+        # launch writes back none of the eviction's (a diagnostic beside
+        # the ceilings, which evict by a write)
+        return _time_ms(torch, fn, iters=1, before=flush.sum)
+
     def max_abs_err(kern, plain, *args):
         yk, yp = kern(*args), plain(*args)
         err = float((yk.double() - yp.double()).abs().max())
@@ -1755,8 +1944,10 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
         nbytes = (4 + ratio * torch.empty((), dtype=odt).element_size()) \
             * xe.numel()
         bound = _bound(nbytes, 0, "f32")
-        lib = ((lambda: torch.cat([xe] * ratio, 1)) if odt == torch.float32
-               else None)
+        lib = _expand_library(torch, xe, ratio, odt)
+        if lib is not None:
+            check(torch.equal(lib(), probe.expand_plain(xe, ratio, odt)),
+                  f"the library expand with {odt} stores differs from plain")
         row = dict(
             max_abs_err=max_abs_err(probe.expand, probe.expand_plain, xe,
                                     ratio, odt),
@@ -1764,11 +1955,12 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
             plain_ms=cold(lambda: probe.expand_plain(xe, ratio, odt)),
             bound_ms=bound[0], bound_by=bound[1],
             library_ms=None if lib is None else cold(lib))
-        if odt == torch.float32:
-            out["probe_expand"] = row
+        out[_expand_row(probe, odt)] = row
         lib_ms = row["library_ms"]
+        clean_ms = cold_clean(lambda: probe.expand(xe, ratio, odt))
         exp_notes.append(
-            f"{odt} store {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"{odt} store {row['ms']:.4f} ms ({clean_ms:.4f} ms after a "
+            f"read eviction), plain {row['plain_ms']:.4f} "
             f"ms, library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             f", bound {bound[0]:.4f} ms".replace("torch.", ""))
     c = out["probe_copy"]
@@ -1776,8 +1968,9 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
         f"one launch after an L2 eviction: copy of 32 M float32 "
         f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, copy_ "
         f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms (bytes); "
-        f"expand 1:4 of 8 M float32: {'; '.join(exp_notes)} (cat: one call "
-        f"for the float32 store; a cast store takes two, so none)")
+        f"expand 1:4 of 8 M float32: {'; '.join(exp_notes)} (library: cat "
+        f"for the float32 store, one casting copy of the broadcast rows for "
+        f"bf16 and f16; int8's scale and clamp take more calls, so none)")
     del flush, xs
 
     # measure_chained on the 8 M headline block
@@ -1806,17 +1999,16 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
         check(max_abs <= tol * float(yp.abs().max()),
               f"{name}: kernel vs plain max abs err {max_abs:.3e}")
         del yk, yp
-        tag, general = "", ""
-        if kern is pp.polyphase:
-            ms, general_ms = _time_variants(torch, pp, args)
-            tag = f" ({_plan_of(pp, args).variant})"
-            general = f", general variant {general_ms:.4f} ms"
-        else:
-            ms = _time_ms(torch, lambda: kern(*args), iters=20)
+        ms, general_ms = _time_variants(torch, kern, args)
+        variant = (_plan_of(pp, args) if kern is pp.polyphase
+                   else _resample_plan(rs, args, False)).variant
+        tag = f" ({variant})"
+        general = f", general variant {general_ms:.4f} ms"
         plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
         out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=None)
+                         library_ms=None, general_ms=general_ms,
+                         variant=variant)
         wide_notes.append(f"{name} kernel{tag} {ms:.4f} ms{general}, plain "
                           f"{plain_ms:.4f} ms, library none, bound "
                           f"{bound[0]:.4f} ms ({bound[1]}), max abs err "
@@ -1867,7 +2059,7 @@ def main() -> int:
         torch.cuda.set_device(dev)
         phase_build()
         phase_kernel_vs_plain(mt, torch, dev, pp)
-        phase_resample_vs_plain(mt, torch, dev)
+        phase_resample_vs_plain(mt, torch, dev, rs)
         phase_quant_vs_plain(mt, torch, dev, pp)
         phase_wide_vs_plain(mt, torch, dev, pp, rs)
         phase_probe_vs_plain(torch, dev, probe)
@@ -1915,6 +2107,8 @@ def main() -> int:
         "bound_ms": rows["arbitrary_refrate"][3][0],
         "bound_by": rows["arbitrary_refrate"][3][1],
         "library_ms": None,
+        "general_ms": rows["arbitrary_refrate"][4],
+        "variant": rows["arbitrary_refrate"][5],
     }, {
         "name": "resample_tm_f32",
         "route": "cuda",
@@ -1928,6 +2122,8 @@ def main() -> int:
         "bound_ms": rows["farrow_64ch_tmajor"][3][0],
         "bound_by": rows["farrow_64ch_tmajor"][3][1],
         "library_ms": None,
+        "general_ms": rows["farrow_64ch_tmajor"][4],
+        "variant": rows["farrow_64ch_tmajor"][5],
     }]
     for entry, row, replaces in (
             ("bf16", "rational_147_160_bf16",
@@ -1952,13 +2148,13 @@ def main() -> int:
                         "source": f"multirate_tpu_torch/csrc/{source}.cu",
                         "replaces": replaces, "launches": w_launches[name],
                         **w_rows[row]})
-    # the probes: launches by utils.metrics' ceiling calls of phase 5e
-    # (the expand launches over its four store types), times at 32 M
-    # float32 (copy) and 8 M float32 in with float32 stores at 1:4 (expand)
+    # the probes: launches by utils.metrics' ceiling calls of phase 5e,
+    # times at 32 M float32 (copy) and 8 M float32 in at 1:4 (expand, one
+    # row for each store type)
     for name, line, launched in (
             ("probe_copy", 294, p_launches["copy"]),
-            ("probe_expand", 355, sum(v for k, v in p_launches.items()
-                                      if k != "copy"))):
+            *((_expand_row(probe, odt), 355, p_launches[entry])
+              for odt, entry in probe.EXPAND.items())):
         kernels.append({"name": name, "route": "cuda",
                         "source": "multirate_tpu_torch/csrc/probe.cu",
                         "replaces": f"multirate_tpu/utils/metrics.py:{line}",

@@ -37,10 +37,21 @@
 //   its address allows (16, 8, 4, 2 or 1 bytes) and the pieces assembled
 //   into one 16-byte store. A partial last chunk is masked and the last
 //   nbytes % 16 bytes are copied one per thread.
-// - expand: a grid-stride loop of 256 threads; each thread reads 4
-//   consecutive floats as one 16-byte load and stores them, cast, ratio
-//   times: 16-byte stores for float32, 8 for the 16-bit types, 4 for int8
-//   (W % 4 == 0 keeps every store aligned).
+// - expand: the copy's shape, one block of 256 threads for each chunk of
+//   output words, both of a thread's words loaded before any store, and
+//   every store 16 bytes wide. A 16-byte word of the store type holds V
+//   outputs (4 float32, 8 bfloat16 or float16, 16 int8), so a thread packs
+//   V floats, read as V/4 16-byte loads, into one word and stores it ratio
+//   times. When W % V == 0 (the ceilings' rows of 128) each word is V
+//   consecutive floats of one row, stored at the same column of each of
+//   its ratio copies. Otherwise a copy's start is not 16-byte aligned in
+//   y, so each thread takes one 16-byte word of y itself and gathers its
+//   V/4 groups of 4 (W % 4 == 0 keeps a group inside one copy of one row);
+//   only the last word of y, when y's size is not a multiple of 16 bytes,
+//   is stored 4 outputs at a time. Indices are 64-bit, as in the copy.
+//   (The first design, a grid-stride loop of 2,112 blocks with one load in
+//   flight a thread and 8- or 4-byte narrow stores, reached 67-76% of 3.35
+//   TB/s; PERF.md.)
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -50,14 +61,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks of 256 on each SM
 constexpr int kCopyUnroll = 2;  // 16-byte words a thread
 constexpr int kErrBadArg = -1;
-
-int64_t blocks_for(int64_t work) {
-  const int64_t b = (work + kThreads - 1) / kThreads;
-  return b < 1 ? 1 : (b < kMaxBlocks ? b : kMaxBlocks);
-}
 
 // 16 bytes of src at word i, read in words of the source's alignment.
 template <typename Word>
@@ -107,7 +112,8 @@ int launch_copy(const void* src, void* dst, int64_t nbytes, void* stream) {
   return cudaGetLastError();
 }
 
-// Four float32 values cast to Out, packed into one store.
+// Four float32 values cast to Out, packed into one store (4*sizeof(Out)
+// bytes).
 template <typename Out> struct Pack;
 template <> struct Pack<float> {
   using T = float4;
@@ -142,34 +148,104 @@ template <> struct Pack<int8_t> {
   }
 };
 
+// G = 16 / (4 * sizeof(Out)) groups of 4 floats cast and packed into one
+// 16-byte word.
+template <typename Out>
+__device__ __forceinline__ uint4 pack16(const float4* v) {
+  constexpr int G = 4 / sizeof(Out);
+  union {
+    uint4 w;
+    typename Pack<Out>::T p[G];
+  } u;
+#pragma unroll
+  for (int g = 0; g < G; ++g) u.p[g] = Pack<Out>::make(v[g]);
+  return u.w;
+}
+
+constexpr int kExpandUnroll = 2;  // 16-byte output words a thread
+
+// W % V == 0: word i of x's rows, in Out, is row r = i / wpr, column word
+// c = i % wpr (wpr = W / V words a row); it is stored at column word c of
+// each of row r's ratio copies.
 template <typename Out>
 __global__ void __launch_bounds__(kThreads)
-expand_kernel(const float4* __restrict__ x, Out* __restrict__ y,
-              int64_t rows, int width, int ratio) {
-  using P = Pack<Out>;
-  const int w4 = width / 4;
-  const int64_t n4 = rows * w4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
-    const int64_t r = i / w4;
-    const int c = (int)(i - r * w4);
-    const typename P::T v = P::make(x[i]);
-    Out* yr = y + r * ratio * (int64_t)width + 4 * c;
-    for (int k = 0; k < ratio; ++k)
-      *reinterpret_cast<typename P::T*>(yr + (int64_t)k * width) = v;
+expand_rows(const float4* __restrict__ x, uint4* __restrict__ y,
+            int64_t n_words, int64_t wpr, int ratio) {
+  constexpr int G = 4 / sizeof(Out);
+  const int64_t i0 =
+      (int64_t)blockIdx.x * (kExpandUnroll * kThreads) + threadIdx.x;
+  float4 v[kExpandUnroll][G];
+#pragma unroll
+  for (int u = 0; u < kExpandUnroll; ++u) {
+    const int64_t i = i0 + (int64_t)u * kThreads;
+    if (i < n_words) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) v[u][g] = x[i * G + g];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kExpandUnroll; ++u) {
+    const int64_t i = i0 + (int64_t)u * kThreads;
+    if (i < n_words) {
+      const uint4 w = pack16<Out>(v[u]);
+      const int64_t r = i / wpr;
+      uint4* yr = y + r * ratio * wpr + (i - r * wpr);
+      for (int k = 0; k < ratio; ++k) yr[k * wpr] = w;
+    }
+  }
+}
+
+// Any W % 4 == 0: thread i stores word i of y, gathering each group of 4
+// outputs from its row and column of x; a last partial word goes out 4
+// outputs at a time.
+template <typename Out>
+__global__ void __launch_bounds__(kThreads)
+expand_words(const float4* __restrict__ x, Out* __restrict__ y,
+             int64_t n_out, int64_t width, int ratio) {
+  constexpr int G = 4 / sizeof(Out);
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t e0 = i * (4 * G);  // first output of the word
+  if (e0 >= n_out) return;
+  float4 v[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int64_t e = e0 + 4 * g;
+    if (e < n_out) {
+      const int64_t seg = e / width;  // copy seg % ratio of row seg / ratio
+      v[g] = x[((seg / ratio) * width + (e - seg * width)) / 4];
+    }
+  }
+  if (e0 + 4 * G <= n_out) {
+    *reinterpret_cast<uint4*>(y + e0) = pack16<Out>(v);
+  } else {
+    for (int g = 0; e0 + 4 * g < n_out; ++g)
+      *reinterpret_cast<typename Pack<Out>::T*>(y + e0 + 4 * g) =
+          Pack<Out>::make(v[g]);
   }
 }
 
 template <typename Out>
 int launch_expand(const void* x, void* y, int64_t rows, int width, int ratio,
                   void* stream) {
-  if (rows < 0 || width <= 0 || width % 4 != 0 || ratio <= 0)
+  if (rows < 0 || width <= 0 || width % 4 != 0 || ratio <= 0 ||
+      ((uintptr_t)x & 15) || ((uintptr_t)y & 15))
     return kErrBadArg;
   if (rows == 0) return cudaSuccess;
-  expand_kernel<Out><<<(unsigned)blocks_for(rows * (width / 4)), kThreads, 0,
-                       (cudaStream_t)stream>>>((const float4*)x, (Out*)y,
-                                               rows, width, ratio);
+  constexpr int V = 16 / sizeof(Out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (width % V == 0) {
+    const int64_t n_words = rows * (width / V);
+    const int64_t per_block = (int64_t)kExpandUnroll * kThreads;
+    expand_rows<Out><<<(unsigned)((n_words + per_block - 1) / per_block),
+                       kThreads, 0, s>>>((const float4*)x, (uint4*)y,
+                                         n_words, width / V, ratio);
+  } else {
+    const int64_t n_out = rows * ratio * (int64_t)width;
+    const int64_t words = (n_out + V - 1) / V;
+    expand_words<Out><<<(unsigned)((words + kThreads - 1) / kThreads),
+                        kThreads, 0, s>>>((const float4*)x, (Out*)y, n_out,
+                                          width, ratio);
+  }
   return cudaGetLastError();
 }
 

@@ -44,9 +44,9 @@
 // - a tile's base (u0 + n0*delta) / D is formed in 128 bits (__umul64hi):
 //   n*delta passes 2^63 near n = 2^19.3 at nphi 1024, rate 0.3. The host
 //   keeps u0 + n_out*delta below 2^96, so its top 64 bits divide by nphi;
-// - inside a tile, r0 + j*delta < 2^44 + 2^10 * 2^44 fits 64 bits, and its
-//   top 32 bits (< 2^23) give the window offset and phase by a 32-bit
-//   division by nphi;
+// - inside a tile, the walk below gives each output's (offset from the
+//   tile's first window, phase, 32-bit fraction) of r0 + j*delta exactly,
+//   by digit additions with carries; the offsets stay below the span;
 // - alpha is the 32-bit remainder converted once and scaled by 2^-32
 //   exactly: in float (__uint2float_rn, round to nearest) for float32
 //   tables, and exactly in double for float64 and complex128 ones, where
@@ -54,26 +54,63 @@
 //   each output depends only on (r_n, its window), never on its tile:
 //   chunked == whole bit for bit in every type.
 //
-// Design (correct and simple first):
-// - grid.x walks tiles of outputs, grid.y channels (channel-major: one
-//   channel per block, one thread per output) or groups of 32 channels
-//   (time-major: a lane per channel, a warp per output, so the 32 lanes
-//   share one output's taps and read x rows and write y rows coalesced);
-//   blocks loop over tiles and channels (grid-stride);
-// - the table (2*T*nphi words for arbitrary, 2.5 KB in float at the bench's
-//   taps) sits in shared memory when it fits in 96 KB, else is read through
-//   L1; the span follows it at a 16-byte boundary;
-// - each tile's input span (about tile*delta/D + T samples, times the
-//   group's channels) is loaded cooperatively into shared memory, reading
-//   the history or x by index: [history ++ x] is never built in device
-//   memory. The host halves the tile until the span fits; when one
-//   output's window cannot fit it returns an error and nothing runs.
+// Design. What held the first design back, on the H100 (PERF.md): loops
+// to run-time bounds over T and P+1, a 32-bit division by nphi for every
+// output and a 64-bit one for every thread's tile base, tiles of 1,024
+// outputs (31 blocks for a 65,536-sample block at 1/2.123456789), a span
+// loaded synchronously between two barriers, and taps evaluated again for
+// every channel. So:
+// - Variants, chosen by the host (ops/cuda/resample.py plan()), never
+//   after a failure: one compiled for each (T, P+1) pair in use (10 and 2
+//   or 5 for bench.py's bank, 73 and 2 for models.Resampler's design),
+//   with both loops unrolled, and "general", the same code with run-time
+//   loops. The launcher takes the plan as given and refuses one it cannot
+//   run (kErrBadPlan). Every variant does the same arithmetic in the same
+//   order, so the plan never changes an output bit.
+// - A division-free index walk. One thread forms each tile's base in 128
+//   bits (a shift where nphi is a power of two) and shares it. Each thread
+//   splits its first output's step (its first output's index times delta),
+//   the step to its next output (delta) and the step to its next round of
+//   outputs into digits once a launch (quotient by D, phase, 32-bit
+//   fraction) and walks its outputs by adding digits with carries: exactly
+//   the (offset, phase, fraction) of the division.
+// - Taps evaluated once for each output and applied to every channel of
+//   the block: channel-major blocks take groups of 8 channels when there
+//   are 8 or more (8 accumulators a thread, one tap evaluation); time-major
+//   blocks (a lane per channel, 32 channels) evaluate a tile's taps once
+//   into shared memory, then each warp reads them as broadcasts.
+// - Runs (one-channel blocks). Shared memory, not device memory, bounds
+//   the dot: T*(P+1) table words and T window words an output. Lanes on
+//   neighbouring outputs (about 2.1 samples apart at 1/2.123456789) load
+//   window words 32 apart, which share a bank: 2.8-way conflicts. So each
+//   thread runs ``run`` neighbouring outputs and a warp's lanes sit ``run``
+//   outputs apart: at run 8 their windows 17 samples apart hit 32 banks,
+//   and their phases (3.96 apart an output, -0.3 at 8) cluster, so 8- and
+//   16-byte table words need fewer wavefronts. The host picks the least
+//   run whose lanes' windows lie within 1/32 sample of an odd number of
+//   samples apart, else 1 (plan(); tools/resample_runs.py times every
+//   run on the card, PERF.md); a warp gathers its outputs in shared
+//   memory and stores them coalesced.
+// - Tiles sized by the host so the grid fills the card (2 x 132 work items
+//   where there are outputs enough) and a block's shared memory stays near
+//   64 KB; blocks persist, at most as many as the card holds at once, and
+//   walk work items (channel group, tile). Each item's span (about
+//   tile*delta/D + T samples a channel) is staged with cp.async into a
+//   double buffer, so item i + 1 loads while item i computes: 16-byte
+//   chunks where the span lies in x and the rows are 16-byte aligned,
+//   single samples from the history (by index: [history ++ x] is never
+//   built in device memory). The table is copied the same way once a block
+//   and sits in shared memory when it fits in 96 KB (the compiled variants
+//   require it); else the general variant reads it through L1.
+// Tried on the H100 and slower (PERF.md): a grid of one block a tile,
+// tiles of 256 and 128 outputs, 256 threads a block, the table read
+// through L1, nphi fixed at compile time, a channel a lane for
+// channel-major groups of 32, and 4 outputs a warp sharing window rows.
 //
 // Bound: device memory moves sizeof(X) bytes per input and per output; per
-// output the kernel reads T window words and T*(P+1) table words from
-// shared memory and issues T*(P+1) multiply-adds in W (and T in X) plus
-// the index math (one 64-bit multiply, one 32-bit division). Measured
-// times live in PERF.md.
+// output and channel the kernel reads T window words from shared memory
+// and issues T multiply-adds in X, and per output (not per channel) T*(P+1)
+// table words and Horner steps. Measured times live in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,16 +121,22 @@ namespace {
 
 using mr::mac;
 
-constexpr int kThreads = 256;
-constexpr int kLanes = 32;          // channels per block, time-major
-constexpr int kMaxTileCM = 1024;    // outputs per tile, channel-major
-constexpr int kMaxTileTM = 256;     // outputs per tile, time-major
-constexpr int64_t kMaxGridX = 1024;
-constexpr int64_t kMaxGridY = 65535;
-constexpr size_t kSmemLimit = 227 * 1024;
+constexpr int kThreadsCM = 128;   // channel-major: threads a block, at most
+constexpr int kThreadsTM = 256;   // time-major
+constexpr int kLanes = 32;        // time-major: channels a block
+constexpr int kGroupCM = 8;       // channel-major: channels a block, C >= 8
+constexpr int kMaxTileCM = 1024;  // outputs a tile, at most
+constexpr int kMaxTileTM = 256;
+constexpr int64_t kMaxGridX = 65535;
+constexpr size_t kSmemLimit = 226 * 1024;  // dynamic, beside the static
 constexpr size_t kTableSmemLimit = 96 * 1024;
 constexpr int kErrTooLarge = -1;
+constexpr int kErrBadPlan = -2;
 constexpr float kTwoPowMinus32 = 2.3283064365386963e-10f;  // exactly 2^-32
+
+// Variants by the number the entry points take (ops/cuda/resample.py
+// VARIANTS), and the (T, P+1) each compiled one is built for.
+enum Variant { kGeneral = 0, kT10P2 = 1, kT10P5 = 2, kT73P2 = 3 };
 
 // (q, r) = divmod(u0 + n0*delta, nphi << 32), exact for a sum below 2^96.
 __device__ __forceinline__ void tile_base(uint64_t n0, uint64_t delta,
@@ -104,7 +147,8 @@ __device__ __forceinline__ void tile_base(uint64_t n0, uint64_t delta,
   const uint64_t sum = lo + u0;
   hi += sum < lo;                                // carry
   const uint64_t top = (hi << 32) | (sum >> 32); // the sum >> 32
-  *q = top / nphi;
+  const int shift = __ffs(nphi) - 1;  // a shift where nphi is a power of 2
+  *q = (nphi & (nphi - 1)) == 0 ? top >> shift : top / nphi;
   *r = ((top - *q * nphi) << 32) | (sum & 0xffffffffull);
 }
 
@@ -117,23 +161,38 @@ __device__ __forceinline__ void to_alpha(uint32_t r, double* a) {
   *a = (double)r * 0x1p-32;
 }
 
-template <typename A>
-struct Pos {
-  uint32_t off;  // window start, relative to the tile's first window
-  uint32_t phi;  // phase column
-  A alpha;       // interpolation factor in [0, 1)
+// A step v < 2^52 in digits: v = q*D + phi*2^32 + fr, D = nphi << 32.
+struct Digits {
+  uint32_t q, phi, fr;
 };
 
-// Output j of a tile whose first output has remainder r0 < D.
-template <typename A>
-__device__ __forceinline__ Pos<A> position(uint64_t r0, uint64_t delta,
-                                           uint32_t nphi, uint32_t j) {
-  const uint64_t v = r0 + (uint64_t)j * delta;
-  const uint32_t hi = (uint32_t)(v >> 32);
-  Pos<A> p;
-  p.off = hi / nphi;
-  p.phi = hi - p.off * nphi;
-  to_alpha((uint32_t)v, &p.alpha);
+// One output's window offset (from its tile's first window), phase and
+// 32-bit fraction.
+struct Pos {
+  uint32_t off, phi, fr;
+};
+
+// shift = log2(nphi) when nphi is a power of two, else -1.
+__device__ __forceinline__ Digits split(uint64_t v, uint32_t nphi,
+                                        int shift) {
+  const uint32_t hi = (uint32_t)(v >> 32);  // < 2^20
+  Digits d;
+  d.q = shift >= 0 ? hi >> shift : hi / nphi;
+  d.phi = hi - d.q * nphi;
+  d.fr = (uint32_t)v;
+  return d;
+}
+
+// a + d with carries: the fraction carries into the phase, the phase
+// into the offset. Exact while the offset fits 32 bits (it stays inside a
+// tile's span).
+__device__ __forceinline__ Pos add(Pos a, Digits d, uint32_t nphi) {
+  Pos p;
+  p.fr = a.fr + d.fr;
+  const uint32_t phi = a.phi + d.phi + (p.fr < a.fr);
+  const bool wrap = phi >= nphi;
+  p.phi = wrap ? phi - nphi : phi;
+  p.off = a.off + d.q + wrap;
   return p;
 }
 
@@ -151,125 +210,440 @@ __device__ __forceinline__ double2 horner(double2 v, double a, double2 c) {
   return make_double2(fma(v.x, a, c.x), fma(v.y, a, c.y));
 }
 
-// sum_p c[p * stride] * alpha^p, by Horner from the top coefficient.
-template <typename W, typename A>
+// sum_p c[p * stride] * alpha^p, by Horner from the top coefficient; P1 is
+// kP1 when the variant is compiled for it.
+template <int kP1, typename W, typename A>
 __device__ __forceinline__ W eval_tap(const W* c, int P1, int stride,
                                       A alpha) {
-  W v = c[(P1 - 1) * stride];
-  for (int p = P1 - 2; p >= 0; --p) v = horner(v, alpha, c[p * stride]);
-  return v;
-}
-
-// Bytes of a table in shared memory, rounded up so the span after it is
-// 16-byte aligned (a complex128 span word is a 16-byte load).
-__host__ __device__ __forceinline__ size_t table_bytes(int P1, int T,
-                                                       int nphi,
-                                                       size_t elem) {
-  return ((size_t)P1 * T * nphi * elem + 15) & ~(size_t)15;
-}
-
-template <typename X, typename W, bool kTimeMajor, bool kTableInSmem>
-__global__ void __launch_bounds__(kThreads)
-resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
-                const W* __restrict__ table, X* __restrict__ y,
-                int64_t C, int64_t xlen, int T, int nphi, int P1,
-                uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
-                int tile, int64_t n_tiles) {
-  using A = typename mr::Real<W>::type;
-  constexpr int kCB = kTimeMajor ? kLanes : 1;  // channels per block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int TN = T * nphi;  // stride between the table's coefficients
-  W* s_table = reinterpret_cast<W*>(smem_raw);
-  X* s_x = reinterpret_cast<X*>(
-      smem_raw + (kTableInSmem ? table_bytes(P1, T, nphi, sizeof(W)) : 0));
-  const W* tb = table;
-  if (kTableInSmem) {
-    for (int i = threadIdx.x; i < P1 * TN; i += blockDim.x)
-      s_table[i] = table[i];
-    tb = s_table;  // published by the __syncthreads below, before any use
+  if constexpr (kP1 > 0) {
+    W v = c[(kP1 - 1) * stride];
+#pragma unroll
+    for (int p = kP1 - 2; p >= 0; --p) v = horner(v, alpha, c[p * stride]);
+    return v;
+  } else {
+    W v = c[(P1 - 1) * stride];
+    for (int p = P1 - 2; p >= 0; --p) v = horner(v, alpha, c[p * stride]);
+    return v;
   }
-  const int H = T - 1;
-  // this thread's channel in the group, first output and output stride
-  const int tid = (int)threadIdx.x, nthreads = (int)blockDim.x;
-  const int slot = kTimeMajor ? tid % kLanes : 0;
-  const int j_first = kTimeMajor ? tid / kLanes : tid;
-  const int j_step = kTimeMajor ? nthreads / kLanes : nthreads;
+}
 
-  for (int64_t g = blockIdx.y; g * kCB < C; g += gridDim.y) {
-    const int64_t c = g * kCB + slot;
-    for (int64_t ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
-      const int64_t n0 = ti * tile;
-      uint64_t q0, r0;
-      tile_base((uint64_t)n0, delta, u0, (uint32_t)nphi, &q0, &r0);
-      const int64_t e0 = d0 - 1 + (int64_t)q0;  // xext index, first window
-      const int nt = (int)(n_out - n0 < tile ? n_out - n0 : tile);
-      const int span = (int)position<A>(r0, delta, (uint32_t)nphi,
-                                        (uint32_t)(nt - 1)).off + T;
+__host__ __device__ __forceinline__ size_t round16(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
+}
 
-      __syncthreads();  // the previous tile is done reading s_x
-      for (int i = threadIdx.x; i < span * kCB; i += blockDim.x) {
-        const int64_t cc = g * kCB + i % kCB;
-        const int64_t e = e0 + i / kCB;
-        X v = mr::zero<X>();
-        if (cc < C) {
-          v = e < H ? hist[cc * H + e]
-                    : x[kTimeMajor ? (e - H) * C + cc : cc * xlen + (e - H)];
+// Input samples a tile of ``tile`` outputs reads, at most (any first
+// remainder below D): the last window's offset from the first, plus T.
+__host__ __device__ __forceinline__ int64_t span_of(int tile, int T,
+                                                    uint32_t nphi,
+                                                    uint64_t delta) {
+  const uint64_t D = (uint64_t)nphi << 32;
+  return (int64_t)((D - 1 + (uint64_t)(tile - 1) * delta) / D) + T;
+}
+
+// Samples a staged channel-major row holds: the span, and room for its
+// first sample to sit up to 15 bytes past a 16-byte boundary, rounded to
+// whole 16-byte chunks.
+__host__ __device__ __forceinline__ int row_samples(int span, size_t xsz) {
+  const int v = 16 / (int)xsz;
+  return (span + v - 1 + v - 1) / v * v;
+}
+
+// Threads of a block: time-major kThreadsTM; channel-major enough for a
+// tile in runs of ``run`` outputs, in whole warps, at most kThreadsCM.
+__host__ __device__ __forceinline__ int block_threads(int tile, int run,
+                                                      bool time_major) {
+  if (time_major) return kThreadsTM;
+  const int need = (tile + run - 1) / run;
+  return need < kThreadsCM ? (need + 31) / 32 * 32 : kThreadsCM;
+}
+
+// Shared bytes of one block: the table (when staged), a double buffer of
+// the spans of cb channels (time-major: span rows of kLanes samples),
+// time-major a tile's taps and offsets, and channel-major runs (run > 1)
+// a warp's 32 runs of outputs, gathered for coalesced stores.
+size_t smem_bytes(int tile, int cb, int run, int T, int P1, uint32_t nphi,
+                  uint64_t delta, size_t xsz, size_t wsz, bool table_smem,
+                  bool time_major) {
+  size_t b = table_smem ? round16((size_t)P1 * T * nphi * wsz) : 0;
+  const int span = (int)span_of(tile, T, nphi, delta);
+  b += 2 * round16((size_t)(time_major ? span : row_samples(span, xsz)) *
+                   cb * xsz);
+  if (time_major) b += round16((size_t)tile * T * wsz) + round16(tile * 4);
+  if (run > 1)
+    b += round16((size_t)block_threads(tile, run, time_major) * (run + 1) *
+                 xsz);
+  return b;
+}
+
+// N bytes copied asynchronously, the first ``bytes`` of them from gmem and
+// the rest zeros (N = 16 bypasses L1).
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(gmem), "n"(N), "r"(bytes));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
+}
+
+// Stage xext[e0, e0 + span) of channels g*kCB ... into buf. Channel-major:
+// kCB rows of rs samples; channel k's span starts at lead[k] in its row.
+// Time-major: span rows of kLanes samples (lead 0). Where the samples lie
+// in x and its rows are 16-byte aligned, 16-byte chunks are copied from the
+// boundary at or below the first sample (bytes past x's end as zeros);
+// elsewhere (the history, unaligned rows) one sample a copy. Channels past
+// C and samples past xext's end are zeros.
+template <typename X, bool kTM, int kCB>
+__device__ __forceinline__ void stage(X* buf, int rs, int* lead, const X* x,
+                                      const X* hist, int64_t C, int64_t xlen,
+                                      int H, int64_t g, int64_t e0,
+                                      int span) {
+  constexpr int sz = sizeof(X), V = 16 / sizeof(X);
+  const int64_t end = H + xlen;
+  if constexpr (kTM) {
+    lead[0] = 0;
+    if (V > 1 && C % V == 0 && ((uintptr_t)x & 15) == 0) {
+      constexpr int kChunks = kLanes / (V > 1 ? V : 1);  // chunks a row
+      for (int i = threadIdx.x; i < span * kChunks; i += blockDim.x) {
+        const int k = i / kChunks, q = i % kChunks;
+        const int64_t cc = g * kLanes + q * V, e = e0 + k;
+        X* dst = buf + k * kLanes + q * V;
+        if (e < H) {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            cp_async<sz>(dst + v, cc + v < C ? hist + (cc + v) * H + e : x,
+                         cc + v < C ? sz : 0);
+        } else {
+          const bool ok = cc < C && e < end;
+          cp_async<16>(dst, ok ? x + (e - H) * C + cc : x, ok ? 16 : 0);
         }
-        s_x[i] = v;
       }
-      __syncthreads();
-
-      if (c < C) {
-        for (int j = j_first; j < nt; j += j_step) {
-          const Pos<A> p = position<A>(r0, delta, (uint32_t)nphi,
-                                       (uint32_t)j);
-          const X* w = s_x + (int)p.off * kCB + slot;
-          const W* coef = tb + p.phi;
-          X acc = mr::zero<X>();
-          for (int t = 0; t < T; ++t) {
-            acc = mac(acc, w[t * kCB],
-                      eval_tap(coef + t * nphi, P1, TN, p.alpha));
-          }
-          y[kTimeMajor ? (n0 + j) * C + c : c * n_out + n0 + j] = acc;
+    } else {
+      for (int i = threadIdx.x; i < span * kLanes; i += blockDim.x) {
+        const int k = i / kLanes, slot = i % kLanes;
+        const int64_t cc = g * kLanes + slot, e = e0 + k;
+        const bool ok = cc < C && e < end;
+        const X* src = !ok ? x : (e < H ? hist + cc * H + e
+                                        : x + (e - H) * C + cc);
+        cp_async<sz>(buf + i, src, ok ? sz : 0);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int slot = 0; slot < kCB; ++slot) {
+      const int64_t cc = g * kCB + slot;
+      X* row = buf + slot * rs;
+      const X* xc = x + cc * xlen;
+      if (cc < C && e0 >= H && ((uintptr_t)xc & 15) == 0) {
+        const char* base = reinterpret_cast<const char*>(xc);
+        const int64_t b0 = (e0 - H) * sz, a0 = b0 & ~(int64_t)15;
+        const int64_t bytes_end = xlen * sz;
+        const int chunks = (int)((b0 - a0 + (int64_t)span * sz + 15) / 16);
+        for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+          const int64_t a = a0 + 16 * (int64_t)c, left = bytes_end - a;
+          const int n = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
+          cp_async<16>(row + c * V, n ? base + a : base, n);
         }
+        lead[slot] = (int)((b0 - a0) / sz);
+      } else {
+        for (int k = threadIdx.x; k < span; k += blockDim.x) {
+          const int64_t e = e0 + k;
+          const bool ok = cc < C && e < end;
+          const X* src = !ok ? x : (e < H ? hist + cc * H + e
+                                          : xc + (e - H));
+          cp_async<sz>(row + k, src, ok ? sz : 0);
+        }
+        lead[slot] = 0;
       }
     }
   }
 }
 
-// Launch on x (C, xlen) -> y (C, n_out), or time-major x (xlen, C) ->
-// y (n_out, C); see the extern "C" entries for the contract.
-template <typename X, typename W, bool kTimeMajor>
-int launch(const void* x, const void* hist, const void* table, void* y,
-           int64_t C, int64_t xlen, int T, int nphi, int P1, uint64_t delta,
-           uint64_t u0, int64_t d0, int64_t n_out, void* stream) {
-  if (C <= 0 || n_out <= 0) return cudaSuccess;
-  const size_t t_bytes = table_bytes(P1, T, nphi, sizeof(W));
-  const bool table_smem = t_bytes <= kTableSmemLimit;
-  const size_t avail = kSmemLimit - (table_smem ? t_bytes : 0);
-  const uint64_t D = (uint64_t)nphi << 32;
-  const size_t cb = kTimeMajor ? kLanes : 1;
-  auto span_bytes = [&](int nb) {
-    const uint64_t span = (D - 1 + (uint64_t)(nb - 1) * delta) / D + T;
-    return (size_t)span * cb * sizeof(X);
+template <typename X, typename W, bool kTM, int kT, int kP1, int kCB,
+          bool kTableInSmem>
+__global__ void __launch_bounds__(kTM ? kThreadsTM : kThreadsCM)
+resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
+                const W* __restrict__ table, X* __restrict__ y, int64_t C,
+                int64_t xlen, int T_, int nphi_, int P1_, uint64_t delta,
+                uint64_t u0, int64_t d0, int64_t n_out, int tile, int run,
+                int span, int64_t n_tiles, int64_t groups) {
+  using A = typename mr::Real<W>::type;
+  const int T = kT > 0 ? kT : T_;
+  const int P1 = kP1 > 0 ? kP1 : P1_;
+  const uint32_t nphi = (uint32_t)nphi_;
+  const int TN = T * nphi_;  // stride between the table's coefficients
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t s_base[2][2];  // (q0, r0) of this item and the next
+  size_t at = kTableInSmem ? round16((size_t)P1 * TN * sizeof(W)) : 0;
+  // samples between staged rows (channel-major), and bytes of one buffer
+  const int rs = kTM ? kLanes : row_samples(span, sizeof(X));
+  const size_t buf_bytes = round16((size_t)rs * (kTM ? span : kCB) *
+                                   sizeof(X));
+  // span buffer b, addressed from smem_raw so that loads stay shared loads
+  auto buf = [&, at](int b) {
+    return reinterpret_cast<X*>(smem_raw + at + b * buf_bytes);
   };
-  int tile = kTimeMajor ? kMaxTileTM : kMaxTileCM;
-  while (tile > 1 && span_bytes(tile) > avail) tile /= 2;
-  if (span_bytes(tile) > avail) return kErrTooLarge;
-  const size_t smem = (table_smem ? t_bytes : 0) + span_bytes(tile);
-  const int64_t n_tiles = (n_out + tile - 1) / tile;
-  const int64_t groups = (C + (int64_t)cb - 1) / (int64_t)cb;
-  const dim3 grid((unsigned)(n_tiles < kMaxGridX ? n_tiles : kMaxGridX),
-                  (unsigned)(groups < kMaxGridY ? groups : kMaxGridY));
-  auto kern = table_smem ? resample_kernel<X, W, kTimeMajor, true>
-                         : resample_kernel<X, W, kTimeMajor, false>;
+  at += 2 * buf_bytes;
+  W* const s_tap = reinterpret_cast<W*>(smem_raw + at);  // time-major
+  int* const s_off = reinterpret_cast<int*>(
+      smem_raw + at + round16((size_t)tile * T * sizeof(W)));
+  X* const s_y = reinterpret_cast<X*>(smem_raw + at);  // channel-major runs
+  const int64_t total = n_tiles * groups;
+  int64_t w = blockIdx.x;
+  if (w >= total) return;
+  const W* tb = table;
+  if (kTableInSmem) {
+    // copied asynchronously, a group of its own before the first span's
+    W* s_table = reinterpret_cast<W*>(smem_raw);
+    for (int i = threadIdx.x; i < P1 * TN; i += blockDim.x)
+      cp_async<sizeof(W)>(s_table + i, table + i, sizeof(W));
+    tb = s_table;
+  }
+  cp_async_commit();
+  const int H = T - 1;
+  const int tid = (int)threadIdx.x, nth = (int)blockDim.x;
+  const int shift = (nphi & (nphi - 1)) == 0 ? __ffs(nphi_) - 1 : -1;
+  // a thread's first output (tid*run), the next one, and the first of its
+  // next round (a time-major block's taps: run = 1)
+  const int lane = tid % 32, warp = tid / 32, log_run = __ffs(run) - 1;
+  const Digits d_first = split((uint64_t)tid * run * delta, nphi, shift);
+  const Digits d_one = split(delta, nphi, shift);
+  const Digits d_round = split((uint64_t)(nth - 1) * run * delta, nphi,
+                               shift);
+
+  // work item w: channel group w / n_tiles, tile w % n_tiles
+  auto base_of = [&](int64_t item, int slot) {
+    uint64_t q, r;
+    tile_base((uint64_t)(item % n_tiles) * tile, delta, u0, nphi, &q, &r);
+    s_base[slot][0] = q;
+    s_base[slot][1] = r;
+  };
+  if (tid == 0) base_of(w, 0);
+  __syncthreads();
+  uint64_t q_cur = s_base[0][0], r_cur = s_base[0][1];
+  int lead_cur[kTM ? 1 : kCB], lead_next[kTM ? 1 : kCB];
+  stage<X, kTM, kCB>(buf(0), rs, lead_cur, x, hist, C, xlen, H,
+                     w / n_tiles, d0 - 1 + (int64_t)q_cur, span);
+  cp_async_commit();
+  if (kTM && kTableInSmem) {  // the taps are evaluated before a span wait
+    cp_async_wait_one();       // the table has landed
+    __syncthreads();
+  }
+  for (int cur = 0; w < total; w += gridDim.x, cur ^= 1) {
+    const int64_t wn = w + gridDim.x;
+    if (tid == 0 && wn < total) base_of(wn, cur ^ 1);
+    // the next base is written; no thread still reads buf(cur ^ 1) or the
+    // taps (the previous item is done)
+    __syncthreads();
+    uint64_t q_next = 0, r_next = 0;
+    if (wn < total) {
+      q_next = s_base[cur ^ 1][0];
+      r_next = s_base[cur ^ 1][1];
+      stage<X, kTM, kCB>(buf(cur ^ 1), rs, lead_next, x, hist, C, xlen, H,
+                         wn / n_tiles, d0 - 1 + (int64_t)q_next, span);
+    }
+    cp_async_commit();
+
+    const int64_t g = w / n_tiles;
+    const int64_t n0 = (w - g * n_tiles) * tile;
+    const int nt = (int)(n_out - n0 < tile ? n_out - n0 : tile);
+    const Pos first = add(Pos{0, (uint32_t)(r_cur >> 32), (uint32_t)r_cur},
+                          d_first, nphi);
+    if constexpr (kTM) {
+      // the tile's taps, once for the block's 32 channels
+      Pos p = first;
+      for (int j = tid; j < nt; j += nth) {
+        A alpha;
+        to_alpha(p.fr, &alpha);
+        const W* coef = tb + p.phi;
+        s_off[j] = (int)p.off;
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+          s_tap[t * tile + j] = eval_tap<kP1>(coef + t * nphi_, P1, TN,
+                                              alpha);
+        p = add(add(p, d_one, nphi), d_round, nphi);
+      }
+    }
+    cp_async_wait_one();  // this item's span has landed
+    __syncthreads();
+    const X* s_x = buf(cur);
+    if constexpr (kTM) {
+      const int nw = nth / kLanes;
+      const int64_t c = g * kLanes + lane;
+      for (int j = warp; j < nt; j += nw) {
+        const X* wx = s_x + s_off[j] * kLanes + lane;
+        X acc = mr::zero<X>();
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+          acc = mac(acc, wx[t * kLanes], s_tap[t * tile + j]);
+        if (c < C) y[(n0 + j) * C + c] = acc;
+      }
+    } else {
+      // thread tid runs outputs tid*run + s, s < run, in each round of
+      // nth*run outputs; the rounds are the same in a whole warp
+      X* const wy = s_y + warp * 32 * (run + 1);
+      Pos p = first;
+      for (int base = warp * 32 * run; base < nt; base += nth * run) {
+        for (int s = 0, j = base + lane * run; s < run; ++s, ++j) {
+          if (j < nt) {
+            A alpha;
+            to_alpha(p.fr, &alpha);
+            const W* coef = tb + p.phi;
+            const X* wx = s_x + p.off;  // channel k's: wx + k*rs + lead
+            X acc[kCB];
+#pragma unroll
+            for (int k = 0; k < kCB; ++k) acc[k] = mr::zero<X>();
+#pragma unroll
+            for (int t = 0; t < T; ++t) {
+              const W tap = eval_tap<kP1>(coef + t * nphi_, P1, TN, alpha);
+#pragma unroll
+              for (int k = 0; k < kCB; ++k)
+                acc[k] = mac(acc[k], wx[k * rs + lead_cur[k] + t], tap);
+            }
+            if (run > 1) {
+              wy[lane * (run + 1) + s] = acc[0];  // kCB == 1
+            } else {
+#pragma unroll
+              for (int k = 0; k < kCB; ++k)
+                if (g * kCB + k < C) y[(g * kCB + k) * n_out + n0 + j] = acc[k];
+            }
+          }
+          p = add(p, d_one, nphi);
+        }
+        p = add(p, d_round, nphi);
+        if (run > 1) {  // the warp's 32*run outputs, stored coalesced
+          __syncwarp();
+          for (int i = lane; i < 32 * run && base + i < nt; i += 32)
+            y[g * n_out + n0 + base + i] =
+                wy[(i >> log_run) * (run + 1) + (i & (run - 1))];
+          __syncwarp();
+        }
+      }
+    }
+    q_cur = q_next;
+    r_cur = r_next;
+#pragma unroll
+    for (int k = 0; k < (kTM ? 1 : kCB); ++k) lead_cur[k] = lead_next[k];
+  }
+}
+
+// At most as many blocks of ``kern`` as the card holds at once: the plan's
+// grid is an upper bound, and a persistent block stages its table once.
+template <typename K>
+int64_t resident_grid(K kern, int block, size_t smem, int64_t grid_x) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1)
+    return grid_x;
+  const int64_t cap = (int64_t)per_sm * sms;
+  return grid_x < cap ? grid_x : cap;
+}
+
+template <typename X, typename W, bool kTM, int kT, int kP1, int kCB,
+          bool kTableInSmem>
+int run_kernel(const void* x, const void* hist, const void* table, void* y,
+               int64_t C, int64_t xlen, int T, int nphi, int P1,
+               uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
+               int tile, int run, int span, int64_t n_tiles, int64_t groups,
+               int threads, size_t smem, int64_t grid, cudaStream_t stream) {
+  auto kern = resample_kernel<X, W, kTM, kT, kP1, kCB, kTableInSmem>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  grid = resident_grid(kern, threads, smem, grid);
+  kern<<<(unsigned)grid, threads, smem, stream>>>(
       (const X*)x, (const X*)hist, (const W*)table, (X*)y, C, xlen, T, nphi,
-      P1, delta, u0, d0, n_out, tile, n_tiles);
+      P1, delta, u0, d0, n_out, tile, run, span, n_tiles, groups);
   return cudaGetLastError();
+}
+
+// One variant's launch on the plan (tile, cb, run, grid); kT = kP1 = 0 is the
+// general variant.
+template <typename X, typename W, bool kTM, int kT, int kP1>
+int launch_variant(const void* x, const void* hist, const void* table,
+                   void* y, int64_t C, int64_t xlen, int T, int nphi, int P1,
+                   uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
+                   int tile, int cb, int run, int64_t grid,
+                   cudaStream_t stream) {
+  const bool table_smem =
+      (size_t)P1 * T * nphi * sizeof(W) <= kTableSmemLimit;
+  if (kT > 0 && (T != kT || P1 != kP1 || !table_smem)) return kErrBadPlan;
+  if (tile < 1 || tile > (kTM ? kMaxTileTM : kMaxTileCM)) return kErrBadPlan;
+  if (kTM ? cb != kLanes : (cb != 1 && cb != kGroupCM)) return kErrBadPlan;
+  // runs: a power of two up to 16, in one-channel blocks only
+  if (run < 1 || run > 16 || (run & (run - 1)) || (run > 1 && cb != 1))
+    return kErrBadPlan;
+  const int64_t n_tiles = (n_out + tile - 1) / tile;
+  const int64_t groups = (C + cb - 1) / cb;
+  if (grid < 1 || grid > kMaxGridX || grid > n_tiles * groups)
+    return kErrBadPlan;
+  const size_t smem = smem_bytes(tile, cb, run, T, P1, (uint32_t)nphi,
+                                 delta, sizeof(X), sizeof(W), table_smem,
+                                 kTM);
+  if (smem > kSmemLimit) return kErrTooLarge;
+  const int span = (int)span_of(tile, T, (uint32_t)nphi, delta);
+  const int threads = block_threads(tile, run, kTM);
+#define MR_RUN(CB, SMEM)                                                     \
+  run_kernel<X, W, kTM, kT, kP1, CB, SMEM>(                                \
+      x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out, tile,   \
+      run, span, n_tiles, groups, threads, smem, grid, stream)
+  if constexpr (kTM) {
+    if (table_smem) return MR_RUN(kLanes, true);
+    if constexpr (kT == 0) return MR_RUN(kLanes, false);
+  } else if (cb == 1) {
+    if (table_smem) return MR_RUN(1, true);
+    if constexpr (kT == 0) return MR_RUN(1, false);
+  } else {
+    if (table_smem) return MR_RUN(kGroupCM, true);
+    if constexpr (kT == 0) return MR_RUN(kGroupCM, false);
+  }
+#undef MR_RUN
+  return kErrBadPlan;
+}
+
+// Launch on x (C, xlen) -> y (C, n_out), or time-major x (xlen, C) ->
+// y (n_out, C), by the plan's variant; see the extern "C" entries.
+template <typename X, typename W, bool kTM>
+int launch(const void* x, const void* hist, const void* table, void* y,
+           int64_t C, int64_t xlen, int T, int nphi, int P1, uint64_t delta,
+           uint64_t u0, int64_t d0, int64_t n_out, int variant, int tile,
+           int cb, int run, int64_t grid, void* stream) {
+  if (C <= 0 || n_out <= 0) return cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case kGeneral:
+      return launch_variant<X, W, kTM, 0, 0>(x, hist, table, y, C, xlen, T,
+                                             nphi, P1, delta, u0, d0, n_out,
+                                             tile, cb, run, grid, s);
+    case kT10P2:
+      return launch_variant<X, W, kTM, 10, 2>(x, hist, table, y, C, xlen, T,
+                                              nphi, P1, delta, u0, d0, n_out,
+                                              tile, cb, run, grid, s);
+    case kT10P5:
+      return launch_variant<X, W, kTM, 10, 5>(x, hist, table, y, C, xlen, T,
+                                              nphi, P1, delta, u0, d0, n_out,
+                                              tile, cb, run, grid, s);
+    case kT73P2:
+      return launch_variant<X, W, kTM, 73, 2>(x, hist, table, y, C, xlen, T,
+                                              nphi, P1, delta, u0, d0, n_out,
+                                              tile, cb, run, grid, s);
+    default:
+      return kErrBadPlan;
+  }
 }
 
 }  // namespace
@@ -282,16 +656,23 @@ extern "C" {
 // on the current device. The caller guarantees 0 < nphi << 32 < 2^44,
 // 0 < delta < 2^44, u0 + n_out*delta < 2^96, d0 >= 1, and that every
 // window lies inside [history ++ x]: d0 + (u0 + (n_out-1)*delta) / D <=
-// xlen. Returns a cudaError_t code, or kErrTooLarge when one output's
-// window cannot fit in shared memory.
+// xlen. (variant, tile, cb, run, grid) is the launch's plan
+// (ops/cuda/resample.py plan()): the variant (0 general, 1 T = 10 with
+// P+1 = 2, 2 T = 10 with P+1 = 5, 3 T = 73 with P+1 = 2), outputs a tile,
+// channels a block (1 or 8 channel-major, 32 time-major), neighbouring
+// outputs a thread runs (1, 2, 4, 8 or 16; 1 unless cb == 1) and blocks, at
+// most. Returns a cudaError_t code, kErrTooLarge when the plan's shared
+// memory exceeds the limit, or kErrBadPlan when the variant does not take
+// the plan.
 int mr_resample_f32(const void* x, const void* hist, const void* table,
                     void* y, int64_t C, int64_t xlen, int T, int nphi, int P1,
                     uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
-                    int time_major, void* stream) {
-  auto run = time_major ? launch<float, float, true>
-                        : launch<float, float, false>;
-  return run(x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out,
-             stream);
+                    int time_major, int variant, int tile, int cb, int run,
+                    int64_t grid, void* stream) {
+  auto go = time_major ? launch<float, float, true>
+                       : launch<float, float, false>;
+  return go(x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out,
+             variant, tile, cb, run, grid, stream);
 }
 
 // Channel-major only, as mr_resample_f32 with time_major = 0: x and hist
@@ -301,9 +682,11 @@ int mr_resample_f32(const void* x, const void* hist, const void* table,
   int mr_resample_##name(const void* x, const void* hist, const void* table, \
                          void* y, int64_t C, int64_t xlen, int T, int nphi,  \
                          int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
-                         int64_t n_out, void* stream) {                      \
+                         int64_t n_out, int variant, int tile, int cb,      \
+                         int run, int64_t grid, void* stream) {              \
     return launch<X, W, false>(x, hist, table, y, C, xlen, T, nphi, P1,     \
-                               delta, u0, d0, n_out, stream);                \
+                               delta, u0, d0, n_out, variant, tile, cb, run,\
+                               grid, stream);                                \
   }
 
 MR_RESAMPLE(f64, double, double)
@@ -315,7 +698,8 @@ MR_RESAMPLE(c128c, double2, double2)
 #undef MR_RESAMPLE
 
 const char* mr_error_string(int code) {
-  if (code == kErrTooLarge) return "one output's window exceeds shared memory";
+  if (code == kErrTooLarge) return "the plan's shared memory exceeds the limit";
+  if (code == kErrBadPlan) return "the variant does not take this plan";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -164,7 +164,7 @@ def _check(params, state, x, lead=None):
             params, (FIRArbitrary, FIRFarrow)):
         raise NotImplementedError(
             f"{x.dtype} signals at an arbitrary rate are not ported yet "
-            f"(ROADMAP queue 1, item 3: JAX's paths differ on their "
+            f"(ROADMAP queue 1, item 2: JAX's paths differ on their "
             f"semantics)")
     for name, dev in (("kernel bank", params.device),
                       ("state history", state.history.device)):

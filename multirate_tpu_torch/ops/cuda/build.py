@@ -110,16 +110,17 @@ def load_resample() -> ctypes.CDLL:
     """The arbitrary/Farrow kernel library (built at first use), argtypes
     set for ``mr_resample_f32`` (which also takes the layout) and each
     channel-major entry point ``mr_resample_<name>`` of
-    ``resample.ENTRIES``."""
+    ``resample.ENTRIES``; each takes its launch's ``resample.plan``."""
     from .resample import ENTRIES
 
     lib = ctypes.CDLL(str(build("resample")))
     p, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
                         ctypes.c_int)
     args = [p, p, p, p, i64, i64, i32, i32, i32, u64, u64, i64, i64]
+    plan = [i32, i32, i32, i32, i64]  # variant, tile, channels, run, grid
     for name in ENTRIES.values():
         fn = getattr(lib, f"mr_resample_{name}")
-        fn.argtypes = args + ([i32] if name == "f32" else []) + [p]
+        fn.argtypes = args + ([i32] if name == "f32" else []) + plan + [p]
         fn.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p

@@ -27,9 +27,23 @@ PyTorch. There is no fallback from one to the other.
 x and hist share the signal type; the table is its real type, or its own
 type for complex taps (``ENTRIES``); y has the signal's type. The
 time-major kernel is float32 only.
+
+The kernel has variants (``VARIANTS``), chosen by ``plan`` from the shape
+alone, never after a failure: one compiled for each (T, P+1) pair in use
+(``COMPILED``: bench.py's bank at T = 10 with P+1 = 2 or 5, and
+``models.Resampler``'s own design at T = 73, P+1 = 2), with both loops
+unrolled, and ``general``, which runs both loops to run-time bounds. Every
+variant gives the same bits. ``plan`` also sizes the tile, the channels
+a block shares its taps across and the grid, so that the grid fills the
+card. ``resample(..., variant="general")`` forces the general variant, for
+timing against it. ``walk_positions`` transcribes the kernel's
+division-free index walk, for the CPU tests.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +52,8 @@ from ..params import PHASE_FRAC_BITS, FIRArbitrary, FIRFarrow
 from ..precision import fp32
 
 __all__ = ["resample", "resample_tm", "resample_plain", "resample_tm_plain",
-           "launches", "launches_tm", "ENTRIES"]
+           "plan", "Plan", "walk_positions", "launches", "launches_tm",
+           "launches_by_variant", "ENTRIES", "VARIANTS", "COMPILED"]
 
 # The kernel's channel-major entry point (``mr_resample_<name>``, one
 # instantiation of csrc/resample.cu) for each (signal, table) dtype pair.
@@ -51,13 +66,208 @@ ENTRIES = {
     (torch.complex128, torch.complex128): "c128c",
 }
 
+# The kernel's variants, by the number its entry points take, and the
+# (T, P+1) pair each compiled one is built for.
+VARIANTS = ("general", "t10p2", "t10p5", "t73p2")
+COMPILED = {(10, 2): "t10p2", (10, 5): "t10p5", (73, 2): "t73p2"}
+
 # Kernel launches made by ``resample`` (by entry point) and by
-# ``resample_tm`` (float32) in this process. Each grows by one where its
-# kernel is launched and nowhere else; a caller may reset them.
+# ``resample_tm`` (float32) in this process, and by both by entry point
+# and variant (``"f32/t10p2"``; time-major ``"tm/t10p5"``). Each grows by
+# one where its kernel is launched and nowhere else; a caller may reset
+# them.
 launches = dict.fromkeys(ENTRIES.values(), 0)
 launches_tm = 0
+launches_by_variant = {f"{e}/{v}": 0 for e in (*ENTRIES.values(), "tm")
+                       for v in VARIANTS}
 
 _N_OUT_LIMIT = 1 << 40  # keeps u0 + n_out*delta_fx below the kernel's 2^96
+
+# The launch geometry of csrc/resample.cu, mirrored here so that the host
+# plans every launch (the C launcher checks the plan and refuses a bad one).
+_THREADS_CM, _THREADS_TM = 128, 256  # threads a block (channel-major: at most)
+_LANES = 32                          # time-major: channels a block
+_GROUP_CM = 8                        # channel-major: channels a block, C >= 8
+_MAX_TILE_CM, _MAX_TILE_TM, _MIN_TILE = 1024, 256, 32
+_SMEM_LIMIT, _TABLE_SMEM_LIMIT = 226 * 1024, 96 * 1024
+_SMEM_TARGET = 64 * 1024  # per block, so that several blocks share an SM
+_FILL = 2 * 132           # blocks that fill the H100's SMs twice
+_MAX_GRID = 65535         # grid.x, at most (blocks loop over tiles)
+_RUNS = (1, 2, 4, 8, 16)  # neighbouring outputs a thread may run
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class Plan(NamedTuple):
+    """One launch: the variant, outputs a tile, channels a block (1 or 8
+    channel-major, 32 time-major), neighbouring outputs a thread runs (one-
+    channel blocks; else 1), blocks on grid.x (at most: the launcher keeps
+    no more than the card holds at once), threads a block and shared bytes
+    a block."""
+    variant: str
+    tile: int
+    channels: int
+    run: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def _threads(tile: int, run: int, tm: bool) -> int:
+    """csrc/resample.cu ``block_threads``."""
+    if tm:
+        return _THREADS_TM
+    return min(_THREADS_CM, _ceil(_ceil(tile, run), 32) * 32)
+
+
+def _run_of(tile: int, cb: int, nphi: int, delta_fx: int) -> int:
+    """Neighbouring outputs a thread runs, so a warp's lanes sit ``run``
+    outputs apart: the least run whose lanes' windows lie within 1/32
+    sample of an odd whole number of samples apart (then 32 lanes' window
+    words hit 32 banks, and their phases cluster), in one-channel blocks of
+    at least two warps of full runs; else 1. ``tools/resample_runs.py``
+    times every run on the card."""
+    D = nphi << PHASE_FRAC_BITS
+    for run in _RUNS[1:]:
+        k = (2 * run * delta_fx + D) // (2 * D)  # nearest whole samples
+        if (cb == 1 and tile >= 64 * run and k % 2
+                and 32 * abs(run * delta_fx - k * D) < D):
+            return run
+    return 1
+
+
+def _span(tile: int, nphi: int, delta_fx: int, T: int) -> int:
+    """Input samples a tile of ``tile`` outputs reads, at most: the last
+    output's window offset from the first, for any first remainder < D,
+    plus T."""
+    D = nphi << PHASE_FRAC_BITS
+    return (D - 1 + (tile - 1) * delta_fx) // D + T
+
+
+def _row_samples(span: int, xsz: int) -> int:
+    """csrc/resample.cu ``row_samples``: a staged channel-major row, the
+    span plus room for a first sample up to 15 bytes past a 16-byte
+    boundary, in whole 16-byte chunks."""
+    v = 16 // xsz
+    return _ceil(span + v - 1, v) * v
+
+
+def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, wsz, table_smem, tm):
+    """csrc/resample.cu ``smem_bytes``: the table (when staged), a double
+    buffer of the spans, time-major a tile's taps and offsets, and a
+    gather of each warp's runs of outputs (run > 1)."""
+    b = _up16(P1 * T * nphi * wsz) if table_smem else 0
+    span = _span(tile, nphi, delta_fx, T)
+    b += 2 * _up16((span if tm else _row_samples(span, xsz)) * cb * xsz)
+    if tm:
+        b += _up16(tile * T * wsz) + _up16(tile * 4)
+    if run > 1:
+        b += _up16(_threads(tile, run, tm) * (run + 1) * xsz)
+    return b
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
+         x_dtype, table_dtype, time_major: bool = False,
+         variant: str | None = None) -> Plan:
+    """The launch of one resample call: the variant (by default the
+    compiled one for (T, P1) if its table fits in shared memory, else
+    ``general``), the tile, the channels a block and the grid. Pure Python
+    on the shape: the CPU tests check it. Raises ValueError if ``variant``
+    is named and cannot take the call, or if one tile's span cannot fit in
+    shared memory. Cached: a stream plans the same few shapes again."""
+    xsz, wsz = x_dtype.itemsize, table_dtype.itemsize
+    t_bytes = P1 * T * nphi * wsz
+    table_smem = t_bytes <= _TABLE_SMEM_LIMIT
+    auto = COMPILED.get((T, P1)) if table_smem else None
+    if variant is None:
+        variant = auto or "general"
+    elif variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    elif variant != "general" and variant != auto:
+        raise ValueError(f"the {variant} variant cannot take T={T} "
+                         f"P+1={P1} with a {t_bytes}-byte table")
+    cb = _LANES if time_major else (_GROUP_CM if C >= _GROUP_CM else 1)
+    groups = _ceil(C, cb)
+    n_out = max(int(n_out), 1)
+
+    def smem(tile):
+        return _smem(tile, cb, _run_of(tile, cb, nphi, delta_fx), T, P1, nphi,
+                     delta_fx, xsz, wsz, table_smem, time_major)
+
+    tile = _MAX_TILE_TM if time_major else _MAX_TILE_CM
+    while tile > _MIN_TILE and _ceil(n_out, tile) * groups < _FILL:
+        tile //= 2
+    while tile > _MIN_TILE and smem(tile) > _SMEM_TARGET:
+        tile //= 2
+    while tile > 1 and smem(tile) > _SMEM_LIMIT:
+        tile //= 2
+    if smem(tile) > _SMEM_LIMIT:
+        raise ValueError("one output's window exceeds shared memory")
+    run = _run_of(tile, cb, nphi, delta_fx)
+    grid = min(_ceil(n_out, tile) * groups, _MAX_GRID)
+    return Plan(variant, tile, cb, run, grid,
+                _threads(tile, run, time_major), smem(tile))
+
+
+def walk_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
+                   n_out: int):
+    """The kernel's index walk, transcribed: (q, phi, frac) of every
+    output n < n_out, with (q, phi) = divmod((u0 + n*delta_fx) div 2^32,
+    nphi) and frac the low 32 bits, as int64 tensors.
+
+    A tile's base (q0, r0) = divmod(u0 + n0*delta_fx, D) is formed once, in
+    128 bits. Thread t of a block runs outputs t*run + s (s < run) in each
+    round of threads*run outputs. Once a launch it splits its first step,
+    t*run*delta_fx, the step to its next output, delta_fx, and the step
+    from its last output of a round to its first of the next,
+    (threads - 1)*run*delta_fx, into digits (quotient by D, phase, 32-bit
+    fraction), then walks its outputs by adding digits with carries: no
+    division per output. (A time-major block's taps take run 1.)"""
+    D = nphi << PHASE_FRAC_BITS
+    one = 1 << PHASE_FRAC_BITS
+    mask = one - 1
+
+    def digits(v):
+        return v // D, (v % D) >> PHASE_FRAC_BITS, v & mask
+
+    def add(a, d):  # (off, phi, fr) + digits, with carries
+        fr = a[2] + d[2]
+        c1 = (fr >= one).long()
+        phi = a[1] + d[1] + c1
+        c2 = (phi >= nphi).long()
+        return a[0] + d[0] + c2, phi - c2 * nphi, fr - c1 * one
+
+    n_tiles = _ceil(n_out, p.tile)
+    tiles = torch.arange(n_tiles, dtype=torch.int64)
+    # the tile bases, exact (the kernel's 128-bit product and division)
+    bases = [divmod(u0 + int(n0) * delta_fx, D)
+             for n0 in (tiles * p.tile).tolist()]
+    q0 = torch.tensor([b[0] for b in bases], dtype=torch.int64)
+    r0 = torch.tensor([b[1] for b in bases], dtype=torch.int64)
+    start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS, r0 & mask)
+    q = torch.empty(n_tiles, p.tile, dtype=torch.int64)
+    phi, fr = torch.empty_like(q), torch.empty_like(q)
+    run = 1 if p.channels == _LANES else p.run
+    step, next_round = digits(delta_fx), digits(
+        (p.threads - 1) * run * delta_fx)
+    for t in range(p.threads):
+        pos = add(start, digits(t * run * delta_fx))
+        for j0 in range(t * run, p.tile, p.threads * run):
+            for j in range(j0, j0 + run):
+                if j < p.tile:
+                    q[:, j] = q0 + pos[0]
+                    phi[:, j], fr[:, j] = pos[1], pos[2]
+                pos = add(pos, step)
+            pos = add(pos, next_round)
+    return (q.reshape(-1)[:n_out], phi.reshape(-1)[:n_out],
+            fr.reshape(-1)[:n_out])
 
 
 def _taps_plain(params, phi, frac):
@@ -135,13 +345,23 @@ def _check(x, hist, params, u0, d0, n_out, time_major):
                          f"samples")
 
 
-def _launch(x, hist, params, u0, d0, n_out, time_major):
-    """(y, the entry point launched or None): nothing runs for no output."""
+def _plan_for(x, params, n_out, time_major, variant):
+    C = x.shape[1] if time_major else x.shape[0]
+    return plan(params.taps_per_phi, params.table.shape[0], params.nphi,
+                params.delta_fx, n_out, C, x.dtype, params.table.dtype,
+                time_major, variant)
+
+
+def _launch(x, hist, params, u0, d0, n_out, time_major, variant):
+    """y, after one launch of the planned variant, counted by entry point
+    and variant; nothing runs for no output."""
+    global launches_tm
     C, xlen = (x.shape[1], x.shape[0]) if time_major else x.shape
     shape = (n_out, C) if time_major else (C, n_out)
     y = torch.empty(shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y, None
+        return y
+    p = _plan_for(x, params, n_out, time_major, variant)
     from .build import check_aligned, load_resample
 
     check_aligned(x=x, hist=hist, table=params.table)
@@ -154,44 +374,47 @@ def _launch(x, hist, params, u0, d0, n_out, time_major):
             x.data_ptr(), hist.data_ptr(), params.table.data_ptr(),
             y.data_ptr(), C, xlen, params.taps_per_phi, params.nphi,
             params.table.shape[0], params.delta_fx, u0, d0, n_out,
-            *layout, stream)
+            *layout, VARIANTS.index(p.variant), p.tile, p.channels, p.run,
+            p.grid, stream)
     if err != 0:
         raise RuntimeError("resample kernel launch failed: "
                            + lib.mr_error_string(err).decode())
-    return y, name
+    if time_major:
+        launches_tm += 1
+    else:
+        launches[name] += 1
+    launches_by_variant[f"{'tm' if time_major else name}/{p.variant}"] += 1
+    return y
 
 
-def resample(x, hist, params, u0: int, d0: int, n_out: int) -> torch.Tensor:
+def _run(x, hist, params, u0, d0, n_out, time_major, variant):
+    _check(x, hist, params, u0, d0, n_out, time_major)
+    if x.device.type == "cpu":
+        if variant is not None:  # a named variant must take the call
+            _plan_for(x, params, n_out, time_major, variant)
+        plain = resample_tm_plain if time_major else resample_plain
+        return plain(x, hist, params, u0, d0, n_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"no resample kernel for device {x.device}")
+    return _launch(x, hist, params, u0, d0, n_out, time_major, variant)
+
+
+def resample(x, hist, params, u0: int, d0: int, n_out: int,
+             variant: str | None = None) -> torch.Tensor:
     """y (C, n_out) from x (C, xlen) and hist (C, T-1), channel-major.
 
     ``params`` is an FIRArbitrary or FIRFarrow kernel on x's device whose
     table pairs with x's type in ``ENTRIES``; (u0, d0) the entry
     accumulator and deficit, n_out the exact output count
-    (``indexing.host_carry``). Raises on anything the kernel does not
-    take.
+    (``indexing.host_carry``). ``variant`` names the kernel's variant (one
+    of ``VARIANTS``) in place of ``plan``'s choice, for timing. Raises on
+    anything the kernel does not take.
     """
-    _check(x, hist, params, u0, d0, n_out, time_major=False)
-    if x.device.type == "cpu":
-        return resample_plain(x, hist, params, u0, d0, n_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"no resample kernel for device {x.device}")
-    y, name = _launch(x, hist, params, u0, d0, n_out, time_major=False)
-    if name is not None:
-        launches[name] += 1
-    return y
+    return _run(x, hist, params, u0, d0, n_out, False, variant)
 
 
-def resample_tm(xt, hist, params, u0: int, d0: int,
-                n_out: int) -> torch.Tensor:
+def resample_tm(xt, hist, params, u0: int, d0: int, n_out: int,
+                variant: str | None = None) -> torch.Tensor:
     """y (n_out, C) from time-major xt (xlen, C) and channel-major hist
     (C, T-1), all float32; otherwise as ``resample``."""
-    global launches_tm
-    _check(xt, hist, params, u0, d0, n_out, time_major=True)
-    if xt.device.type == "cpu":
-        return resample_tm_plain(xt, hist, params, u0, d0, n_out)
-    if xt.device.type != "cuda":
-        raise ValueError(f"no resample kernel for device {xt.device}")
-    y, name = _launch(xt, hist, params, u0, d0, n_out, time_major=True)
-    if name is not None:
-        launches_tm += 1
-    return y
+    return _run(xt, hist, params, u0, d0, n_out, True, variant)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card: polyphase
 (rational family, in float32, the quantized modes, float64 and complex),
 resample (arbitrary rate and Farrow, channel-major and time-major in
-float32, channel-major in float64 and complex) and the copy and expand
+float32, channel-major in float64 and complex; each compiled variant and
+the general one, equal bit for bit) and the copy and expand
 probes; and the runtime on the card: StreamingResampler's block loop
 with no synchronizing call, and a profiler trace holding the kernel.
 
@@ -285,6 +286,75 @@ def test_polyphase_variants_match_plain_on_gpu(entry, T, L, M, variant):
                 assert rel_max_err(y, yp) <= _tol(o_dt)
 
 
+# the resample kernel's variants: each compiled (T, P+1) pair (10 with 2
+# and 5 for bench.py's bank, 73 with 2 for models.Resampler's design, all
+# at nphi 32) in every entry point, channel-major with 1 channel (runs of
+# outputs a thread), 3 and 64 channels (groups of 8 sharing taps), and
+# float32 time-major; each planned and with the general variant forced
+RESAMPLE_KINDS = {"t10p2": (10, None), "t10p5": (10, 4), "t73p2": (73, None)}
+RESAMPLE_LAYOUTS = {"cm1": (1, 600_000, False), "cm3": (3, 30_011, False),
+                    "cm64": (64, 20_011, False), "tm64": (64, 20_011, True)}
+RESAMPLE_CASES = [(e, k, lay) for e in ("f32", *WIDE) for k in RESAMPLE_KINDS
+                  for lay in RESAMPLE_LAYOUTS
+                  if e == "f32" or not RESAMPLE_LAYOUTS[lay][2]]
+
+
+def _resample_case(entry, kind, layout, device):
+    """The kernel and seeded signal of one RESAMPLE_CASES case: T*32 taps,
+    so the bank has exactly T taps a phase and the case plans ``kind``."""
+    xt, ht = WIDE.get(entry, (torch.float32, torch.float32))
+    T, po = RESAMPLE_KINDS[kind]
+    C, xlen, tm = RESAMPLE_LAYOUTS[layout]
+    rng = np.random.default_rng(12)
+    h = _wide(rng, T * 32, ht)
+    rate = 0.9173 if C == 64 else 1 / 2.123456789
+    p = mt.make_kernel(h, rate=rate, nphi=32, polyorder=po, device=device)
+    return p, _wide(rng, (C, xlen), xt).to(device)
+
+
+@pytest.mark.parametrize("entry,kind,layout", RESAMPLE_CASES)
+def test_resample_cases_plan_their_variant(entry, kind, layout):
+    # on the CPU: each case below launches the compiled variant it names
+    p, x = _resample_case(entry, kind, layout, "cpu")
+    C, xlen, tm = RESAMPLE_LAYOUTS[layout]
+    n = mt.outputlength(p, xlen)
+    plan = rs.plan(p.taps_per_phi, p.table.shape[0], p.nphi, p.delta_fx, n,
+                   C, x.dtype, p.table.dtype, tm)
+    assert plan.variant == kind
+    assert plan.channels == (32 if tm else (8 if C >= 8 else 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,kind,layout", RESAMPLE_CASES)
+def test_resample_variants_match_plain_on_gpu(entry, kind, layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xt, _ = WIDE.get(entry, (torch.float32, torch.float32))
+    C, xlen, tm = RESAMPLE_LAYOUTS[layout]
+    p, x = _resample_case(entry, kind, layout, "cuda")
+    st = mt.setphase(p, mt.init_state(p, (C,), xt), 0.37)
+    _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
+    n, _, _ = mt.ops.indexing.host_carry(p, st.phase, st.deficit, xlen)
+    xs = x.t().contiguous() if tm else x
+    args = (xs, st.history.contiguous(), p, st.phase, st.deficit, n)
+    assert rs.plan(p.taps_per_phi, p.table.shape[0], p.nphi, p.delta_fx, n,
+                   C, xt, p.table.dtype, tm).variant == kind
+    kern = rs.resample_tm if tm else rs.resample
+    plain = rs.resample_tm_plain if tm else rs.resample_plain
+    want = plain(*args)
+    got = {}
+    for variant in (None, "general"):
+        key = f"{'tm' if tm else entry}/{variant or kind}"
+        before = rs.launches_by_variant[key]
+        got[variant] = kern(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert rs.launches_by_variant[key] == before + 1
+        assert got[variant].dtype == want.dtype == xt
+        assert got[variant].shape == want.shape
+        assert rel_max_err(got[variant], want) <= _tol(xt)
+    assert torch.equal(got[None], got["general"])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 100_003,
                                # one 32 KB chunk of float32, several and a
@@ -311,7 +381,8 @@ def test_probe_copy_matches_plain_on_gpu(dtype, offset, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 128), (777, 128), (33, 4)])
+@pytest.mark.parametrize("shape", [(1, 128), (777, 128), (33, 4), (45, 12),
+                                   (29, 20), (1001, 20)])
 @pytest.mark.parametrize("ratio", [1, 2, 4, 8])
 @pytest.mark.parametrize("odt", [torch.float32, torch.bfloat16,
                                  torch.float16, torch.int8])

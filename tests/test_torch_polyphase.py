@@ -231,7 +231,7 @@ def test_compute_rejects_what_is_not_ported():
     st = mt.init_state(tp)
     with pytest.raises(NotImplementedError, match="float16"):
         mt.filt_block(tp, st, torch.zeros(10, dtype=torch.float16))
-    for dtype in (torch.bfloat16, torch.int8):  # queue 1, item 3
+    for dtype in (torch.bfloat16, torch.int8):  # queue 1, item 2
         with pytest.raises(NotImplementedError, match="arbitrary rate"):
             mt.filt(np.ones(8, np.float32), torch.zeros(10, dtype=dtype), 0.9)
     with pytest.raises(ValueError, match="shape"):
