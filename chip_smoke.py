@@ -66,7 +66,8 @@ Then the same three steps for the arbitrary/Farrow path:
    its compiled variant (``t10p2`` arbitrary, ``t10p5`` Farrow);
 5b. times of kernel (the planned variant and the general one, in turns)
    and plain version for ``bench.py``'s six arbitrary/Farrow rows, as in
-   phase 5.
+   phase 5, and for arbitrary resampling at 0.9173 on the 64 channels
+   (no bench row: the shape of the channel-batched TPU kernel 6).
 
 Then the same three steps for the quantized modes of the rational family
 (``bench.py``'s rows ``rational_147_160_bf16``, ``rational_147_160_int8``
@@ -183,11 +184,68 @@ Then the same three steps for the runtime and its probe kernels
    1/2.123456789 with ``bench.py``'s bank), on 8 M samples; every
    resample time here and in 5d for the planned and the general variant.
 
+Then the parallel layer (``parallel``: channel x time sharding), on a
+gloo world of 4 ranks all on ``cuda:0`` (NCCL refuses two ranks on one
+card, so the halo and the history cross through the host; every kernel
+runs on the card; the kernels are built here before the spawn and the
+ranks load them):
+
+3f. on meshes (2, 2), (1, 4) and (4, 1): ``sharded_resample`` at 1//1,
+   4//1, 1//4, 7//5 and 147//160 with 48 random taps, arbitrary at 0.8112
+   and 1.618 in float64, Farrow at 0.9173 (nphi 32, polyorder 4) on 64
+   channels, and 7//5 streamed in three super-blocks through
+   ``shard_filt_block`` + ``compact``; bf16 and int8 147//160 on (2, 2);
+   each against ``filt`` of the whole signal on the card: counts and
+   states exact, outputs within 1e-5 * max|y| (int8 equal, bf16 within
+   2^-8 * max|y|); a block shorter than h_min raises ``ValueError`` on
+   every rank; each rank's launch count per case equal to its blocks
+   (the world's: shards x blocks);
+4f. at full width: the 8 M headline over (1, 4) (2,000,000 samples a
+   shard), the same samples in three streamed super-blocks, and
+   ``MultiChannelResampler(0.9173, nphi=32, polyorder=4)`` on (64,
+   125,000) over (4, 1) and (2, 2), each within 1e-6 * max|y| of the
+   unsharded ``filt`` on the card, relative RMS against the float64
+   oracles on the first 200,000 outputs (a channel) <= 8e-5, counts and
+   states exact; then a world of one with the ``nccl`` backend: the
+   headline through ``sharded_resample`` on (1, 1), equal to ``filt``,
+   and 8 steady-state blocks through ``shard_filt_block`` +
+   ``compact_device`` under ``torch.cuda.set_sync_debug_mode("error")``;
+5f. each rank's per-shard kernel time (CUDA events, the kernels in turn)
+   and halo time (halo exchange and history broadcast, all ranks
+   together, on the host clock between synchronizes) for the headline on
+   (1, 4); and ``parallel.scaling_bench --device cuda --ranks 4``
+   (its JSON: the work overhead of the sharded step over the unsharded
+   one; wall-clock fields are a sanity check only, since the ranks share
+   one card).
+
+Then bf16 and int8 signals at an arbitrary or Farrow rate (widened to
+float32 with one cast each, then the float32 resample kernel):
+
+3g. the widened route against its plain version on the card, arbitrary
+   and Farrow at 1/2.123456789, 0.4709 and 0.9173, 1 and 64 channels,
+   fresh and after setphase(0.37): counts and states exact, outputs
+   within 1e-5 * max|y|;
+4g. 8 M bf16 samples at 1/2.123456789 (arbitrary) and 0.4709 (Farrow)
+   with ``bench.py``'s bank through ``filt`` and ``FIRFilter`` in
+   250,000-sample chunks: relative RMS against ``naivefilt`` over the
+   same bf16 values <= 1e-4 (the method's floor) and against
+   ``naivefilt_farrow`` <= 8e-5, chunked-vs-whole RMS <= 1e-6, launches
+   equal to the blocks; times of the route (cast and kernel), the kernel
+   alone on the widened values, the float32 row on the same values and
+   the plain version, for bf16 and int8 in;
+4h. every example flow of ``multirate_tpu_torch.examples`` on the card
+   (``main()``, with ``tests/test_examples.py``'s shrink keywords for
+   ``arb_farrow_speed``), each with its kernel launches counted, and
+   ``wav_resample --demo``'s 1 kHz amplitude within 0.45-0.55.
+
 Then a JSON line of the kernels (each with its bound: the larger of the
 bytes it must move over 3.35 TB/s and its multiply-adds over the card's
 peak for their type; a polyphase or resample row also with the variant it
 launched and the general variant's time; one expand row for each store
-type), the ``nvidia-smi`` name and power-limit line,
+type; this slice's two rows: ``polyphase_f32_sharded``, the headline's
+shard on (1, 4) with its launches summed over the ranks, and
+``resample_f32_bf16in``, the widened route at 1/2.123456789), the
+``nvidia-smi`` name and power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without the last line. Imports nothing of JAX.
 """
@@ -847,7 +905,8 @@ def phase_resample_slice(mt, torch, dev, rs):
 
 
 def phase_resample_times(mt, torch, x, x64, rs, card):
-    """bench.py's six arbitrary/Farrow rows: kernel vs plain version."""
+    """bench.py's six arbitrary/Farrow rows, and arbitrary on the 64
+    channels: kernel vs plain version."""
     ha = bench_taps(mt)
     x1 = x.view(1, -1)
     xt64 = x64.t().contiguous()
@@ -856,7 +915,10 @@ def phase_resample_times(mt, torch, x, x64, rs, card):
             ("farrow_refrate", R_REF, 4, x1, False),
             ("farrow_0.4709", 0.4709, 4, x1, False),
             ("farrow_64ch_batched", 0.9173, 4, x64, False),
-            ("farrow_64ch_tmajor", 0.9173, 4, xt64, True))
+            ("farrow_64ch_tmajor", 0.9173, 4, xt64, True),
+            # no bench row: TPU kernel 6 (select4's channel-batched
+            # arbitrary resample) at the 64-channel shapes
+            ("arbitrary_64ch_batched", 0.9173, None, x64, False))
     out, notes = {}, []
     for name, rate, po, xs, tm in rows:
         p = mt.make_kernel(ha, rate=rate, nphi=32, polyorder=po,
@@ -1788,8 +1850,15 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
         if p is d.kernel:
             blk = (pp.polyphase, (x[:bs].view(1, -1), hist, p.bank, 147,
                                   160, 1, 1, n_b))
+            blk_bound = _polyphase_bound(torch, blk[1], torch.float32, "f32")
         else:
             blk = (rs.resample, (x[:bs].view(1, -1), hist, p, 0, 1, n_b))
+            # x, history and table read once, outputs written once; each
+            # output takes T * (P + 1) multiply-adds
+            blk_bound = _bound(
+                sum(t.numel() * t.element_size()
+                    for t in (blk[1][0], hist, p.bank)) + n_b * 4,
+                n_b * p.bank.numel() // p.nphi, "f32")
         blk_ms = _time_ms(torch, lambda: blk[0](*blk[1]), iters=20)
         # the general variant in turn (the same call with it forced)
         gen_ms = _time_ms(torch, lambda: blk[0](*blk[1], variant="general"),
@@ -1815,7 +1884,8 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
             f"from the first push to the end of flush"
             f"{', push loop under sync debug mode error' if s is s_d else ''}"
             f"); one block's kernel {blk_ms * 1e3:.2f} us (general variant "
-            f"{gen_ms * 1e3:.2f} us) against "
+            f"{gen_ms * 1e3:.2f} us, bound {blk_bound[0] * 1e3:.3f} us, "
+            f"{blk_bound[1]}) against "
             f"{sec * 1e3 / (st['blocks'] + 1):.3f} ms of the stream's wall "
             f"time a block: the kernels fill {busy:.2%} of it")
 
@@ -2045,6 +2115,630 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
     return out, launches
 
 
+
+# --------------------------------------------------------------------------- #
+# 3f-5f: the parallel layer, on WORLD gloo ranks sharing the card
+# --------------------------------------------------------------------------- #
+
+WORLD = 4
+SHARD_MESHES = ((2, 2), (1, 4), (4, 1))
+SHARD_SPECS = (Fraction(1, 1), Fraction(4, 1), Fraction(1, 4),
+               Fraction(7, 5), Fraction(147, 160))
+SHARD_N = 64_000          # 3f samples a channel (a multiple of 4 * 160)
+SHARD_FARROW = (64, 32_000)
+HEAD_SUPER = (2_560_000, 2_560_000, 2_880_000)  # 4f's three super-blocks
+MC_SHAPE = (64, 125_000)  # bench.py's farrow_64ch_* shapes
+TOL_SHARD_FULL = 1e-6     # sharded vs unsharded at full width, of max|y|
+RANK_TIMEOUT_S = 420
+
+
+def _launched(pp, rs):
+    """Every launch of both kernels' wrappers since the last reset."""
+    return (sum(pp.launches.values()) + sum(rs.launches.values())
+            + rs.launches_tm)
+
+
+def _shard_rank(rank, device, n_head):
+    """3f and 4f on one rank of the gloo world (every rank on the same
+    card): every case's sharded result against ``filt`` of the whole
+    signal on the card, each rank's launch count per case, and the 5f
+    per-shard kernel and halo times of the headline on (1, 4). Returns
+    this rank's summary; a failed check raises (and fails the smoke)."""
+    import torch
+
+    import multirate_tpu_torch as mt
+    from multirate_tpu_torch.ops import indexing as idx
+    from multirate_tpu_torch.ops.cuda import polyphase as pp
+    from multirate_tpu_torch.ops.cuda import resample as rs
+    from multirate_tpu_torch.parallel import sharded as sh
+    from multirate_tpu_torch.parallel.scaling_bench import host_span
+    from multirate_tpu_torch.utils.oracle import naivefilt, naivefilt_farrow
+
+    dev = torch.device(device)
+    meshes = {m: sh.make_mesh(*m) for m in SHARD_MESHES}
+    rng = np.random.default_rng(21)  # the same draws on every rank
+    rows, launches = [], {}
+
+    def counted(fn):
+        """fn's result and this rank's launches by entry and variant."""
+        _reset_counts(pp)
+        _reset_counts(rs)
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {**_by_variant(pp), **_by_variant(rs)}
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    # ---- 3f: sharded_resample and streamed blocks vs whole filt ------- #
+    cases = []
+    for spec in SHARD_SPECS:
+        cases.append((f"{spec}", dict(ratio=spec), rng.standard_normal(48)
+                      .astype(np.float32), rng.standard_normal(
+                          (8, SHARD_N)).astype(np.float32)))
+    h_arb = (bench_taps(mt)).astype(np.float64)
+    for rate in (0.8112, 1.618):
+        cases.append((f"arbitrary {rate} f64", dict(rate=rate), h_arb,
+                      rng.standard_normal((4, SHARD_N))))
+    cases.append(("Farrow 0.9173 64ch", dict(rate=0.9173, nphi=32,
+                                             polyorder=4),
+                  bench_taps(mt), rng.standard_normal(SHARD_FARROW).astype(
+                      np.float32)))
+    for mesh_shape, mesh in meshes.items():
+        for label, kw, h, x_np in cases:
+            p = mt.make_kernel(h, device=dev, **kw)
+            x = torch.from_numpy(x_np).to(dev)
+            y, by = counted(lambda: sh.sharded_resample(p, x, mesh))
+            n = sum(by.values())
+            want = mt.filt(h, x, kw.get("ratio", kw.get("rate")),
+                           kw.get("nphi", 32), kw.get("polyorder"))
+            check(tuple(y.shape) == tuple(want.shape),
+                  f"3f {label} on {mesh_shape}: {tuple(y.shape)}, whole "
+                  f"{tuple(want.shape)}")
+            err = rel(y, want)
+            check(err <= TOL_KERNEL, f"3f {label} on {mesh_shape}: {err:.3e}")
+            check(n == 1, f"3f {label} on {mesh_shape}: {n} launches")
+            rows.append((f"{label} {mesh_shape}", n, err))
+        # 7//5 streamed in three super-blocks: counts and state exact
+        h = rng.standard_normal(32).astype(np.float32)
+        p = mt.make_kernel(h, ratio=Fraction(7, 5), device=dev)
+        x = torch.from_numpy(rng.standard_normal((4, 3 * 6400)).astype(
+            np.float32)).to(dev)
+        ci, _, _ = sh._coordinate(mesh)
+        cl = 4 // mesh_shape[0]
+        st = mt.init_state(p, (cl,), device=dev)
+
+        def stream():
+            nonlocal st
+            outs, total = [], 0
+            for b in range(3):
+                xl, _ = sh.local_block(p, x[:, b * 6400:(b + 1) * 6400],
+                                       mesh)
+                y, counts, st = sh.shard_filt_block(p, st, xl, mesh)
+                outs.append(sh.compact(y, counts, mesh))
+                total += sum(counts)
+            return torch.cat(outs, -1), total
+
+        (y, total), by = counted(stream)
+        n = sum(by.values())
+        want, count, ws = mt.filt_block(p, mt.init_state(p, (4,)), x)
+        want = want[ci * cl:(ci + 1) * cl]
+        check(total == count and tuple(y.shape) == tuple(want.shape),
+              f"3f stream on {mesh_shape}: {total} outputs, whole {count}")
+        check((st.phase, st.deficit) == (ws.phase, ws.deficit)
+              and torch.equal(st.history, ws.history[ci * cl:(ci + 1) * cl]),
+              f"3f stream on {mesh_shape}: state differs")
+        err = rel(y, want)
+        check(err <= TOL_KERNEL, f"3f stream on {mesh_shape}: {err:.3e}")
+        check(n == 3, f"3f stream on {mesh_shape}: {n} launches")
+        rows.append((f"7/5 3 blocks {mesh_shape}", n, err))
+
+    # bf16 and int8 on (2, 2): one streamed block a channel pair
+    mesh = meshes[(2, 2)]
+    ci, _, _ = sh._coordinate(mesh)
+    h_q = (mt.firdes(24 * 21, 0.5 / 21, mt.kaiser, beta=7.0) * 21
+           ).astype(np.float32)
+    x_q = torch.from_numpy(rng.standard_normal((4, SHARD_N)).astype(
+        np.float32)).to(dev)
+    for mode in (torch.bfloat16, torch.int8):
+        h = _as_mode(mt, torch, h_q, mode).to(dev)
+        x = _as_mode(mt, torch, x_q, mode)
+        p = mt.make_kernel(h, ratio=Fraction(147, 160), device=dev)
+
+        def block():
+            xl, _ = sh.local_block(p, x, mesh)
+            y, counts, st = sh.shard_filt_block(
+                p, mt.init_state(p, (2,), mode, device=dev), xl, mesh)
+            return sh.compact(y, counts, mesh), st
+
+        (y, st), by = counted(block)
+        n = sum(by.values())
+        want, count, ws = mt.filt_block(p, mt.init_state(p, (4,), mode), x)
+        want = want[2 * ci:2 * ci + 2]
+        check(tuple(y.shape) == tuple(want.shape)
+              and (st.phase, st.deficit) == (ws.phase, ws.deficit),
+              f"3f {mode} on (2, 2): {tuple(y.shape)} / state")
+        if mode == torch.int8:
+            check(torch.equal(y, want), "3f int8 differs from whole")
+            err = 0.0
+        else:
+            err = rel(y, want)
+            check(err <= 2.0 ** -8, f"3f bf16: {err:.3e} (one bf16 ulp)")
+        check(n == 1, f"3f {mode}: {n} launches")
+        rows.append((f"{mode} (2, 2)".replace("torch.", ""), n, err))
+    # a block shorter than h_min raises ValueError, on every rank
+    p = mt.make_kernel(rng.standard_normal(300), ratio=1, device=dev)
+    xs = torch.zeros((1, 800), dtype=torch.float64, device=dev)
+    try:
+        sh.shard_filt(p, sh.local_block(p, xs, meshes[(1, 4)])[0],
+                      meshes[(1, 4)])
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "3f: a 200-sample block under h_min 299 did not raise")
+    out = {"3f": rows}
+
+    # ---- 4f: the headline, the 64-channel model, streamed headline ---- #
+    h = headline_taps(mt)
+    ratio = Fraction(147, 160)
+    p = mt.make_kernel(h, ratio=ratio, device=dev)
+    x_np = np.random.default_rng(0).standard_normal(n_head).astype(
+        np.float32)
+    x = torch.from_numpy(x_np).to(dev).view(1, -1)
+    mesh = meshes[(1, 4)]
+    y, by = counted(lambda: sh.sharded_resample(p, x, mesh))
+    n = sum(by.values())
+    whole = mt.filt(h, x, ratio)
+    check(tuple(y.shape) == tuple(whole.shape), f"4f headline {y.shape}")
+    err_head = rel(y, whole)
+    check(err_head <= TOL_SHARD_FULL, f"4f headline: {err_head:.3e}")
+    check(by == {"f32/reg": 1}, f"4f headline: launches {by}")
+    launches["headline (1, 4)"] = n
+    oracle = None
+    if rank == 0:
+        n_in = mt.inputlength(N_ORACLE, ratio)
+        ref = naivefilt(h.astype(np.float64),
+                        x_np[:n_in].astype(np.float64), ratio)[:N_ORACLE]
+        oracle = _rel_rms(y[0, :N_ORACLE].double().cpu().numpy(), ref)
+        check(oracle <= TOL_ORACLE, f"4f headline oracle {oracle:.3e}")
+
+    # the headline's three streamed super-blocks
+    st = mt.init_state(p, (1,), device=dev)
+
+    def stream():
+        nonlocal st
+        outs, total, off = [], 0, 0
+        for size in HEAD_SUPER:
+            xl, _ = sh.local_block(p, x[:, off:off + size], mesh)
+            yb, counts, st = sh.shard_filt_block(p, st, xl, mesh)
+            outs.append(sh.compact(yb, counts, mesh))
+            total += sum(counts)
+            off += size
+        return torch.cat(outs, -1), total
+
+    (ys, total), by = counted(stream)
+    n = sum(by.values())
+    _, phase, deficit = idx.host_carry(p, 1, 1, n_head)
+    check(total == whole.shape[-1] and tuple(ys.shape) == tuple(whole.shape),
+          f"4f streamed headline: {total} outputs, whole {whole.shape[-1]}")
+    check((st.phase, st.deficit) == (phase, deficit)
+          and torch.equal(st.history, x[:, n_head - p.h_min:]),
+          "4f streamed headline: state differs from the whole block's")
+    err_stream = rel(ys, whole)
+    check(err_stream <= TOL_SHARD_FULL,
+          f"4f streamed headline: {err_stream:.3e}")
+    check(n == len(HEAD_SUPER), f"4f streamed headline: {n} launches")
+    launches["streamed headline (1, 4)"] = n
+    del ys, whole
+
+    # MultiChannelResampler on (64, 125,000) over (4, 1) and (2, 2)
+    xm_np = np.random.default_rng(1).standard_normal(MC_SHAPE).astype(
+        np.float32)
+    xm = torch.from_numpy(xm_np).to(dev)
+    mc = {}
+    for n_ch in (4, 2):
+        m = mt.models.MultiChannelResampler(0.9173, nphi=32, polyorder=4,
+                                            n_ch_shards=n_ch, device=dev)
+        ym, by = counted(lambda: m(xm))
+        n = sum(by.values())
+        want = mt.filt(m.taps, xm, 0.9173, 32, 4)
+        shape = tuple(m.mesh.mesh.shape)
+        check(tuple(ym.shape) == tuple(want.shape), f"4f model {ym.shape}")
+        err = rel(ym, want)
+        check(err <= TOL_SHARD_FULL, f"4f model on {shape}: {err:.3e}")
+        check(n == 1 and all(k.startswith("f32/") for k in by),
+              f"4f model on {shape}: launches {by}")
+        launches[f"MultiChannelResampler {shape}"] = n
+        worst = None
+        if rank == 0:
+            worst = 0.0
+            for c in (0, MC_SHAPE[0] - 1):
+                ref = naivefilt_farrow(m.taps.astype(np.float64),
+                                       xm_np[c].astype(np.float64), 0.9173,
+                                       32, 4)[:N_ORACLE]
+                got = ym[c, :len(ref)].double().cpu().numpy()
+                worst = max(worst, _rel_rms(got, ref))
+            check(worst <= TOL_ORACLE, f"4f model oracle {worst:.3e}")
+        mc[str(shape)] = (err, worst, m.params.taps_per_phi)
+        del ym, want
+    out["4f"] = dict(headline=(err_head, oracle), stream=err_stream, mc=mc,
+                     launches=launches)
+
+    # ---- 5f: the headline's per-shard kernel and halo time on (1, 4) -- #
+    _, k, n_t = sh._coordinate(mesh)
+    xl, _ = sh.local_block(p, x, mesh)
+    st = mt.init_state(p, (1,), device=dev)
+    halo = [None]
+
+    def comm():
+        halo[0] = sh.exchange_halo(st.history, xl, mesh)
+        sh.broadcast_tail(xl, p.h_min, mesh)
+
+    def events(fn):
+        """ms between two events around ``fn``, a device-side sleep queued
+        first to hide the host's enqueue: the span of the kernel on the
+        stream. Only the rank whose turn it is queues one."""
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    # the host-staged halo and broadcast on the host clock, all ranks
+    # together, with no device sleep queued ahead of any rank's copies
+    halo_ms, kernel_ms = [], []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        halo_ms.append(host_span(comm) * 1e3)
+        for turn in range(n_t):
+            torch.distributed.barrier()
+            if turn == k:
+                kernel_ms.append(events(lambda: sh.shard_step(
+                    p, st, halo[0], xl, k)))
+    plain_ms = max_abs = None
+    if k == 0:  # the shard's plain version, on rank 0's shard
+        yk = sh.shard_step(p, st, halo[0], xl, k)
+        yp = sh.shard_step(p, st, halo[0], xl, k, "windows")
+        max_abs = float((yk - yp).abs().max())
+        check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
+              f"5f shard kernel vs plain {max_abs:.3e}")
+        del yk, yp
+        plain_ms = _time_ms(torch, lambda: sh.shard_step(
+            p, st, halo[0], xl, k, "windows"), iters=1, reps=3)
+    out["5f"] = dict(kernel_ms=statistics.median(kernel_ms),
+                     max_abs_err=max_abs,
+                     halo_ms=statistics.median(halo_ms), plain_ms=plain_ms,
+                     shard=xl.shape[-1],
+                     bound=_polyphase_bound(torch, (
+                         xl, halo[0], p.bank, 147, 160, 1, 1,
+                         idx.host_carry(p, 1, 1, xl.shape[-1])[0]),
+                         torch.float32, "f32"))
+    return out
+
+
+def phase_sharded(mt, torch, card):
+    """3f, 4f and the per-shard half of 5f: a gloo world of WORLD ranks,
+    all on ``cuda:0``, with the kernels built here before the spawn."""
+    from multirate_tpu_torch.parallel.multihost import spawn_world
+
+    t0 = time.perf_counter()
+    ranks = spawn_world(_shard_rank, WORLD, args=(N_HEAD,), device="cuda:0",
+                        timeout_s=RANK_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    per_rank = [dict((label, n) for label, n, _ in r["3f"]) for r in ranks]
+    worst = max(err for r in ranks for _, _, err in r["3f"])
+    totals = {label: sum(pr[label] for pr in per_rank)
+              for label in per_rank[0]}
+    want = {label: WORLD * (3 if "3 blocks" in label else 1)
+            for label in totals}
+    check(totals == want, f"3f launches over the ranks {totals}")
+    print(f"[3f sharded vs unsharded] {WORLD} gloo ranks on one card, halo "
+          f"and history staged through the host; meshes {SHARD_MESHES}; "
+          f"{len(per_rank[0])} cases a rank (rational 1/1, 4/1, 1/4, 7/5, "
+          f"147/160 with 48 taps on (8, {SHARD_N}); arbitrary 0.8112 and "
+          f"1.618 in float64; Farrow 0.9173 on {SHARD_FARROW}; 7/5 in three "
+          f"streamed super-blocks; bf16 and int8 147/160 on (2, 2)): "
+          f"counts and states exact, worst error {worst:.3e} of max|y| "
+          f"(limit {TOL_KERNEL}; int8 equal; bf16 limit 2^-8); block under "
+          f"h_min raised ValueError on every rank; launches a rank per "
+          f"case: " + "; ".join(f"{label} {[pr[label] for pr in per_rank]}"
+                                for label in per_rank[0])
+          + f"; world of {WORLD} ran in {secs:.1f} s")
+    f = ranks[0]["4f"]
+    launch_rows = {label: [r["4f"]["launches"][label] for r in ranks]
+                   for label in f["launches"]}
+    for label, got in launch_rows.items():
+        blocks = len(HEAD_SUPER) if label.startswith("streamed") else 1
+        check(sum(got) == WORLD * blocks, f"4f {label}: launches {got}")
+    print(f"[4f sharded at full width] headline 147//160 on {N_HEAD} "
+          f"samples over (1, 4) ({N_HEAD // WORLD} a shard): max error "
+          f"{f['headline'][0]:.3e} of max|y| against the unsharded filt on "
+          f"the card (limit {TOL_SHARD_FULL}), oracle rel RMS "
+          f"{f['headline'][1]:.3e} (limit {TOL_ORACLE}); the same samples "
+          f"streamed in super-blocks {HEAD_SUPER} through shard_filt_block + "
+          f"compact: {f['stream']:.3e}, counts and state exact; "
+          + "; ".join(f"MultiChannelResampler(0.9173, nphi=32, polyorder=4)"
+                      f" on {MC_SHAPE} over {shape} (T = {T}): {e:.3e}, "
+                      f"oracle rel RMS {o:.3e}"
+                      for shape, (e, o, T) in f["mc"].items())
+          + "; launches a rank: "
+          + "; ".join(f"{label} {got}" for label, got in launch_rows.items()))
+    five = [r["5f"] for r in ranks]
+    print(f"[5f per-shard times] headline on (1, 4), {five[0]['shard']} "
+          f"samples a shard, median of 7: kernel ms by rank (CUDA events, "
+          f"each rank alone) "
+          + str([round(s["kernel_ms"], 4) for s in five])
+          + ", halo and history broadcast ms by rank (through the host, "
+          + "all ranks together, host clock between synchronizes) "
+          + str([round(s["halo_ms"], 4) for s in five])
+          + f"; rank 0's shard: kernel vs plain max abs err "
+          f"{five[0]['max_abs_err']:.3e}, plain {five[0]['plain_ms']:.3f} "
+          f"ms, bound "
+          f"{five[0]['bound'][0]:.4f} ms ({five[0]['bound'][1]}); card: "
+          f"{card}")
+    kernel = [s["kernel_ms"] for s in five]
+    return dict(
+        launches=sum(launch_rows["headline (1, 4)"]),
+        max_abs_err=five[0]["max_abs_err"], ms=statistics.median(kernel),
+        plain_ms=five[0]["plain_ms"], bound_ms=five[0]["bound"][0],
+        bound_by=five[0]["bound"][1], library_ms=None,
+        halo_ms=statistics.median(s["halo_ms"] for s in five))
+
+
+def phase_sharded_nccl(mt, torch, dev, pp, x):
+    """4f, NCCL: a world of one with the nccl backend on the card; the
+    headline through ``sharded_resample`` on (1, 1), then steady-state
+    ``shard_filt_block`` + ``compact_device`` blocks with no
+    device-to-host sync allowed."""
+    import torch.distributed as dist
+
+    from multirate_tpu_torch.parallel import initialize, make_mesh
+    from multirate_tpu_torch.parallel import sharded as sh
+
+    initialize(backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"world {dist.get_backend()} x {dist.get_world_size()}")
+        mesh = make_mesh(1, 1)
+        h = headline_taps(mt)
+        p = mt.make_kernel(h, ratio=Fraction(147, 160), device=dev)
+        x2 = x.view(1, -1)
+        y = sh.sharded_resample(p, x2, mesh)
+        whole = mt.filt(h, x2, Fraction(147, 160))
+        check(torch.equal(y, whole), "nccl (1, 1): differs from filt")
+        blk = x2[:, :65_600]
+        st = mt.init_state(p, (1,), device=dev)
+        yb, counts, st = sh.shard_filt_block(p, st, blk, mesh)  # warm up
+        sh.compact_device(yb, counts, mesh)
+        torch.cuda.synchronize()
+        _reset_counts(pp)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = []
+            for b in range(1, 9):
+                yb, counts, st = sh.shard_filt_block(
+                    p, st, x2[:, b * 65_600:(b + 1) * 65_600], mesh)
+                outs.append(sh.compact_device(yb, counts, mesh))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        n = pp.launches["f32"]
+        check(n == 8, f"nccl steady state: {n} launches")
+        got = torch.cat([d[:, :t] for d, t in outs], -1)
+        n0 = mt.outputlength(65_600, Fraction(147, 160))
+        ref = whole[:, n0:n0 + got.shape[-1]]
+        err = float((got - ref).abs().max() / ref.abs().max())
+        check(err <= TOL_SHARD_FULL, f"nccl steady state: {err:.3e}")
+    finally:
+        dist.destroy_process_group()
+    print(f"[4f nccl] world of 1, backend nccl on the card: headline "
+          f"through sharded_resample on (1, 1) equal to filt bit for bit; "
+          f"8 steady-state blocks of 65,600 through shard_filt_block + "
+          f"compact_device under set_sync_debug_mode('error'): no sync, "
+          f"{n} launches, max error {err:.3e} of max|y| against filt")
+
+
+def phase_scaling(card):
+    """5f: ``parallel.scaling_bench`` on the card with WORLD ranks."""
+    from multirate_tpu_torch.parallel import scaling_bench
+
+    t0 = time.perf_counter()
+    got = scaling_bench.run("cuda", WORLD, timeout_s=RANK_TIMEOUT_S)
+    print(f"[5f scaling_bench] {json.dumps(got)}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card}")
+    return got
+
+
+# --------------------------------------------------------------------------- #
+# 3g-4g: bf16 and int8 signals at an arbitrary or Farrow rate
+# --------------------------------------------------------------------------- #
+
+def phase_rate_quant_vs_plain(mt, torch, dev, rs):
+    """3g: the widened route (one cast to float32, the float32 kernel)
+    against its plain version on the same values."""
+    ha = bench_taps(mt)
+    rng = np.random.default_rng(31)
+    _reset_counts(rs)
+    cases, worst = 0, 0.0
+    for mode in (torch.bfloat16, torch.int8):
+        for rate in (R_REF, 0.4709, 0.9173):
+            for po in (None, 4):
+                p = mt.make_kernel(ha, rate=rate, nphi=32, polyorder=po,
+                                   device=dev)
+                for ch in (1, 64):
+                    x = _as_mode(mt, torch, torch.from_numpy(
+                        rng.standard_normal((ch, 20_011)).astype(
+                            np.float32)), mode).to(dev)
+                    for phase in (None, 0.37):
+                        st = mt.init_state(p, (ch,), mode)
+                        if phase is not None:
+                            st = mt.setphase(p, st, phase)
+                        yk, ck, sk = mt.filt_block(p, st, x, path="kernel")
+                        yp, cp, sp = mt.filt_block(p, st, x, path="windows")
+                        torch.cuda.synchronize()
+                        label = f"{mode} {rate:.6g} P{po} {ch}ch {phase}"
+                        check(ck == cp and yk.dtype == torch.float32
+                              and (sk.phase, sk.deficit)
+                              == (sp.phase, sp.deficit)
+                              and torch.equal(sk.history, sp.history),
+                              f"3g {label}: counts or states differ")
+                        err = float((yk - yp).abs().max()
+                                    / yp.abs().max())
+                        check(err <= TOL_KERNEL, f"3g {label}: {err:.3e}")
+                        worst = max(worst, err)
+                        cases += 1
+    by_variant = _by_variant(rs)
+    check(rs.launches["f32"] == cases, f"3g launches {rs.launches}")
+    print(f"[3g widened rate vs plain] {cases} cases (bf16 and int8; "
+          f"arbitrary and Farrow at 1/2.123456789, 0.4709, 0.9173; 1 and 64 "
+          f"channels; fresh and after setphase(0.37)): counts and states "
+          f"exact, worst {worst:.3e} of max|y| (limit {TOL_KERNEL}); "
+          f"launches {by_variant}")
+    return worst
+
+
+def phase_rate_quant_slice(mt, torch, dev, rs, x, card):
+    """4g: 8 M bf16 samples at 1/2.123456789 and 0.4709 (Farrow) through
+    ``filt`` and ``FIRFilter``, against the float64 oracles over the same
+    bf16 values; times of the widened route, its kernel alone on the
+    widened values, the float32 row on the same values and the plain
+    version, and the int8 route's."""
+    from multirate_tpu_torch.ops import indexing as idx
+    from multirate_tpu_torch.utils.oracle import naivefilt, naivefilt_farrow
+
+    ha = bench_taps(mt)
+    xb = x.to(torch.bfloat16)
+    xb_np = xb.float().cpu().numpy()
+    rows = (("arbitrary", R_REF, None, TOL_ORACLE_ARB_REF),
+            ("Farrow", 0.4709, 4, TOL_ORACLE))
+    _reset_counts(rs)
+    runs = []
+    for _, rate, po, _ in rows:
+        y = mt.filt(ha, xb, rate, 32, po)
+        f = mt.FIRFilter(ha, rate, 32, po)
+        runs.append((y, [f.filt(xb[i:i + CHUNK])
+                         for i in range(0, N_HEAD, CHUNK)], f))
+    torch.cuda.synchronize()
+    launches, by_variant = rs.launches["f32"], _by_variant(rs)
+    n_chunks = len(runs[0][1])
+    check(launches == 2 * (1 + n_chunks) and by_variant == {
+        "f32/t10p2": 1 + n_chunks, "f32/t10p5": 1 + n_chunks},
+        f"4g launches {by_variant}")
+    notes = []
+    for (label, rate, po, limit), (y, parts, f) in zip(rows, runs):
+        n_want = mt.outputlength(f.params, N_HEAD)
+        check(y.dtype == torch.float32 and tuple(y.shape) == (n_want,)
+              and bool(torch.isfinite(y).all()), f"4g {label}: {y.shape}")
+        yc = torch.cat(parts)
+        _, u_end, d_end = idx.host_carry(f.params, 0, 1, N_HEAD)
+        check(tuple(yc.shape) == (n_want,) and (f.state.phase, f.state.deficit)
+              == (u_end, d_end), f"4g {label}: chunked count or state")
+        d = yc.double() - y.double()
+        rms_chunk = float(torch.sqrt(torch.mean(d * d)))
+        check(rms_chunk <= TOL_CHUNKED, f"4g {label}: chunked {rms_chunk}")
+        n_in = mt.inputlength(f.params, N_ORACLE)
+        x_in = xb_np[:n_in].astype(np.float64)
+        ref = (naivefilt(ha.astype(np.float64), x_in, rate, 32) if po is None
+               else naivefilt_farrow(ha.astype(np.float64), x_in, rate, 32,
+                                     po))[:N_ORACLE]
+        rel = _rel_rms(y[:N_ORACLE].double().cpu().numpy(), ref)
+        check(rel <= limit, f"4g {label}: oracle rel RMS {rel:.3e}")
+        notes.append(f"{label} {rate:.9g} on {N_HEAD} bf16 -> {n_want}: "
+                     f"oracle rel RMS {rel:.3e} (limit {limit}), "
+                     f"{n_chunks} chunks: chunked-vs-whole RMS "
+                     f"{rms_chunk:.3e}")
+        del parts, yc
+
+    # times: the widened route (cast + kernel), the kernel alone on the
+    # widened values, the float32 row on the same values, plain; int8
+    p = mt.make_kernel(ha, rate=R_REF, nphi=32, device=x.device)
+    n = mt.outputlength(p, N_HEAD)
+    x8 = _as_mode(mt, torch, x, torch.int8)
+    out, t_notes = {}, []
+    for name, xs in (("bf16", xb), ("int8", x8)):
+        st = mt.init_state(p, (), xs.dtype)
+        xw = xs.float().view(1, -1)
+        hist = torch.zeros(1, p.h_min, device=x.device)
+        args = (xw, hist, p, 0, 1, n)
+        yk = mt.filt_block(p, st, xs)[0]
+        yp = mt.filt_block(p, st, xs, path="windows")[0]
+        max_abs = float((yk - yp).abs().max())
+        check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
+              f"4g {name}: route vs plain {max_abs:.3e}")
+        del yk, yp
+        route_ms = _time_ms(torch, lambda: mt.filt_block(p, st, xs), 20)
+        kernel_ms = _time_ms(torch, lambda: rs.resample(*args), 20)
+        plain_ms = _time_ms(torch, lambda: mt.filt_block(
+            p, st, xs, path="windows"), 2)
+        # the narrow signal and history read once, the table once, the
+        # float32 outputs written once; 2T multiply-adds an output
+        nbytes = (xs.numel() + p.h_min) * xs.element_size() \
+            + p.bank.numel() * 4 + n * 4
+        bound = _bound(nbytes, n * p.bank.numel() // p.nphi, "f32")
+        out[name] = dict(max_abs_err=max_abs, ms=route_ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=None, kernel_ms=kernel_ms)
+        t_notes.append(f"{name} in: route (cast + kernel) {route_ms:.4f} ms, "
+                       f"kernel alone on the widened values {kernel_ms:.4f} "
+                       f"ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                       f"({bound[1]}, narrow input bytes)")
+    xf = xb.float().view(1, -1)
+    f32_ms = _time_ms(torch, lambda: rs.resample(
+        xf, torch.zeros(1, p.h_min, device=x.device), p, 0, 1, n), 20)
+    t_notes.append(f"the float32 row on the same values {f32_ms:.4f} ms")
+    out["bf16"]["launches"] = launches
+    out["bf16"]["f32_ms"] = f32_ms
+    print(f"[4g widened rate slice] {'; '.join(notes)}; launches "
+          f"{by_variant}; times at 1/2.123456789 on {N_HEAD}, CUDA events: "
+          f"{'; '.join(t_notes)}; card: {card}")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 4h: the example flows on the card
+# --------------------------------------------------------------------------- #
+
+def phase_examples(torch, pp, rs):
+    """4h: each example module's ``main()`` on the card, with the shrink
+    keywords ``tests/test_examples.py`` uses, and ``wav_resample --demo``
+    with its amplitude check; each flow's kernel launches counted."""
+    import contextlib
+    import importlib
+    import io
+
+    from multirate_tpu_torch import examples
+
+    shrink = {"arb_farrow_speed": dict(
+        n_samples=20_000, rates=(1 / 2.123456789,), dtypes=(np.float32,),
+        repeat=3, iters=2)}
+    notes = []
+    for name in examples.FLOWS:
+        mod = importlib.import_module(f"multirate_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        _reset_counts(pp)
+        _reset_counts(rs)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = (mod.main(["--demo"]) if name == "wav_resample"
+                   else mod.main(**shrink.get(name, {})))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = _launched(pp, rs)
+        check(buf.getvalue() and n > 0,
+              f"4h {name}: {n} kernel launches, output "
+              f"{buf.getvalue()[:200]!r}")
+        if name == "wav_resample":
+            check(0.45 < got < 0.55, f"4h wav_resample amplitude {got}")
+            name = f"{name} --demo (amplitude {got:.3f})"
+        notes.append(f"{name} {secs:.2f} s, {n} launches")
+    print(f"[4h examples on the card] {'; '.join(notes)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2074,6 +2768,12 @@ def main() -> int:
         w_rows = phase_wide_times(mt, torch, xc, xd, pp, rs, card)
         e_rows, p_launches = phase_runtime_times(mt, torch, x, xc, pp, rs,
                                                  probe, card)
+        f_row = phase_sharded(mt, torch, card)
+        phase_sharded_nccl(mt, torch, dev, pp, x)
+        phase_rate_quant_vs_plain(mt, torch, dev, rs)
+        g_rows = phase_rate_quant_slice(mt, torch, dev, rs, x, card)
+        phase_examples(torch, pp, rs)
+        phase_scaling(card)
         check("jax" not in sys.modules, "jax was imported")
     except Exception:  # the smoke's boundary: report and fail
         traceback.print_exc()
@@ -2159,6 +2859,22 @@ def main() -> int:
                         "source": "multirate_tpu_torch/csrc/probe.cu",
                         "replaces": f"multirate_tpu/utils/metrics.py:{line}",
                         "launches": launched, **e_rows[name]})
+    # this slice's paths: the sharded headline on (1, 4), 4 gloo ranks on
+    # one card (launches summed over the ranks; times per shard), and bf16
+    # at 1/2.123456789 through the widened route (times: cast + kernel)
+    kernels.append({"name": "polyphase_f32_sharded", "route": "cuda",
+                    "source": "multirate_tpu_torch/csrc/polyphase.cu",
+                    "replaces": zc, **f_row})
+    g = g_rows["bf16"]
+    kernels.append({"name": "resample_f32_bf16in", "route": "cuda",
+                    "source": "multirate_tpu_torch/csrc/resample.cu",
+                    "replaces": "multirate_tpu/ops/pallas/select3.py:319, "
+                                "multirate_tpu/ops/pallas/select3.py:347",
+                    "launches": g["launches"],
+                    "max_abs_err": g["max_abs_err"],
+                    **{k: g[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "kernel_ms", "f32_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,15 +19,20 @@ taps and signal); complex values stay interleaved, as torch stores them.
 The rational family also runs the quantized modes: bfloat16 taps and
 signal (float32 outputs), int8 (exact int32 accumulators, with the
 helpers of ``quant``), and bfloat16 or float16 output stores
-(``make_kernel(..., store_dtype=)``).
+(``make_kernel(..., store_dtype=)``). At an arbitrary or Farrow rate a
+bfloat16 or int8 signal is widened to float32 (float32 outputs).
 
 The runtime around them: ``io`` (the native ring buffer and the
 ``StreamingResampler`` that feeds fixed blocks from arbitrary chunks, with
-checkpoint and resume), ``models`` (the self-designing ``Resampler`` and
-the ``DATToCD`` converter) and ``utils`` (oracles, checkpoint files,
-throughput and roofline reports with the card's copy and expand ceilings
-from a third hand-written kernel, ``csrc/probe.cu``, the cross-path check,
-and profiler traces). Sharding is not ported yet (ROADMAP.md, queue 1).
+checkpoint and resume), ``models`` (the self-designing ``Resampler``, the
+``DATToCD`` converter and the sharded ``MultiChannelResampler``),
+``utils`` (oracles, checkpoint files, throughput and roofline reports with
+the card's copy and expand ceilings from a third hand-written kernel,
+``csrc/probe.cu``, the cross-path check, and profiler traces),
+``examples`` (the JAX package's example flows) and ``parallel`` (channel
+x time sharding over the ranks of a ``torch.distributed`` mesh: a halo
+exchange between time blocks and each block's entry state in closed
+form).
 
 Entry points run on the card unless the caller names the CPU
 (``device="cpu"``) or hands over CPU tensors.
@@ -81,7 +86,7 @@ from .ops import (
     tapsforphase,
 )
 
-from . import io, models, utils
+from . import io, models, parallel, utils
 
 __version__ = "0.1.0"
 
@@ -96,5 +101,6 @@ __all__ = [
     "filt", "filt_block", "filt_block_tm", "init_state",
     "inputlength", "max_outputs",
     "nextphase", "outputlength", "polyfit", "polyval", "pfb2pnfb", "reset",
-    "setphase", "taps2pfb", "tapsforphase", "quant", "io", "models", "utils",
+    "setphase", "taps2pfb", "tapsforphase", "quant", "io", "models",
+    "parallel", "utils",
 ]

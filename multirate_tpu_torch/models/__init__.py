@@ -2,10 +2,10 @@
 
 The reference's examples/ directory is its "model zoo" (the DAT-to-CD
 converter, the arbitrary-rate and Farrow demos); these are the equivalent
-pipeline objects. ``MultiChannelResampler`` of the JAX package waits for
-the sharding slice (ROADMAP.md, queue 1).
+pipeline objects; ``MultiChannelResampler`` runs its channels and time
+blocks sharded over the ranks of a ``torch.distributed`` mesh.
 """
 
-from .resampler import Resampler, DATToCD
+from .resampler import Resampler, DATToCD, MultiChannelResampler
 
-__all__ = ["Resampler", "DATToCD"]
+__all__ = ["Resampler", "DATToCD", "MultiChannelResampler"]

@@ -12,9 +12,11 @@ from fractions import Fraction
 import numpy as np
 
 from .. import design as _design
-from ..ops.api import FIRFilter
+from ..ops.api import FIRFilter, _as_signal
+from ..ops.params import default_device
+from ..parallel.sharded import make_mesh, sharded_resample
 
-__all__ = ["Resampler", "DATToCD"]
+__all__ = ["Resampler", "DATToCD", "MultiChannelResampler"]
 
 
 def _design_for_ratio(L: int, M: int, attenuation: float,
@@ -104,3 +106,33 @@ class DATToCD(Resampler):
                            beta=7.8562) * 147
         super().__init__(Fraction(147, 160), taps=h, dtype=dtype,
                          device=device)
+
+
+class MultiChannelResampler:
+    """Many independent channels resampled on a (channel, time) mesh of
+    ranks, the BASELINE.json 64-channel sharded configuration.
+
+    Stateless per call: ``__call__(x)`` with x of shape (channels, time),
+    the same on every rank, returns the densely resampled (channels,
+    out_time) tensor on every rank, computed with channel data
+    parallelism and time-block sequence parallelism (a halo exchange over
+    the mesh's ``"t"`` dim). The kernel and the signal live on ``device``,
+    by default the card (the rank's own under ``nccl``).
+    """
+
+    def __init__(self, ratio_or_rate, *, n_ch_shards: int = 1,
+                 n_time_shards: int | None = None, attenuation: float = 60.0,
+                 nphi: int = 32, polyorder: int | None = None, taps=None,
+                 dtype=np.float32, device=None):
+        device = default_device() if device is None else device
+        base = Resampler(ratio_or_rate, attenuation=attenuation, nphi=nphi,
+                         polyorder=polyorder, taps=taps, dtype=dtype,
+                         device=device)
+        self.taps = base.taps
+        self.params = base.kernel
+        self.mesh = make_mesh(n_ch_shards, n_time_shards)
+
+    def __call__(self, x):
+        return sharded_resample(self.params,
+                                _as_signal(x, self.params.device),
+                                self.mesh)

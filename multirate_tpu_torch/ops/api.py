@@ -17,7 +17,9 @@ tensors), and nothing moves a GPU computation to the CPU.
 
 Signals are float32, float64, complex64 or complex128 for every filter
 type, and bfloat16 and int8 for the quantized modes of the rational
-family (``ops/quant.py`` for the int8 helpers). The output type is JAX's
+family (``ops/quant.py`` for the int8 helpers); at an arbitrary or Farrow
+rate a bfloat16 or int8 signal is widened to float32 and gives float32
+outputs. The output type is JAX's
 (``filt``'s docstring); ``make_kernel``'s ``store_dtype`` narrows a
 rational-family kernel's outputs.
 """
@@ -91,7 +93,9 @@ def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
     a complex64 signal complex64, float64 taps with a complex64 signal
     complex128, and complex taps with a real signal a complex output. The
     quantized modes: bfloat16 taps and signal give float32 accumulators,
-    int8 taps and signal exact int32 accumulators.
+    int8 taps and signal exact int32 accumulators. At an arbitrary or
+    Farrow rate a bfloat16 or int8 signal gives float32 outputs (widened
+    to float32 before the kernel, with float32 or bfloat16 taps).
     """
     x = _as_signal(x, device)
     params = _kernel_for(h, ratio_or_rate, nphi, polyorder, x.device)

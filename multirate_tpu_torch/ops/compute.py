@@ -34,8 +34,15 @@ complex128; a real signal against complex taps is cast to complex. A
 kernel's ``store_dtype`` is the output type: float32 and bf16 modes store
 it narrow in the kernel, the others cast at the end, as JAX does outside
 its zero-copy path (``compute.py:1049-1056``). The carried history keeps
-the signal's type. The arbitrary/Farrow kernels take no bfloat16 or int8
-signals. This replaces the TPU kernels' float64 modes and their complex
+the signal's type. At an arbitrary or Farrow rate a bfloat16 or int8
+signal is no mode of its own: it promotes to float32 with float32 taps,
+or with bfloat16 taps, whose bank holds the bf16 values in float32
+(``params.FIRArbitrary``). So the signal and the history are widened to
+float32 with one cast each before the launch and the float32 kernel runs,
+with float32 output, as the JAX package's TPU route does
+(``pallas/select3.py:344``, ``compute.py:714`` there); JAX's ``windows``
+path, which rounds the bf16 products to bf16 (``_row_contract``), is not
+followed. This replaces the TPU kernels' float64 modes and their complex
 modes (planar re/im applies and split tap banks) with kernels that read
 complex samples and taps interleaved, as torch stores them.
 
@@ -160,12 +167,6 @@ def _check(params, state, x, lead=None):
         raise NotImplementedError(
             f"signal dtype {x.dtype}: float32, float64, complex64, "
             f"complex128, bfloat16 and int8 are ported")
-    if x.dtype in (torch.bfloat16, torch.int8) and isinstance(
-            params, (FIRArbitrary, FIRFarrow)):
-        raise NotImplementedError(
-            f"{x.dtype} signals at an arbitrary rate are not ported yet "
-            f"(ROADMAP queue 1, item 2: JAX's paths differ on their "
-            f"semantics)")
     for name, dev in (("kernel bank", params.device),
                       ("state history", state.history.device)):
         if dev != x.device:
@@ -235,7 +236,9 @@ def filt_block_tm_raw(params, state: FilterState, xt, path: str = "auto"):
     count, phase, deficit = idx.host_carry(params, state.phase,
                                            state.deficit, E)
     hist = state.history.to(xt.dtype)
-    y = _RESAMPLE_TM[path](xt.contiguous(), hist.contiguous(), params,
+    # a bfloat16 or int8 block widens to float32 here (one cast each)
+    y = _RESAMPLE_TM[path](xt.to(torch.float32).contiguous(),
+                           hist.to(torch.float32).contiguous(), params,
                            state.phase, state.deficit, count)
     H = params.h_min
     if E >= H:

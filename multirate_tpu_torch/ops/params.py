@@ -298,7 +298,9 @@ class FIRArbitrary(_Kernel):
     ``table`` stacks two (taps_per_phi, nphi) banks: ``pfb`` from h and
     ``dpfb`` from dh = [diff(h); 0]. An output at phase p with fraction
     alpha takes taps pfb[:, p] + alpha * dpfb[:, p]: first-order
-    interpolation that never needs the next input sample.
+    interpolation that never needs the next input sample. bfloat16 taps
+    give a float32 table of the values JAX's bfloat16 banks hold: the
+    taps, and their differences rounded to bfloat16.
     """
 
     table: torch.Tensor  # (2, taps_per_phi, nphi): pfb, dpfb
@@ -313,6 +315,9 @@ class FIRArbitrary(_Kernel):
         rate = _check_rate(rate)
         taps, dtype = _host_taps(h, quantized=False)
         dh = np.concatenate([np.diff(taps), np.zeros(1, dtype=taps.dtype)])
+        if to_tensor(h).dtype == torch.bfloat16:
+            # JAX takes the diff in bfloat16: dh holds it rounded, in float32
+            dh = torch.from_numpy(dh).to(torch.bfloat16).float().numpy()
         table = np.stack([_pfb.taps2pfb(taps, nphi),
                           _pfb.taps2pfb(dh, nphi)])
         return cls(table=_to(table, _device_of(h, device), dtype),

@@ -447,8 +447,12 @@ def test_make_kernel_dispatch_and_errors(taps):
     assert c.table.dtype == torch.complex64
     assert mt.filt(taps, torch.zeros(100, dtype=torch.float64),
                    0.5).dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        mt.filt(taps, torch.zeros(100, dtype=torch.bfloat16), 0.5)
+    # a bfloat16 signal at a rate is widened to float32 (float32 output)
+    xb = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        2000).astype(np.float32)).to(torch.bfloat16)
+    yb = mt.filt(taps, xb, 0.5, device="cpu")
+    assert yb.dtype == torch.float32
+    assert torch.equal(yb, mt.filt(taps, xb.float(), 0.5, device="cpu"))
     rat = mt.make_kernel(taps, ratio=Fraction(3, 2), device="cpu")
     st = mt.init_state(rat, (2,))
     with pytest.raises(TypeError, match="time-major"):

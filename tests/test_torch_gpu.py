@@ -3,8 +3,12 @@
 resample (arbitrary rate and Farrow, channel-major and time-major in
 float32, channel-major in float64 and complex; each compiled variant and
 the general one, equal bit for bit) and the copy and expand
-probes; and the runtime on the card: StreamingResampler's block loop
-with no synchronizing call, and a profiler trace holding the kernel.
+probes; the runtime on the card: StreamingResampler's block loop
+with no synchronizing call, and a profiler trace holding the kernel;
+the parallel layer on four gloo ranks sharing the card (halo through the
+host) against ``filt`` of the whole signal; and bf16 and int8 signals at
+an arbitrary or Farrow rate (widened to float32) against the plain
+version.
 
 Marked ``gpu``: it skips without a CUDA device. It imports no JAX, so it
 runs on a machine with the card alone:
@@ -450,3 +454,124 @@ def test_trace_holds_the_polyphase_kernel_on_gpu(tmp_path):
     assert "resample-block" in names
     assert any("mr_polyphase_f32" in n for e, n in zip(events, names)
                if e.get("cat") == "kernel")
+
+
+def _gpu_sharded_cases():
+    """The sharding cases on the card (numpy inputs, seeded): the rational
+    specs and float64 arbitrary rates on (2, 2), the 64-channel Farrow on
+    (4, 1) and (1, 4), bf16 and int8 on (2, 2), a block shorter than
+    h_min on (1, 4)."""
+    rng = np.random.default_rng(13)
+    cases = []
+    for spec in (Fraction(1, 1), Fraction(4, 1), Fraction(1, 4),
+                 Fraction(7, 5), Fraction(147, 160)):
+        cases.append(dict(id=f"rat{spec}", mesh=(2, 2), kind="resample",
+                          h=rng.standard_normal(48).astype(np.float32),
+                          x=rng.standard_normal((8, 16_000)).astype(
+                              np.float32), kw={"ratio": spec}))
+    h_arb = (mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=7.0) * 32)
+    for rate in (0.8112, 1.618):
+        cases.append(dict(id=f"arb{rate}", mesh=(2, 2), kind="resample",
+                          h=h_arb, x=rng.standard_normal((4, 16_000)),
+                          kw={"rate": rate}))
+    x_far = rng.standard_normal((64, 8_000)).astype(np.float32)
+    for mesh in ((4, 1), (1, 4)):
+        cases.append(dict(id=f"farrow{mesh}", mesh=mesh, kind="resample",
+                          h=h_arb.astype(np.float32), x=x_far,
+                          kw={"rate": 0.9173, "nphi": 32, "polyorder": 4}))
+    h_q = (mt.firdes(24 * 21, 0.5 / 21, mt.kaiser, beta=7.0) * 21
+           ).astype(np.float32)
+    x_q = rng.standard_normal((4, 64_000)).astype(np.float32)
+    cases.append(dict(id="bf16", mesh=(2, 2), kind="stream", h=h_q, x=x_q,
+                      dtype="bfloat16", kw={"ratio": Fraction(147, 160)}))
+    cases.append(dict(id="int8", mesh=(2, 2), kind="stream",
+                      h=np.asarray(mt.quant.quantize_taps(h_q)[0]),
+                      x=mt.quant.quantize_signal(x_q, device="cpu")[0].numpy(),
+                      kw={"ratio": Fraction(147, 160)}))
+    cases.append(dict(id="short", mesh=(1, 4), kind="short",
+                      h=rng.standard_normal(300),
+                      x=rng.standard_normal((1, 800)),
+                      kw={"ratio": Fraction(1, 1)}))
+    return cases
+
+
+@pytest.mark.gpu
+def test_sharded_ranks_match_unsharded_on_gpu():
+    """Four gloo ranks on one card (halo and history staged through the
+    host) against ``filt`` of the whole signal on the card: counts and
+    states exact, outputs within 1e-5 * max|y|, int8 equal, bf16 within
+    one bf16 ulp of max|y|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multirate_tpu_torch.parallel.multihost import spawn_world
+    from multirate_tpu_torch.utils.testing import sharded_cases
+
+    cases = _gpu_sharded_cases()
+    mt.filt(np.ones(8, np.float32), torch.ones(64, device="cuda"),
+            0.5)  # build the kernels here; the ranks load them
+    mt.filt(np.ones(8, np.float32), torch.ones(64, device="cuda"), 1)
+    ranks = spawn_world(sharded_cases, 4, args=(cases,), device="cuda:0",
+                        timeout_s=300)
+    for c in cases:
+        got = ranks[0][c["id"]]
+        for r in ranks[1:]:
+            for k, v in got.items():
+                if isinstance(v, np.ndarray):
+                    assert np.array_equal(r[c["id"]][k], v), (c["id"], k)
+        if c["kind"] == "short":
+            assert "h_min" in got["raised"]
+            continue
+        h = torch.from_numpy(c["h"])
+        x = torch.from_numpy(c["x"]).cuda()
+        if c.get("dtype") == "bfloat16":
+            h, x = h.to(torch.bfloat16), x.to(torch.bfloat16)
+        p = mt.make_kernel(h, device="cuda", **c["kw"])
+        want, count, st = mt.filt_block(
+            p, mt.init_state(p, x.shape[:-1], x.dtype), x)
+        assert got["y"].shape == tuple(want.shape), c["id"]
+        if c["kind"] == "stream":
+            assert sum(got["counts"][0]) == count
+            hist, phase, deficit = got["state"]
+            assert (phase, deficit) == (st.phase, st.deficit)
+            assert np.array_equal(hist, st.history.float().cpu().numpy())
+            assert got["compact_device"]
+        if c["id"] == "int8":
+            assert np.array_equal(got["y"], want.cpu().numpy())
+        else:
+            tol = 2.0 ** -8 if c["id"] == "bf16" else TOL
+            assert rel_max_err(got["y"], want) <= tol, c["id"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", [1, 64])
+@pytest.mark.parametrize("rate", [1 / 2.123456789, 0.4709, 0.9173])
+@pytest.mark.parametrize("polyorder", [None, 4], ids=["arbitrary", "farrow"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_widened_rate_matches_plain_on_gpu(dtype, polyorder, rate, channels):
+    """bf16 and int8 signals at a rate run the float32 kernel after one
+    cast: counts and states exact, outputs within 1e-5 * max|y| of the
+    plain version on the same widened values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(14)
+    h = (mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=7.0) * 32
+         ).astype(np.float32)
+    p = mt.make_kernel(h, rate=rate, nphi=32, polyorder=polyorder,
+                       device="cuda")
+    x = torch.from_numpy(rng.standard_normal((channels, 20_011)).astype(
+        np.float32) * (40 if dtype == torch.int8 else 1)).cuda().to(dtype)
+    for phase in (None, 0.37):
+        st = mt.init_state(p, (channels,), dtype)
+        if phase is not None:
+            st = mt.setphase(p, st, phase)
+        before = rs.launches["f32"]
+        yk, ck, sk = mt.filt_block(p, st, x, path="kernel")
+        yp, cp, sp = mt.filt_block(p, st, x, path="windows")
+        torch.cuda.synchronize()
+        assert rs.launches["f32"] == before + 1
+        assert yk.dtype == yp.dtype == torch.float32
+        assert ck == cp == yk.shape[-1]
+        assert (sk.phase, sk.deficit) == (sp.phase, sp.deficit)
+        assert sk.history.dtype == dtype and torch.equal(sk.history,
+                                                         sp.history)
+        assert rel_max_err(yk, yp) <= TOL

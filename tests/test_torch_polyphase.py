@@ -231,9 +231,11 @@ def test_compute_rejects_what_is_not_ported():
     st = mt.init_state(tp)
     with pytest.raises(NotImplementedError, match="float16"):
         mt.filt_block(tp, st, torch.zeros(10, dtype=torch.float16))
-    for dtype in (torch.bfloat16, torch.int8):  # queue 1, item 2
-        with pytest.raises(NotImplementedError, match="arbitrary rate"):
-            mt.filt(np.ones(8, np.float32), torch.zeros(10, dtype=dtype), 0.9)
+    for dtype in (torch.bfloat16, torch.int8):  # widened, not refused
+        x = torch.arange(-40, 40, dtype=torch.float32).to(dtype)
+        y = mt.filt(np.ones(8, np.float32), x, 0.9)
+        assert y.dtype == torch.float32
+        assert torch.equal(y, mt.filt(np.ones(8, np.float32), x.float(), 0.9))
     with pytest.raises(ValueError, match="shape"):
         mt.filt_block(tp, st, torch.zeros(2, 10))
     with pytest.raises(ValueError, match="path"):

@@ -693,4 +693,7 @@ def test_utils_exports_the_jax_names():
         assert name in mt.__all__
     assert {"RingBuffer", "StreamingResampler", "build_native"} <= set(
         mt.io.__all__)
-    assert set(mt.models.__all__) == {"Resampler", "DATToCD"}
+    import multirate_tpu.models as jm
+
+    assert set(mt.models.__all__) == set(jm.__all__) == {
+        "Resampler", "DATToCD", "MultiChannelResampler"}
