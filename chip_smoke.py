@@ -12,9 +12,10 @@ prints one line:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the polyphase, resample and probe kernels from
-   ``multirate_tpu_torch/csrc``, one nvcc each, and the host ring buffer
-   with g++, all started together, and prints ptxas's registers and
-   spills for each instantiation;
+   ``multirate_tpu_torch/csrc`` (nvcc once for each part a source names:
+   two, three and one) and the host ring buffer with g++, all started
+   together, and prints ptxas's registers and spills for each
+   instantiation;
 3. kernel vs plain version on the card, for the four rational-family
    filter types at the headline taps and at short taps, plus a bank too
    large for shared memory and a wide decimation, fresh and mid-phase
@@ -218,21 +219,40 @@ ranks load them):
    one; wall-clock fields are a sanity check only, since the ranks share
    one card).
 
-Then bf16 and int8 signals at an arbitrary or Farrow rate (widened to
-float32 with one cast each, then the float32 resample kernel):
+Then every signal type JAX takes, through the narrow-read entries of both
+kernels (int16, uint8, float16, bfloat16 and int8 samples read as stored
+and widened in the kernel, float32 or float16 outputs; ``ops/compute.py``
+routes the other types with one cast to a type that has an entry):
 
-3g. the widened route against its plain version on the card, arbitrary
-   and Farrow at 1/2.123456789, 0.4709 and 0.9173, 1 and 64 channels,
-   fresh and after setphase(0.37): counts and states exact, outputs
-   within 1e-5 * max|y|;
-4g. 8 M bf16 samples at 1/2.123456789 (arbitrary) and 0.4709 (Farrow)
-   with ``bench.py``'s bank through ``filt`` and ``FIRFilter`` in
-   250,000-sample chunks: relative RMS against ``naivefilt`` over the
-   same bf16 values <= 1e-4 (the method's floor) and against
-   ``naivefilt_farrow`` <= 8e-5, chunked-vs-whole RMS <= 1e-6, launches
-   equal to the blocks; times of the route (cast and kernel), the kernel
-   alone on the widened values, the float32 row on the same values and
-   the plain version, for bf16 and int8 in;
+3g. every narrow-read entry of both kernels against its plain version:
+   the polyphase ones through the variant matrix of phase 3 (float16
+   outputs within one ulp), the resample ones channel- and time-major
+   (1 channel in runs, 9 channels, 64 and 3 time-major) with ``bench.py``'s
+   bank at 1/2.123456789, 0.4709 (Farrow), 2.5 and 0.9173 (Farrow, nphi 7)
+   and ``models.Resampler``'s T = 73, each through the planned variant and
+   the general one, equal to each other bit for bit and each bit-equal to
+   the float32 entry on the widened values; then the block entry points
+   (``filt_block``, ``filt_block_tm``) on each narrow type with float32
+   and float16 taps at 147//160, 4//1, 1//4, 1/2.123456789 and 0.4709
+   (Farrow), mid-stream: counts and states exact, outputs within 1e-5 *
+   max|y| (float16 outputs 2^-10); every narrow entry launched;
+4g. the slice at full width: 8 M samples of 16-bit PCM (phase 4's samples
+   x 8000) through ``filt`` at 147//160 with the headline taps (one
+   ``s16/reg`` launch, and a peak allocation no larger than the output's:
+   no cast pass; relative RMS against ``naivefilt`` over the same int16
+   values <= 8e-5), ``models.DATToCD`` (equal to ``filt``) and
+   ``FIRFilter`` in seeded chunks of 50,000-500,000 (equal to the whole,
+   int16 history); two uint8 offset-binary I/Q channels (2, 4,000,000) at
+   1/2.123456789 channel-major, time-major (interleaved) and in 250,000-
+   sample chunks, all equal (oracle <= 1e-4 a channel); 8 M bf16 and int8
+   samples at 1/2.123456789 (<= 1e-4) and 0.4709 (Farrow, <= 8e-5), whole
+   and chunked, equal. Each entry's launches counted (no float32 one);
+5g. times of every narrow-read entry, one launch after an L2 eviction
+   (CUDA events, median of 9): polyphase at the headline block on 8 M
+   samples of its type, channel-major resample on 8 M samples at
+   1/2.123456789 (uint8 entries on the I/Q pair), time-major on the
+   (125,000, 64) Farrow row at 0.9173; each beside its bound, its plain
+   version, the float32 entry on the widened values and its max abs error;
 4h. every example flow of ``multirate_tpu_torch.examples`` on the card
    (``main()``, with ``tests/test_examples.py``'s shrink keywords for
    ``arb_farrow_speed``), each with its kernel launches counted, and
@@ -242,10 +262,11 @@ Then a JSON line of the kernels (each with its bound: the larger of the
 bytes it must move over 3.35 TB/s and its multiply-adds over the card's
 peak for their type; a polyphase or resample row also with the variant it
 launched and the general variant's time; one expand row for each store
-type; this slice's two rows: ``polyphase_f32_sharded``, the headline's
-shard on (1, 4) with its launches summed over the ranks, and
-``resample_f32_bf16in``, the widened route at 1/2.123456789), the
-``nvidia-smi`` name and power-limit line,
+type; ``polyphase_f32_sharded``, the headline's shard on (1, 4) with its
+launches summed over the ranks; and one row for each narrow-read entry,
+``polyphase_<entry>``, ``resample_<entry>`` and ``resample_<entry>_tm``,
+with its launches in 4g and its times of 5g), the ``nvidia-smi`` name and
+power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without the last line. Imports nothing of JAX.
 """
@@ -426,13 +447,15 @@ def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL):
 
 
 def _resample_variants(mt, torch, rs, params, st, x, time_major, case,
-                       tol=TOL_KERNEL):
+                       tol=TOL_KERNEL, out_dtype=None):
     """The resample kernel on one block, through the variant ``plan``
     picks and through the general one, each against the plain version
     (within ``tol`` of max|y|) and the two equal bit for bit, each launch
-    counted once by entry point and variant. Returns (max error, the
-    planned variant)."""
+    counted once by entry point and variant; a narrow read (``out_dtype``
+    its output type) also bit-equal to the float32 entry on the widened
+    values. Returns (max error, the planned variant)."""
     from multirate_tpu_torch.ops import indexing as idx
+    from multirate_tpu_torch.ops.dtypes import NARROW
 
     xlen = x.shape[0] if time_major else x.shape[-1]
     n, _, _ = idx.host_carry(params, st.phase, st.deficit, xlen)
@@ -440,15 +463,21 @@ def _resample_variants(mt, torch, rs, params, st, x, time_major, case,
             st.deficit, n)
     kern = rs.resample_tm if time_major else rs.resample
     plain = rs.resample_tm_plain if time_major else rs.resample_plain
-    want = plain(*args)
+    want = plain(*args, out_dtype=out_dtype)
     scale = max(float(want.abs().max()) if want.numel() else 0.0, 1e-30)
-    entry = "tm" if time_major else rs.ENTRIES[x.dtype, params.table.dtype]
+    types = (x.dtype, params.table.dtype, want.dtype)
+    entry = (rs.TM_ENTRIES if time_major else rs.ENTRIES)[types]
     got, err = {}, 0.0
     planned = _resample_plan(rs, args, time_major).variant
     for variant in (None, "general"):
         key = f"{entry}/{variant or planned}"
         before = rs.launches_by_variant[key]
-        got[variant] = kern(*args, variant=variant)
+        got[variant] = kern(*args, variant=variant, out_dtype=out_dtype)
+        if x.dtype in NARROW:
+            wide = kern(x.float(), args[1].float(), *args[2:],
+                        variant=variant).to(want.dtype)
+            check(torch.equal(got[variant], wide),
+                  f"{case} {key}: differs from the float32 entry")
         torch.cuda.synchronize()
         check(rs.launches_by_variant[key] == before + 1,
               f"{case} {key}: not launched once")
@@ -481,6 +510,7 @@ def _variant_matrix(torch, dev, pp, entries):
     fresh and mid-phase entry states, all outputs, 1, 33 and one more than
     a tile. Checks that the planned variant was launched. Returns (cases,
     {entry: worst error}, {variant: launches})."""
+    from multirate_tpu_torch.ops.dtypes import NARROW
     from multirate_tpu_torch.utils.testing import ulps_apart
 
     rng = np.random.default_rng(7)
@@ -492,6 +522,11 @@ def _variant_matrix(torch, dev, pp, entries):
             TOL_KERNEL
         for T, L, M in VARIANT_GEOMETRIES:
             bank = _probe_source(torch, rng, (T, L), b_dt).to(dev)
+            if o_dt == torch.float16 and x_dt in NARROW \
+                    and b_dt == torch.float32:
+                # a narrow read stored as float16: keep the sums of
+                # 16-bit PCM in float16's range
+                bank = bank * 2.0 ** -6
             x = _probe_source(torch, rng, (2, VARIANT_XLEN), x_dt).to(dev)
             hist = _probe_source(torch, rng, (2, T - 1), x_dt).to(dev)
             for C, state, count in ((1, "fresh", "all"), (2, "mid", "all"),
@@ -517,7 +552,15 @@ def _variant_matrix(torch, dev, pp, entries):
                           f"{case}: not launched once")
                     check(y.dtype == yp.dtype and y.shape == yp.shape,
                           f"{case}: {y.dtype} {tuple(y.shape)}")
-                    if x_dt == torch.int8:
+                    if x_dt in NARROW and b_dt == torch.float32:
+                        # a narrow read: the float32 entry's bits on the
+                        # widened values
+                        wide = pp.polyphase(args[0].float(), args[1].float(),
+                                            *args[2:], out_dtype=o_dt,
+                                            variant=variant)
+                        check(torch.equal(y, wide),
+                              f"{case}: differs from the float32 entry")
+                    if o_dt == torch.int32:
                         err = float((y - yp).abs().max())
                         check(err == 0, f"{case}: int8 differs by {err}")
                     elif o_dt in (torch.bfloat16, torch.float16):
@@ -535,13 +578,10 @@ def _variant_matrix(torch, dev, pp, entries):
 
 def _reset_counts(kernel):
     """Set a kernel's wrapper module's launch counts (polyphase or
-    resample: by entry point, by entry point and variant, and the
-    time-major count) to 0."""
+    resample: by entry point, and by entry point and variant) to 0."""
     for counts in (kernel.launches, kernel.launches_by_variant):
         for k in counts:
             counts[k] = 0
-    if hasattr(kernel, "launches_tm"):
-        kernel.launches_tm = 0
 
 
 def _by_variant(kernel):
@@ -827,18 +867,18 @@ def phase_resample_slice(mt, torch, dev, rs):
     y_tm, c_tm, s_tm = mt.filt_block_tm(p64, mt.init_state(p64, (N_CH,)),
                                         x64.t().contiguous())
     torch.cuda.synchronize()
-    launches = (rs.launches["f32"], rs.launches_tm)
+    launches = (rs.launches["f32"], rs.launches["f32_tm"])
     by_variant = _by_variant(rs)
 
     n_chunks = len(runs[0][1])
     want = (len(rows) * (1 + n_chunks) + 1, 1)
-    check(launches == want and sum(rs.launches.values()) == want[0],
-          f"resample launches {rs.launches}, time-major {rs.launches_tm}; "
-          f"want f32 {want[0]}, time-major {want[1]}")
+    check(launches == want and sum(rs.launches.values()) == sum(want),
+          f"resample launches {rs.launches}; want f32 {want[0]}, "
+          f"f32_tm {want[1]}")
     # every row through its compiled variant: T = 10, P+1 = 2 (arbitrary)
     # or 5 (Farrow)
     want_v = {"f32/t10p2": 1 + n_chunks, "f32/t10p5": 2 + n_chunks,
-              "tm/t10p5": 1}
+              "f32_tm/t10p5": 1}
     check(by_variant == want_v,
           f"variants launched {by_variant}, want {want_v}")
     notes = []
@@ -936,14 +976,13 @@ def phase_resample_times(mt, torch, x, x64, rs, card):
               f"{name}: kernel vs plain max abs err {max_abs:.3e}")
         ms, general_ms = _time_variants(torch, kern, args)
         plain_ms = _time_ms(torch, lambda: plain(*args), iters=2)
-        # x, history and table read once, outputs written once; each
-        # output takes T * (P + 1) multiply-adds (arbitrary: P = 1)
+        # x, history and table read once, outputs written once
         nbytes = sum(t.numel() * t.element_size()
                      for t in (xs, st.history, p.bank)) + C * n * 4
         variant = _resample_plan(rs, args, tm).variant
         out[name] = (max_abs, ms, plain_ms,
-                     _bound(nbytes, C * n * p.bank.numel() // p.nphi,
-                            "f32"), general_ms, variant)
+                     _bound(nbytes, _resample_mult_adds(p, C, n), "f32"),
+                     general_ms, variant)
         notes.append(f"{name} kernel ({variant}) {ms:.4f} ms "
                      f"({xs.numel() / ms / 1e3:.1f} Msps in), general "
                      f"variant {general_ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -951,6 +990,14 @@ def phase_resample_times(mt, torch, x, x64, rs, card):
                      f"{out[name][3][0]:.4f} ms ({out[name][3][1]})")
     print(f"[5b resample times] {'; '.join(notes)}; card: {card}")
     return out
+
+
+def _resample_mult_adds(p, C, n):
+    """The multiply-adds of ``n`` outputs of ``C`` channels of the
+    arbitrary/Farrow function: each output's T taps formed once (P
+    multiply-adds a tap by Horner; arbitrary: P = 1) and shared by the
+    channels, then T multiply-adds a channel."""
+    return n * p.taps_per_phi * (p.table.shape[0] - 1 + C)
 
 
 def _bound(bytes_moved, mult_adds, kind):
@@ -1424,11 +1471,13 @@ def phase_wide_vs_plain(mt, torch, dev, pp, rs):
                                 f"{'arbitrary' if po is None else 'Farrow'} "
                                 f"rate={rate:.6g} nphi={nphi} C={ch} {state} "
                                 f"{'time' if tm else 'channel'}-major")
-                        before = (rs.launches[entry], rs.launches_tm)
+                        # time-major: the channel-major entry point on the
+                        # transpose
+                        before = dict(rs.launches)
                         err = _compare(mt, torch, params, st,
                                        xt if tm else x, tm, case, tol)
-                        check((rs.launches[entry], rs.launches_tm)
-                              == (before[0] + 1, before[1]),
+                        before[entry] += 1
+                        check(rs.launches == before,
                               f"{case}: {entry} not launched once")
                         worst[entry] = max(worst[entry], err)
                         # the channel-major entry point, planned and
@@ -1516,13 +1565,13 @@ def phase_wide_slice(mt, torch, dev, pp, rs, x, ref):
             runs.append((label, y, [f.filt(xs[i:i + CHUNK]) for i in chunks],
                          f, xs))
         torch.cuda.synchronize()
-        launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
+        launches = (dict(pp.launches), dict(rs.launches))
         by_variant = _by_variant(pp)
         rs_variant = _by_variant(rs)
         refs = {k: v.result() for k, v in oracles.items()}
 
     blocks = 1 + len(chunks)
-    want = (dict.fromkeys(pp.launches, 0), dict.fromkeys(rs.launches, 0), 0)
+    want = (dict.fromkeys(pp.launches, 0), dict.fromkeys(rs.launches, 0))
     want[0].update(c64=blocks, f64=blocks)
     want[1].update(f64=2 * blocks)
     check(launches == want, f"launches {launches}, want {want}")
@@ -1701,10 +1750,12 @@ def _expand_library(torch, xe, ratio, odt):
 
 def _probe_source(torch, rng, n, dtype):
     """Seeded samples of shape ``n`` in ``dtype`` (int8 as 16 x a standard
-    normal)."""
+    normal, int16 and uint8 as ``_narrow_signal``'s)."""
     if dtype == torch.int8:
         return torch.from_numpy((rng.standard_normal(n) * 16).astype(
             np.int8))
+    if dtype in (torch.int16, torch.uint8):
+        return _narrow_signal(torch, rng, n, dtype)
     return _wide_signal(torch, rng, n, dtype)
 
 
@@ -1823,7 +1874,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
         pushed = _stream(s_k2, x_np[consumed:], np.random.default_rng(10))
         tail = s_k2.flush()
         torch.cuda.synchronize()
-        launches = (dict(pp.launches), dict(rs.launches), rs.launches_tm)
+        launches = (dict(pp.launches), dict(rs.launches))
         by_variant = _by_variant(pp)
         rs_variant = _by_variant(rs)
 
@@ -1831,7 +1882,7 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
               blocks_k + s_k2.stats()["blocks"])
     check(blocks[:2] == (N_HEAD // bs,) * 2,
           f"stream blocks {blocks}, want {N_HEAD // bs}")
-    want = (dict.fromkeys(pp.launches, 0), dict.fromkeys(rs.launches, 0), 0)
+    want = (dict.fromkeys(pp.launches, 0), dict.fromkeys(rs.launches, 0))
     want[0]["f32"] = blocks[0] + 1 + blocks[2] + 1
     want[1]["f32"] = blocks[1] + 1
     check(launches == want, f"launches {launches}, want {want}")
@@ -2134,8 +2185,7 @@ RANK_TIMEOUT_S = 420
 
 def _launched(pp, rs):
     """Every launch of both kernels' wrappers since the last reset."""
-    return (sum(pp.launches.values()) + sum(rs.launches.values())
-            + rs.launches_tm)
+    return sum(pp.launches.values()) + sum(rs.launches.values())
 
 
 def _shard_rank(rank, device, n_head):
@@ -2555,147 +2605,383 @@ def phase_scaling(card):
 
 
 # --------------------------------------------------------------------------- #
-# 3g-4g: bf16 and int8 signals at an arbitrary or Farrow rate
+# 3g-5g: every signal type JAX takes, through the narrow-read entries
 # --------------------------------------------------------------------------- #
 
-def phase_rate_quant_vs_plain(mt, torch, dev, rs):
-    """3g: the widened route (one cast to float32, the float32 kernel)
-    against its plain version on the same values."""
-    ha = bench_taps(mt)
-    rng = np.random.default_rng(31)
+N_IQ = 4_000_000   # 4g: samples a channel of the uint8 I/Q pair
+PCM_SCALE = 8000   # 4g: 16-bit PCM from phase 4's standard normal samples
+# 3g: arbitrary/Farrow narrow-read cases, (polyorder, rate, nphi, taps)
+NARROW_RATES = ((None, R_REF, 32, "bench"), (4, 0.4709, 32, "bench"),
+                (None, 2.5, 32, "bench"), (4, 0.9173, 7, "bench"),
+                (None, R_REF, 32, "model"))
+# 3g: (channels, xlen, time-major) of each resample case: a channel in runs
+# of outputs, 9 channels (a block of 8 and one), 64 and 3 time-major
+# (16-byte chunks, and single samples)
+NARROW_LAYOUTS = ((1, 200_003, False), (9, 20_011, False),
+                  (64, 20_011, True), (3, 20_011, True))
+
+
+def _narrow_signal(torch, rng, shape, dtype):
+    """Seeded samples in a narrow-read type: int16 PCM (3000 x a standard
+    normal), uint8 offset-binary I/Q (128 + 40 x, clipped), int8 (30 x,
+    clipped), or a standard normal in float16 or bfloat16."""
+    v = rng.standard_normal(shape)
+    if dtype == torch.int16:
+        return torch.from_numpy((v * 3000).astype(np.int16))
+    if dtype == torch.uint8:
+        return torch.from_numpy(np.clip(128 + 40 * v, 0, 255).astype(
+            np.uint8))
+    if dtype == torch.int8:
+        return torch.from_numpy(np.clip(v * 30, -127, 127).astype(np.int8))
+    return torch.from_numpy(v.astype(np.float32)).to(dtype)
+
+
+def _f16_tol(torch, dtype):
+    """Kernel against plain, relative to max|y|: 1e-5 in float32; a float16
+    output one float16 ulp of max|y| (both round the same float32 sum,
+    summed in another order)."""
+    return 2.0 ** -10 if dtype == torch.float16 else TOL_KERNEL
+
+
+def phase_narrow_vs_plain(mt, torch, dev, pp, rs):
+    """3g: every narrow-read entry of both kernels against its plain
+    version on every variant ``plan`` picks and the general one, each
+    bit-equal to the float32 entry on the widened values; then the block
+    entry points on each narrow type, float32 and float16 taps."""
+    from multirate_tpu_torch.ops.dtypes import NARROW, out_dtype
+
+    names = [n for k, n in pp.ENTRIES.items() if k[0] in NARROW
+             and k[1] == torch.float32]
+    _reset_counts(pp)
     _reset_counts(rs)
-    cases, worst = 0, 0.0
-    for mode in (torch.bfloat16, torch.int8):
-        for rate in (R_REF, 0.4709, 0.9173):
-            for po in (None, 4):
-                p = mt.make_kernel(ha, rate=rate, nphi=32, polyorder=po,
-                                   device=dev)
-                for ch in (1, 64):
-                    x = _as_mode(mt, torch, torch.from_numpy(
-                        rng.standard_normal((ch, 20_011)).astype(
-                            np.float32)), mode).to(dev)
-                    for phase in (None, 0.37):
-                        st = mt.init_state(p, (ch,), mode)
-                        if phase is not None:
-                            st = mt.setphase(p, st, phase)
-                        yk, ck, sk = mt.filt_block(p, st, x, path="kernel")
-                        yp, cp, sp = mt.filt_block(p, st, x, path="windows")
-                        torch.cuda.synchronize()
-                        label = f"{mode} {rate:.6g} P{po} {ch}ch {phase}"
-                        check(ck == cp and yk.dtype == torch.float32
-                              and (sk.phase, sk.deficit)
-                              == (sp.phase, sp.deficit)
-                              and torch.equal(sk.history, sp.history),
-                              f"3g {label}: counts or states differ")
-                        err = float((yk - yp).abs().max()
-                                    / yp.abs().max())
-                        check(err <= TOL_KERNEL, f"3g {label}: {err:.3e}")
-                        worst = max(worst, err)
-                        cases += 1
-    by_variant = _by_variant(rs)
-    check(rs.launches["f32"] == cases, f"3g launches {rs.launches}")
-    print(f"[3g widened rate vs plain] {cases} cases (bf16 and int8; "
-          f"arbitrary and Farrow at 1/2.123456789, 0.4709, 0.9173; 1 and 64 "
-          f"channels; fresh and after setphase(0.37)): counts and states "
-          f"exact, worst {worst:.3e} of max|y| (limit {TOL_KERNEL}); "
-          f"launches {by_variant}")
+    n_pp, worst_pp, used = _variant_matrix(torch, dev, pp, names)
+    rng = np.random.default_rng(41)
+    designs = {"bench": bench_taps(mt),
+               "model": mt.models.Resampler(R_REF, device="cpu").taps}
+    n_rs, worst_rs, planned = 0, {}, {}
+    for (x_dt, t_dt, o_dt), name in rs.ENTRIES.items():
+        if x_dt not in NARROW:
+            continue
+        for po, rate, nphi, design in NARROW_RATES:
+            h = designs[design]
+            p = mt.make_kernel(h if nphi == 32 else h[:10 * nphi + 3],
+                               rate=rate, nphi=nphi, polyorder=po,
+                               device=dev)
+            for C, xlen, tm in NARROW_LAYOUTS:
+                x = _narrow_signal(torch, rng, (C, xlen), x_dt).to(dev)
+                st = mt.init_state(p, (C,), x_dt)
+                _, _, st = mt.filt_block(p, mt.setphase(p, st, 0.37),
+                                         x[:, :777], path="windows")
+                xs = x.t().contiguous() if tm else x
+                case = (f"3g {name}{'_tm' if tm else ''} P{po} {rate:.6g} "
+                        f"nphi {nphi} {design} C={C}")
+                err, var = _resample_variants(mt, torch, rs, p, st, xs, tm,
+                                              case, _f16_tol(torch, o_dt), o_dt)
+                key = ("resample_"
+                       + (rs.TM_ENTRIES[x_dt, t_dt, o_dt] if tm else name))
+                worst_rs[key] = max(worst_rs.get(key, 0.0), err)
+                planned[var] = planned.get(var, 0) + 1
+                n_rs += 1
+    # the block entry points: every narrow type with float32 and float16
+    # taps in each family, fresh and mid-stream
+    # (taps of unity gain, so that 16-bit PCM stays in float16's range)
+    h_4 = mt.firdes(24 * 4, 0.5 / 4, mt.kaiser, beta=7.8562).astype(
+        np.float32)
+    specs = [("head", headline_taps(mt), {"ratio": Fraction(147, 160)}),
+             ("T = 24", h_4 * 4, {"ratio": Fraction(4, 1)}),
+             ("T = 96", h_4, {"ratio": Fraction(1, 4)}),
+             ("bench", designs["bench"], {"rate": R_REF, "nphi": 32}),
+             ("bench", designs["bench"], {"rate": 0.4709, "nphi": 32,
+                                          "polyorder": 4})]
+    n_blk, worst_blk = 0, 0.0
+    for x_dt in NARROW:
+        for t_dt in (torch.float32, torch.float16):
+            for taps_name, h, kw in specs:
+                p = mt.make_kernel(torch.from_numpy(h).to(t_dt), device=dev,
+                                   **kw)
+                x = _narrow_signal(torch, rng, (2, 30_011), x_dt).to(dev)
+                for tm in ((False, True) if "rate" in kw else (False,)):
+                    st = mt.init_state(p, (2,), x_dt)
+                    if "rate" in kw or kw["ratio"].numerator > 1:
+                        st = mt.setphase(p, st, 0.37)
+                    _, _, st = mt.filt_block(p, st, x[:, :1237],
+                                             path="windows")
+                    xs = x.t().contiguous() if tm else x
+                    out = out_dtype(p.tap_type, x_dt)
+                    case = (f"3g block {x_dt} {t_dt} taps {taps_name} {kw} "
+                            f"{'tm' if tm else 'cm'}")
+                    worst_blk = max(worst_blk, _compare(
+                        mt, torch, p, st, xs, tm, case, _f16_tol(torch, out)))
+                    n_blk += 1
+    missing = [n for n in names if not pp.launches[n]] + [
+        n for k, n in (*rs.ENTRIES.items(), *rs.TM_ENTRIES.items())
+        if k[0] in NARROW and not rs.launches[n]]
+    check(not missing, f"3g: entries never launched: {missing}")
+    worst = {**{f"polyphase_{k}": v for k, v in worst_pp.items()},
+             **worst_rs}
+    print(f"[3g narrow reads vs plain] polyphase: {n_pp} cases over "
+          f"{len(names)} entries, planned and general, each bit-equal to "
+          f"the float32 entry on the widened values; variants {used}; "
+          f"resample: {n_rs} cases over {len(worst_rs)} entries (channel- "
+          f"and time-major; bench.py's bank at four rates and nphi 7, "
+          f"models.Resampler's T = 73), planned {planned} and general, "
+          f"bit-equal to each other and to the float32 entry on the widened "
+          f"values; worst by entry "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limit {TOL_KERNEL}, float16 outputs 2^-10); block entry "
+          f"points: {n_blk} cases (5 narrow types x float32 and float16 "
+          f"taps x 147//160, 4//1, 1//4, arbitrary, Farrow, channel- and "
+          f"time-major), counts and states exact, worst {worst_blk:.3e}; "
+          f"launches {_by_variant(pp)} {_by_variant(rs)}")
     return worst
 
 
-def phase_rate_quant_slice(mt, torch, dev, rs, x, card):
-    """4g: 8 M bf16 samples at 1/2.123456789 and 0.4709 (Farrow) through
-    ``filt`` and ``FIRFilter``, against the float64 oracles over the same
-    bf16 values; times of the widened route, its kernel alone on the
-    widened values, the float32 row on the same values and the plain
-    version, and the int8 route's."""
+def phase_narrow_slice(mt, torch, dev, pp, rs, x, card):
+    """4g: the slice at full width: the int16 headline through ``filt``,
+    ``models.DATToCD`` and ``FIRFilter`` in seeded chunks; uint8 I/Q at
+    1/2.123456789, channel- and time-major; 8 M bf16 and int8 samples at
+    1/2.123456789 and 0.4709 (Farrow). Returns each entry's launches in
+    this run and the int16 samples."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from multirate_tpu_torch.ops import indexing as idx
     from multirate_tpu_torch.utils.oracle import naivefilt, naivefilt_farrow
 
-    ha = bench_taps(mt)
-    xb = x.to(torch.bfloat16)
-    xb_np = xb.float().cpu().numpy()
+    ratio, h, ha = Fraction(147, 160), headline_taps(mt), bench_taps(mt)
+    rng = np.random.default_rng(43)
+    pcm = torch.round(x * PCM_SCALE).clamp(-32768, 32767).to(torch.int16)
+    pcm_np = pcm.cpu().numpy()
+    iq = _narrow_signal(torch, rng, (2, N_IQ), torch.uint8)
+    iq_np, iq = iq.numpy(), iq.to(dev)
+    rates = {"bf16": x.to(torch.bfloat16), "int8": _as_mode(
+        mt, torch, x, torch.int8)}
     rows = (("arbitrary", R_REF, None, TOL_ORACLE_ARB_REF),
             ("Farrow", 0.4709, 4, TOL_ORACLE))
-    _reset_counts(rs)
-    runs = []
-    for _, rate, po, _ in rows:
-        y = mt.filt(ha, xb, rate, 32, po)
-        f = mt.FIRFilter(ha, rate, 32, po)
-        runs.append((y, [f.filt(xb[i:i + CHUNK])
-                         for i in range(0, N_HEAD, CHUNK)], f))
-    torch.cuda.synchronize()
-    launches, by_variant = rs.launches["f32"], _by_variant(rs)
-    n_chunks = len(runs[0][1])
-    check(launches == 2 * (1 + n_chunks) and by_variant == {
-        "f32/t10p2": 1 + n_chunks, "f32/t10p5": 1 + n_chunks},
-        f"4g launches {by_variant}")
-    notes = []
-    for (label, rate, po, limit), (y, parts, f) in zip(rows, runs):
-        n_want = mt.outputlength(f.params, N_HEAD)
-        check(y.dtype == torch.float32 and tuple(y.shape) == (n_want,)
-              and bool(torch.isfinite(y).all()), f"4g {label}: {y.shape}")
-        yc = torch.cat(parts)
-        _, u_end, d_end = idx.host_carry(f.params, 0, 1, N_HEAD)
-        check(tuple(yc.shape) == (n_want,) and (f.state.phase, f.state.deficit)
-              == (u_end, d_end), f"4g {label}: chunked count or state")
-        d = yc.double() - y.double()
-        rms_chunk = float(torch.sqrt(torch.mean(d * d)))
-        check(rms_chunk <= TOL_CHUNKED, f"4g {label}: chunked {rms_chunk}")
-        n_in = mt.inputlength(f.params, N_ORACLE)
-        x_in = xb_np[:n_in].astype(np.float64)
-        ref = (naivefilt(ha.astype(np.float64), x_in, rate, 32) if po is None
-               else naivefilt_farrow(ha.astype(np.float64), x_in, rate, 32,
-                                     po))[:N_ORACLE]
-        rel = _rel_rms(y[:N_ORACLE].double().cpu().numpy(), ref)
-        check(rel <= limit, f"4g {label}: oracle rel RMS {rel:.3e}")
-        notes.append(f"{label} {rate:.9g} on {N_HEAD} bf16 -> {n_want}: "
-                     f"oracle rel RMS {rel:.3e} (limit {limit}), "
-                     f"{n_chunks} chunks: chunked-vs-whole RMS "
-                     f"{rms_chunk:.3e}")
-        del parts, yc
+    sizes = [int(s) for s in rng.integers(50_000, 500_000, 64)]
+    cuts = np.cumsum([0, *sizes])
+    cuts = [int(c) for c in cuts[cuts < N_HEAD]] + [N_HEAD]
 
-    # times: the widened route (cast + kernel), the kernel alone on the
-    # widened values, the float32 row on the same values, plain; int8
-    p = mt.make_kernel(ha, rate=R_REF, nphi=32, device=x.device)
-    n = mt.outputlength(p, N_HEAD)
-    x8 = _as_mode(mt, torch, x, torch.int8)
-    out, t_notes = {}, []
-    for name, xs in (("bf16", xb), ("int8", x8)):
-        st = mt.init_state(p, (), xs.dtype)
-        xw = xs.float().view(1, -1)
-        hist = torch.zeros(1, p.h_min, device=x.device)
-        args = (xw, hist, p, 0, 1, n)
-        yk = mt.filt_block(p, st, xs)[0]
-        yp = mt.filt_block(p, st, xs, path="windows")[0]
-        max_abs = float((yk - yp).abs().max())
-        check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
-              f"4g {name}: route vs plain {max_abs:.3e}")
-        del yk, yp
-        route_ms = _time_ms(torch, lambda: mt.filt_block(p, st, xs), 20)
-        kernel_ms = _time_ms(torch, lambda: rs.resample(*args), 20)
-        plain_ms = _time_ms(torch, lambda: mt.filt_block(
-            p, st, xs, path="windows"), 2)
-        # the narrow signal and history read once, the table once, the
-        # float32 outputs written once; 2T multiply-adds an output
-        nbytes = (xs.numel() + p.h_min) * xs.element_size() \
-            + p.bank.numel() * 4 + n * 4
-        bound = _bound(nbytes, n * p.bank.numel() // p.nphi, "f32")
-        out[name] = dict(max_abs_err=max_abs, ms=route_ms, plain_ms=plain_ms,
+    def oracle(job):
+        kind, xs, rate, po = job
+        if kind == "rational":
+            n_in = mt.inputlength(N_ORACLE, ratio)
+            return naivefilt(h.astype(np.float64),
+                             xs[:n_in].astype(np.float64), ratio)[:N_ORACLE]
+        n_in = mt.inputlength(mt.make_kernel(ha, rate=rate, nphi=32,
+                                             polyorder=po, device="cpu"),
+                              N_ORACLE)
+        xs = xs[:n_in].astype(np.float64)
+        return (naivefilt(ha.astype(np.float64), xs, rate, 32) if po is None
+                else naivefilt_farrow(ha.astype(np.float64), xs, rate, 32,
+                                      po))[:N_ORACLE]
+
+    jobs = {"pcm": ("rational", pcm_np, None, None),
+            "iq0": ("rate", iq_np[0], R_REF, None),
+            "iq1": ("rate", iq_np[1], R_REF, None)}
+    for mode, xs in rates.items():
+        for label, rate, po, _ in rows:
+            jobs[f"{mode} {label}"] = ("rate", xs.float().cpu().numpy(), rate,
+                                       po)
+    with ThreadPoolExecutor(4) as pool:  # host oracles while the card runs
+        futures = {k: pool.submit(oracle, v) for k, v in jobs.items()}
+        _reset_counts(pp)
+        _reset_counts(rs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y = mt.filt(h, pcm, ratio)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        model = mt.models.DATToCD(device=dev)
+        y_model = model(pcm)
+        f = mt.FIRFilter(h, ratio)
+        parts = [f.filt(pcm[a:b]) for a, b in zip(cuts, cuts[1:])]
+        y_iq = mt.filt(ha, iq, R_REF, 32)
+        p_iq = mt.make_kernel(ha, rate=R_REF, nphi=32, device=dev)
+        y_iq_tm, _, _ = mt.filt_block_tm(
+            p_iq, mt.init_state(p_iq, (2,), torch.uint8), iq.t().contiguous())
+        f_iq = mt.FIRFilter(ha, R_REF, 32)
+        iq_parts = [f_iq.filt(iq[:, i:i + CHUNK])
+                    for i in range(0, N_IQ, CHUNK)]
+        rate_runs = {}
+        for mode, xs in rates.items():
+            for label, rate, po, _ in rows:
+                fr = mt.FIRFilter(ha, rate, 32, po)
+                rate_runs[mode, label] = (
+                    mt.filt(ha, xs, rate, 32, po),
+                    [fr.filt(xs[i:i + CHUNK]) for i in range(0, N_HEAD,
+                                                             CHUNK)], fr)
+        torch.cuda.synchronize()
+        launches = {**{f"polyphase_{k}": v for k, v in pp.launches.items()
+                       if v},
+                    **{f"resample_{k}": v for k, v in rs.launches.items()
+                       if v}}
+        by_variant = {**_by_variant(pp), **_by_variant(rs)}
+        refs = {k: v.result() for k, v in futures.items()}
+
+    n_chunks, n_iq_chunks = len(cuts) - 1, len(iq_parts)
+    n_rate = 1 + len(range(0, N_HEAD, CHUNK))  # a rate row's launches
+    want = {"polyphase_s16": 2 + n_chunks, "resample_u8": 1 + n_iq_chunks,
+            "resample_u8_tm": 1, "resample_bf16": 2 * n_rate,
+            "resample_s8": 2 * n_rate}
+    check(launches == want,
+          f"4g launches {launches}, want {want} (no float32 entry)")
+    check(by_variant == {"s16/reg": 2 + n_chunks, "u8/t10p2": 1 + n_iq_chunks,
+                         "u8_tm/t10p2": 1, "bf16/t10p2": n_rate,
+                         "bf16/t10p5": n_rate, "s8/t10p2": n_rate,
+                         "s8/t10p5": n_rate}, f"4g variants {by_variant}")
+    notes = []
+    # the int16 headline: one launch, no cast pass (no block of float32
+    # samples: the peak allocation is the output)
+    n_want = mt.outputlength(N_HEAD, ratio)
+    check(y.dtype == torch.float32 and tuple(y.shape) == (n_want,)
+          and bool(torch.isfinite(y).all()), f"4g pcm: {y.dtype} {y.shape}")
+    y_bytes = n_want * 4
+    check(peak <= y_bytes + (1 << 20),
+          f"4g pcm: peak allocation {peak} B over the output's {y_bytes}")
+    rel = _rel_rms(y[:N_ORACLE].double().cpu().numpy(), refs["pcm"])
+    check(rel <= TOL_ORACLE, f"4g pcm: oracle rel RMS {rel:.3e}")
+    check(torch.equal(y_model, y) and model._filter.state.history.dtype
+          == torch.int16, "4g pcm: DATToCD differs from filt")
+    yc = torch.cat(parts)
+    t_end = n_want * 160
+    check(torch.equal(yc, y) and (f.state.phase, f.state.deficit)
+          == (t_end % 147 + 1, 1 + t_end // 147 - N_HEAD)
+          and torch.equal(f.state.history, pcm[N_HEAD - 23:]),
+          "4g pcm: chunked differs from whole")
+    notes.append(f"int16 PCM 147//160 on {N_HEAD} -> {n_want}: oracle rel "
+                 f"RMS {rel:.3e} (limit {TOL_ORACLE}); peak allocation "
+                 f"{peak} B (the output {y_bytes} B: no cast pass); "
+                 f"DATToCD == filt; FIRFilter in {n_chunks} seeded chunks "
+                 f"of 50,000-500,000 == whole, int16 history")
+    # uint8 I/Q
+    n_iq = mt.outputlength(p_iq, N_IQ)
+    check(y_iq.dtype == torch.float32 and tuple(y_iq.shape) == (2, n_iq),
+          f"4g iq: {y_iq.dtype} {tuple(y_iq.shape)}")
+    check(torch.equal(y_iq_tm, y_iq.t()), "4g iq: time-major differs")
+    check(torch.equal(torch.cat(iq_parts, -1), y_iq)
+          and f_iq.state.history.dtype == torch.uint8,
+          "4g iq: chunked differs from whole")
+    rels = [_rel_rms(y_iq[c, :N_ORACLE].double().cpu().numpy(),
+                     refs[f"iq{c}"]) for c in range(2)]
+    check(max(rels) <= TOL_ORACLE_ARB_REF, f"4g iq: oracle {rels}")
+    notes.append(f"uint8 I/Q (2, {N_IQ}) at {R_REF:.9g} -> (2, {n_iq}): "
+                 f"oracle rel RMS {rels[0]:.3e} / {rels[1]:.3e} (limit "
+                 f"{TOL_ORACLE_ARB_REF}); time-major (interleaved) == "
+                 f"channel-major; {n_iq_chunks} chunks == whole")
+    for (mode, label), (yr, rparts, fr) in rate_runs.items():
+        rate, po, limit = {r[0]: r[1:] for r in rows}[label]
+        n_r = mt.outputlength(fr.params, N_HEAD)
+        _, u_end, d_end = idx.host_carry(fr.params, 0, 1, N_HEAD)
+        check(yr.dtype == torch.float32 and tuple(yr.shape) == (n_r,)
+              and torch.equal(torch.cat(rparts), yr)
+              and (fr.state.phase, fr.state.deficit) == (u_end, d_end),
+              f"4g {mode} {label}: chunked differs from whole")
+        rel = _rel_rms(yr[:N_ORACLE].double().cpu().numpy(),
+                       refs[f"{mode} {label}"])
+        check(rel <= limit, f"4g {mode} {label}: oracle {rel:.3e}")
+        notes.append(f"{mode} {label} {rate:.9g} on {N_HEAD} -> {n_r}: "
+                     f"oracle rel RMS {rel:.3e} (limit {limit}), chunked "
+                     f"== whole")
+    print(f"[4g narrow slice] {'; '.join(notes)}; launches {launches}, "
+          f"{by_variant}; card: {card}")
+    return launches, pcm, iq
+
+
+def phase_narrow_times(mt, torch, x, pcm, iq, x64, pp, rs, card):
+    """5g: each narrow-read entry at the main path's shapes: the headline
+    block (polyphase, 8 M samples of its type), 8 M samples at
+    1/2.123456789 (channel-major resample; uint8 entries on the I/Q pair)
+    and the (125,000, 64) time-major Farrow row at 0.9173 (time-major
+    resample). Kernel (one launch after an L2 eviction), plain version,
+    max abs error, bound; the float32 entry on the widened values
+    beside."""
+    from multirate_tpu_torch.ops.dtypes import NARROW
+
+    ratio, h, ha = Fraction(147, 160), headline_taps(mt), bench_taps(mt)
+    dev = x.device
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(47)
+    signals = {torch.int16: pcm,
+               torch.uint8: _narrow_signal(torch, rng, (N_HEAD,),
+                                           torch.uint8).to(dev),
+               torch.float16: x.to(torch.float16),
+               torch.bfloat16: x.to(torch.bfloat16),
+               torch.int8: _as_mode(mt, torch, x, torch.int8)}
+    out, notes = {}, []
+
+    def one(name, kern, plain, args, kw, x_in, mult_adds):
+        yk, yp = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        max_abs = float((yk.float() - yp.float()).abs().max())
+        check(max_abs <= _f16_tol(torch, yk.dtype) * float(yp.float().abs().max()),
+              f"5g {name}: kernel vs plain {max_abs:.3e}")
+        ms = _time_ms(torch, lambda: kern(*args, **kw), iters=1, reps=9,
+                      before=flush.zero_)
+        plain_ms = _time_ms(torch, lambda: plain(*args, **kw), iters=1,
+                            reps=3)
+        nbytes = sum(t.numel() * t.element_size() for t in x_in) \
+            + yk.numel() * yk.element_size()
+        bound = _bound(nbytes, mult_adds, "f32")
+        out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=None, kernel_ms=kernel_ms)
-        t_notes.append(f"{name} in: route (cast + kernel) {route_ms:.4f} ms, "
-                       f"kernel alone on the widened values {kernel_ms:.4f} "
-                       f"ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-                       f"({bound[1]}, narrow input bytes)")
-    xf = xb.float().view(1, -1)
-    f32_ms = _time_ms(torch, lambda: rs.resample(
-        xf, torch.zeros(1, p.h_min, device=x.device), p, 0, 1, n), 20)
-    t_notes.append(f"the float32 row on the same values {f32_ms:.4f} ms")
-    out["bf16"]["launches"] = launches
-    out["bf16"]["f32_ms"] = f32_ms
-    print(f"[4g widened rate slice] {'; '.join(notes)}; launches "
-          f"{by_variant}; times at 1/2.123456789 on {N_HEAD}, CUDA events: "
-          f"{'; '.join(t_notes)}; card: {card}")
+                         library_ms=None)
+        return ms, bound
+
+    # polyphase, the headline block
+    bank = mt.make_kernel(h, ratio=ratio, device=dev).bank
+    n = mt.outputlength(N_HEAD, ratio)
+    for (x_dt, b_dt, o_dt), name in pp.ENTRIES.items():
+        if x_dt not in NARROW or b_dt != torch.float32:
+            continue
+        xs = signals[x_dt][:N_HEAD].reshape(1, -1)
+        hist = torch.zeros(1, 23, dtype=x_dt, device=dev)
+        args = (xs, hist, bank, 147, 160, 1, 1, n)
+        ms, bound = one(f"polyphase_{name}", pp.polyphase,
+                        pp.polyphase_plain, args, {"out_dtype": o_dt},
+                        (xs, hist, bank), n * 24)
+        wide = (xs.float(), hist.float(), *args[2:])
+        f32_ms = _time_ms(torch, lambda: pp.polyphase(*wide, out_dtype=o_dt),
+                          iters=1, reps=9, before=flush.zero_)
+        out[f"polyphase_{name}"]["f32_ms"] = f32_ms
+        notes.append(f"polyphase_{name} ({_plan_of(pp, args).variant}) "
+                     f"{ms:.4f} ms, the float32 entry on the widened values "
+                     f"{f32_ms:.4f}, bound {bound[0]:.4f} ({bound[1]})")
+    # resample: channel-major at 1/2.123456789, time-major 64 channels
+    p_cm = mt.make_kernel(ha, rate=R_REF, nphi=32, device=dev)
+    p_tm = mt.make_kernel(ha, rate=0.9173, nphi=32, polyorder=4, device=dev)
+    for tm, table in ((False, rs.ENTRIES), (True, rs.TM_ENTRIES)):
+        for (x_dt, t_dt, o_dt), name in table.items():
+            if x_dt not in NARROW:
+                continue
+            p = p_tm if tm else p_cm
+            if tm:
+                xs = _narrow_signal(torch, rng, tuple(x64.shape[::-1]),
+                                    x_dt).to(dev)
+            elif x_dt == torch.uint8:  # the I/Q pair of 4g
+                xs = iq
+            else:
+                xs = signals[x_dt][:N_HEAD].reshape(1, -1)
+            C = xs.shape[1] if tm else xs.shape[0]
+            n_r = mt.outputlength(p, xs.shape[0] if tm else xs.shape[1])
+            h_r = torch.zeros(C, p.h_min, dtype=x_dt, device=dev)
+            args = (xs, h_r, p, 0, 1, n_r)
+            kern = rs.resample_tm if tm else rs.resample
+            plain = rs.resample_tm_plain if tm else rs.resample_plain
+            label = f"resample_{name}"
+            ms, bound = one(label, kern, plain, args, {"out_dtype": o_dt},
+                            (xs, h_r, p.table), _resample_mult_adds(p, C, n_r))
+            wide = (xs.float(), h_r.float(), *args[2:])
+            f32_ms = _time_ms(torch, lambda: kern(*wide), iters=1, reps=9,
+                              before=flush.zero_)
+            out[label]["f32_ms"] = f32_ms
+            notes.append(f"{label} ({_resample_plan(rs, args, tm).variant}"
+                         f", {tuple(xs.shape)}) {ms:.4f} ms, the float32 "
+                         f"entry on the widened values {f32_ms:.4f}, bound "
+                         f"{bound[0]:.4f} ({bound[1]})")
+    del flush
+    print(f"[5g narrow-read times] one launch after a 256 MB write, CUDA "
+          f"events, median of 9: {'; '.join(notes)}; card: {card}")
     return out
 
 
@@ -2770,8 +3056,11 @@ def main() -> int:
                                                  probe, card)
         f_row = phase_sharded(mt, torch, card)
         phase_sharded_nccl(mt, torch, dev, pp, x)
-        phase_rate_quant_vs_plain(mt, torch, dev, rs)
-        g_rows = phase_rate_quant_slice(mt, torch, dev, rs, x, card)
+        phase_narrow_vs_plain(mt, torch, dev, pp, rs)
+        g_launches, pcm, iq = phase_narrow_slice(mt, torch, dev, pp, rs, x,
+                                                 card)
+        g_rows = phase_narrow_times(mt, torch, x, pcm, iq, x64, pp, rs,
+                                    card)
         phase_examples(torch, pp, rs)
         phase_scaling(card)
         check("jax" not in sys.modules, "jax was imported")
@@ -2810,7 +3099,7 @@ def main() -> int:
         "general_ms": rows["arbitrary_refrate"][4],
         "variant": rows["arbitrary_refrate"][5],
     }, {
-        "name": "resample_tm_f32",
+        "name": "resample_f32_tm",
         "route": "cuda",
         "source": "multirate_tpu_torch/csrc/resample.cu",
         "replaces": "multirate_tpu/ops/pallas/select4.py:394, "
@@ -2859,22 +3148,24 @@ def main() -> int:
                         "source": "multirate_tpu_torch/csrc/probe.cu",
                         "replaces": f"multirate_tpu/utils/metrics.py:{line}",
                         "launches": launched, **e_rows[name]})
-    # this slice's paths: the sharded headline on (1, 4), 4 gloo ranks on
-    # one card (launches summed over the ranks; times per shard), and bf16
-    # at 1/2.123456789 through the widened route (times: cast + kernel)
+    # the sharded headline on (1, 4), 4 gloo ranks on one card (launches
+    # summed over the ranks; times per shard)
     kernels.append({"name": "polyphase_f32_sharded", "route": "cuda",
                     "source": "multirate_tpu_torch/csrc/polyphase.cu",
                     "replaces": zc, **f_row})
-    g = g_rows["bf16"]
-    kernels.append({"name": "resample_f32_bf16in", "route": "cuda",
-                    "source": "multirate_tpu_torch/csrc/resample.cu",
-                    "replaces": "multirate_tpu/ops/pallas/select3.py:319, "
-                                "multirate_tpu/ops/pallas/select3.py:347",
-                    "launches": g["launches"],
-                    "max_abs_err": g["max_abs_err"],
-                    **{k: g[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms",
-                                         "kernel_ms", "f32_ms")}})
+    # this slice's narrow-read entries: launches from 4g, times from 5g (the
+    # headline block; 8 M samples or the I/Q pair at 1/2.123456789; the
+    # 64-channel time-major Farrow row)
+    rs_cm = kernels[1]["replaces"]
+    rs_tm = kernels[2]["replaces"]
+    for name, row in g_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"multirate_tpu_torch/csrc/{name.split('_')[0]}.cu",
+            "replaces": (f"{zc}, multirate_tpu/ops/pallas/rational2.py:181, "
+                         f"{dense}" if name.startswith("polyphase")
+                         else rs_tm if name.endswith("_tm") else rs_cm),
+            "launches": g_launches.get(name, 0), **row})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,14 +13,16 @@ kernel (``ops/cuda/polyphase.py``, ``csrc/polyphase.cu``) and the
 arbitrary-rate and Farrow resamplers, channel-major (``filt_block``) or
 time-major (``filt_block_tm``), through another (``ops/cuda/resample.py``,
 ``csrc/resample.cu``) on CUDA tensors; CPU tensors run their plain PyTorch
-versions. Every filter type takes float32, float64, complex64 and
-complex128 signals and taps, with JAX's output type (the promoted type of
-taps and signal); complex values stay interleaved, as torch stores them.
-The rational family also runs the quantized modes: bfloat16 taps and
-signal (float32 outputs), int8 (exact int32 accumulators, with the
-helpers of ``quant``), and bfloat16 or float16 output stores
-(``make_kernel(..., store_dtype=)``). At an arbitrary or Farrow rate a
-bfloat16 or int8 signal is widened to float32 (float32 outputs).
+versions. Every filter type takes every signal and tap type the JAX
+package takes (float32, float64, complex64, complex128, float16,
+bfloat16, the integers and bool), with JAX's output type (its promotion
+of taps and signal, ``ops/dtypes.py``); complex values stay interleaved,
+as torch stores them. 16-bit PCM, uint8 I/Q, float16, bfloat16 and int8
+signals are read as stored by narrow-read entries of both kernels, which
+widen each sample in the kernel. The rational family also runs the
+quantized modes: bfloat16 taps and signal (float32 outputs), int8 (exact
+int32 accumulators, with the helpers of ``quant``), and bfloat16 or
+float16 output stores (``make_kernel(..., store_dtype=)``).
 
 The runtime around them: ``io`` (the native ring buffer and the
 ``StreamingResampler`` that feeds fixed blocks from arbitrary chunks, with

@@ -16,14 +16,17 @@ JAX kernel's ``history_len``. For the arbitrary/Farrow kernels the phase
 is the accumulator u and the histories have the same length on both
 sides.
 
-Banks, Farrow coefficients and histories carry over in their own type
+Banks and Farrow coefficients carry over in their storage type
 (``params.storage_dtype``): float32, float64, complex64 and complex128,
 and for the rational family also bfloat16 and int8 (the quantized modes),
-read through float32 where numpy holds bfloat16; any other type becomes
-float32 (complex64 if complex). ``state_to_jax`` hands histories back in
-their type, complex ones as complex; numpy has no bfloat16 of its own, so
-a bfloat16 history goes back as float32 (exact), which a JAX block casts
-to its signal's type.
+read through float32 where numpy holds bfloat16; taps of another type sit
+in a wider bank that holds their values, and the kernel keeps their type
+(``taps_dtype``), so its outputs take JAX's type. Histories carry over in
+their own type, whatever it is (int16 PCM, uint8, float16, ...), as JAX
+keeps them. ``state_to_jax`` hands histories back in their type, complex
+ones as complex; numpy has no bfloat16 of its own, so a bfloat16 history
+goes back as float32 (exact), which a JAX block casts to its signal's
+type.
 """
 
 from __future__ import annotations
@@ -52,15 +55,19 @@ def params_from_jax(fields, device=None):
     stacks ``k_super``, ``k_zc_hi`` and ``k_zc_lo``, ``sc_group``, the
     gridsel/ratgrid plans) are ignored. The class follows the fields
     present, as the JAX classes' fields do. A bank keeps its type (a
-    rational-family one also bfloat16 or int8), Farrow ``coeffs`` stay
-    float64 or complex128, and ``store_dtype`` carries over. The kernel
-    lives on ``device``, by default the card.
+    rational-family one also bfloat16 or int8) or goes to its storage
+    type with the taps' own type kept as ``taps_dtype``, Farrow ``coeffs``
+    stay float64 or complex128, and ``store_dtype`` carries over. The
+    kernel lives on ``device``, by default the card.
     """
     dev = default_device() if device is None else torch.device(device)
 
     def bank(name, quantized=True):
+        """The bank in its storage type, and the taps' type where that
+        differs (``taps_dtype``)."""
         t = to_tensor(fields[name], dev)
-        return t.to(storage_dtype(t.dtype, quantized)).contiguous()
+        stored = t.to(storage_dtype(t.dtype, quantized)).contiguous()
+        return stored, (None if stored.dtype == t.dtype else t.dtype)
 
     if "dpfb" in fields or "coeffs" in fields:
         nphi, rate = int(fields["nphi"]), float(fields["rate"])
@@ -68,44 +75,46 @@ def params_from_jax(fields, device=None):
         if "coeffs" in fields:
             return FIRFarrow.from_fit(fields["pfb"], fields["coeffs"], nphi,
                                       rate, dfx, dev)
-        table = torch.stack([bank("pfb", False), bank("dpfb", False)])
+        (pfb, tdt), (dpfb, _) = bank("pfb", False), bank("dpfb", False)
+        table = torch.stack([pfb, dpfb])
         return FIRArbitrary(table=table, nphi=nphi,
                             taps_per_phi=table.shape[1], rate=rate,
-                            delta_fx=dfx)
+                            delta_fx=dfx, taps_dtype=tdt)
 
     store = fields.get("store_dtype")
     if isinstance(store, np.ndarray):  # np.asarray of None or of a dtype
         store = store.item()
     store = store_dtype_of(store)
     if "taps_rev" in fields:
-        taps = bank("taps_rev")
+        taps, tdt = bank("taps_rev")
         if "decimation" in fields:
             return FIRDecimator(taps_rev=taps, hlen=taps.shape[0],
                                 decimation=int(fields["decimation"]),
-                                store_dtype=store)
+                                store_dtype=store, taps_dtype=tdt)
         return FIRStandard(taps_rev=taps, hlen=taps.shape[0],
-                           store_dtype=store)
-    pfb = bank("pfb")
+                           store_dtype=store, taps_dtype=tdt)
+    pfb, tdt = bank("pfb")
     L = int(fields["interpolation"])
     if "decimation" in fields:
         return FIRRational(pfb=pfb, interpolation=L,
                            decimation=int(fields["decimation"]),
-                           taps_per_phi=pfb.shape[0], store_dtype=store)
+                           taps_per_phi=pfb.shape[0], store_dtype=store,
+                           taps_dtype=tdt)
     return FIRInterpolator(pfb=pfb, interpolation=L,
-                           taps_per_phi=pfb.shape[0], store_dtype=store)
+                           taps_per_phi=pfb.shape[0], store_dtype=store,
+                           taps_dtype=tdt)
 
 
 def state_from_jax(params, history, phase, deficit) -> FilterState:
     """The port's state from a JAX state's (history, phase, deficit): the
-    trailing ``params.h_min`` history samples in their storage type
-    (float32, float64, complex64, complex128, bfloat16 or int8), on the
-    kernel's device."""
+    trailing ``params.h_min`` history samples in their own type (the
+    signal's, as JAX keeps it), on the kernel's device."""
     history = to_tensor(history)
     if history.shape[-1] < params.h_min:
         raise ValueError(f"history holds {history.shape[-1]} samples, the "
                          f"kernel needs {params.h_min}")
     tail = history[..., history.shape[-1] - params.h_min:]
-    tail = tail.to(params.device, storage_dtype(tail.dtype))
+    tail = tail.to(params.device)
     return FilterState(history=tail.contiguous(),
                        phase=int(phase), deficit=int(deficit))
 

@@ -1,18 +1,56 @@
-// Multiply-accumulate and stores over the sample and tap types of the
-// port's kernels (polyphase.cu, resample.cu).
+// Multiply-accumulate, widening loads and narrowing stores over the sample
+// and tap types of the port's kernels (polyphase.cu, resample.cu).
 //
 // Complex values stay interleaved, as torch stores them: a complex64 sample
 // is a float2 {re, im} and a complex128 one a double2, read over the
 // tensor's data without a split into planes. A real tap against a complex
 // sample costs 2 real multiply-adds, a complex tap 4; each real one is an
 // FMA in the sample's precision.
+//
+// Narrow reads: int16, uint8, int8, __half and __nv_bfloat16 samples are
+// read as stored and widened to float (``widen``) before the float
+// multiply-adds; each of these types converts to float exactly, so a
+// narrow read gives the float32 kernel's bits on the widened values.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mr {
+
+// A stored value as the type it is staged and summed in: the same type, or
+// float for a narrow read (exact).
+template <typename S, typename T>
+__device__ __forceinline__ S widen(T v) {
+  return static_cast<S>(v);
+}
+template <>
+__device__ __forceinline__ float widen<float, __half>(__half v) {
+  return __half2float(v);
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// An accumulator stored as the output type: the same type, or rounded to
+// nearest even into float16 or bfloat16.
+template <typename O, typename T>
+__device__ __forceinline__ O narrow(T v) {
+  return static_cast<O>(v);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half, float>(float v) {
+  return __float2half_rn(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float mac(float acc, float w, float b) {
   return fmaf(w, b, acc);

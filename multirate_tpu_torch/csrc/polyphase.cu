@@ -1,6 +1,8 @@
 // Polyphase FIR / rational resampler for Hopper (sm_90a): float32, float64,
-// complex64 and complex128 (against real or complex taps), and the quantized
-// bfloat16 and int8 modes, with float32 or narrow float stores.
+// complex64 and complex128 (against real or complex taps), the quantized
+// bfloat16 and int8 modes, and narrow reads of int16, uint8, float16,
+// bfloat16 and int8 samples against float32 taps, with float32 or narrow
+// float stores.
 //
 // Replaces the TPU kernels multirate_tpu/ops/pallas/rational2.py
 // rational_supercycle_zc (float32, bf16, int8 and out_dtype modes; a
@@ -32,6 +34,12 @@
 // - int8 (the TPU's s8 x s8 -> s32 pass): staged as int8, exact int32 sums
 //   (__dp4a on packed bytes in the register variant), so chunked == whole
 //   bit for bit. The caller keeps T * 128 * 127 below 2^31;
+// - narrow reads (16-bit PCM, uint8 I/Q, float16, and bf16 or int8 against
+//   float taps): the raw samples are staged as stored, so a tile's span
+//   moves 2 or 1 bytes a sample, and each is widened to float as it is
+//   read from shared memory (mac.cuh widen, exact); from there on the
+//   float32 mode's arithmetic in the same order, so each output equals the
+//   float32 entry's on the widened values bit for bit, in every variant;
 // - narrow store (out_dtype): the float32 accumulator is stored through
 //   __float2bfloat16_rn / __float2half_rn, round to nearest even.
 //
@@ -107,6 +115,7 @@
 namespace {
 
 using mr::mac;
+using mr::widen;
 
 constexpr int kThreads = 256;          // general
 constexpr int kRegThreads = 256;       // reg: at most this many per block
@@ -123,23 +132,29 @@ constexpr int kErrBadPlan = -2;
 enum Variant { kGeneral = 0, kReg = 1, kBcast = 2, kSlide = 3 };
 
 // The staged (shared-memory) types of a (signal, tap) pair and its
-// accumulator: the types themselves, but bf16 staged as float and int8
-// summed in int32.
+// accumulator: the types themselves, but bf16 staged as float, int8 summed
+// in int32, and a narrow read against float taps widened to float.
 template <typename X, typename W> struct Mode {
   using XStage = X;
   using WStage = W;
   using Acc = X;
 };
-template <> struct Mode<__nv_bfloat16, __nv_bfloat16> {
+struct FloatMode {
   using XStage = float;
   using WStage = float;
   using Acc = float;
 };
+template <> struct Mode<__nv_bfloat16, __nv_bfloat16> : FloatMode {};
 template <> struct Mode<int8_t, int8_t> {
   using XStage = int8_t;
   using WStage = int8_t;
   using Acc = int32_t;
 };
+template <> struct Mode<int16_t, float> : FloatMode {};
+template <> struct Mode<uint8_t, float> : FloatMode {};
+template <> struct Mode<__half, float> : FloatMode {};
+template <> struct Mode<int8_t, float> : FloatMode {};
+template <> struct Mode<__nv_bfloat16, float> : FloatMode {};
 
 // The register variant's outputs per thread R and tap padding E (U = T+E
 // registers a tap vector), and the broadcast variant's outputs per thread:
@@ -158,12 +173,6 @@ template <typename X, typename W> struct Shape {
       sizeof(XS) <= 4 ? 9 : (sizeof(XS) <= 8 ? 5 : 3);
   static constexpr int kSlideR = kBcastR;
 };
-
-template <typename T>
-__device__ __forceinline__ T stage(T v) { return v; }
-__device__ __forceinline__ float stage(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ void store(T* p, T v) { *p = v; }
@@ -280,7 +289,7 @@ polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   if (kBankInSmem) {
     // published by the __syncthreads below, before any use
     for (int i = threadIdx.x; i < T * L; i += blockDim.x)
-      s_bank[i] = stage(bank[i]);
+      s_bank[i] = widen<WStage>(bank[i]);
   }
   const int H = T - 1;
 
@@ -299,7 +308,7 @@ polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
       __syncthreads();  // the previous tile is done reading s_x
       for (int i = threadIdx.x; i < span; i += blockDim.x) {
         const int64_t e = e0 + i;
-        s_x[i] = e < H ? stage(hc[e]) : stage(xc[e - H]);
+        s_x[i] = widen<XStage>(e < H ? hc[e] : xc[e - H]);
       }
       __syncthreads();
 
@@ -314,7 +323,8 @@ polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
           for (int t = 0; t < T; ++t) acc = mac(acc, w[t], b[t * L]);
         } else {
           const W* b = bank + ph;
-          for (int t = 0; t < T; ++t) acc = mac(acc, w[t], stage(b[t * L]));
+          for (int t = 0; t < T; ++t)
+            acc = mac(acc, w[t], widen<WStage>(b[t * L]));
         }
         store(yc + n0 + j, acc);
       }
@@ -448,7 +458,7 @@ polyphase_reg(const X* __restrict__ x, const X* __restrict__ hist,
 #pragma unroll
       for (int s = 0; s < U; ++s) {
         const int t = s - d;
-        B[r][s] = ok && t >= 0 && t < T ? stage(bank[t * L + ph])
+        B[r][s] = ok && t >= 0 && t < T ? widen<WS>(bank[t * L + ph])
                                         : mr::zero<WS>();
       }
     }
@@ -506,7 +516,7 @@ polyphase_reg(const X* __restrict__ x, const X* __restrict__ hist,
         const X* wx = s_x + a;
 #pragma unroll
         for (int s = 0; s < U; ++s) {
-          const XS v = stage(wx[s]);
+          const XS v = widen<XS>(wx[s]);
 #pragma unroll
           for (int r = 0; r < R; ++r) acc[r] = mac(acc[r], v, B[r][s]);
         }
@@ -596,7 +606,7 @@ polyphase_slide(const X* __restrict__ x, const X* __restrict__ hist,
   const int base = (int)(tc / L);  // 0 or 1
   WS b[T];
 #pragma unroll
-  for (int t = 0; t < T; ++t) b[t] = stage(bank[t * L + ph]);
+  for (int t = 0; t < T; ++t) b[t] = widen<WS>(bank[t * L + ph]);
 
   auto prefetch = [&](int64_t w, X* buf) {
     const int64_t ch = w / n_tiles;
@@ -628,7 +638,7 @@ polyphase_slide(const X* __restrict__ x, const X* __restrict__ hist,
       for (int r = 0; r < R; ++r) acc[r] = mr::zero<Acc>();
 #pragma unroll
       for (int j = 0; j < T + R - 1; ++j) {
-        const XS v = stage(s_x[kb + j]);
+        const XS v = widen<XS>(s_x[kb + j]);
 #pragma unroll
         for (int r = 0; r < R; ++r)
           if (j - r >= 0 && j - r < T) acc[r] = mac(acc[r], v, b[j - r]);
@@ -718,7 +728,7 @@ polyphase_bcast(const X* __restrict__ x, const X* __restrict__ hist,
   // first sync below
   for (int i = tid; i < g.rows * g.TQ; i += blockDim.x) {
     const int t = (i % g.TQ) * M + i / g.TQ;
-    s_b[i] = t < T ? stage(bank[t]) : mr::zero<WS>();
+    s_b[i] = t < T ? widen<WS>(bank[t]) : mr::zero<WS>();
   }
 
   // work item w: channel w / n_tiles, tile w % n_tiles; tile i + 1's span
@@ -746,7 +756,7 @@ polyphase_bcast(const X* __restrict__ x, const X* __restrict__ hist,
     for (int idx = tid; idx < g.rows * g.SP; idx += blockDim.x) {
       const int p = idx / g.SP;
       const int i = (idx - p * g.SP) * M + p;
-      s_x[idx] = i < g.span ? stage(s_raw[i]) : mr::zero<XS>();
+      s_x[idx] = i < g.span ? widen<XS>(s_raw[i]) : mr::zero<XS>();
     }
     __syncthreads();
 
@@ -893,6 +903,18 @@ MR_POLYPHASE(c64, float2, float, float2)
 MR_POLYPHASE(c64c, float2, float2, float2)
 MR_POLYPHASE(c128, double2, double, double2)
 MR_POLYPHASE(c128c, double2, double2, double2)
+// narrow reads against float32 taps: float32 outputs, and float16 ones
+// (the output type of float16 taps with a narrow signal)
+MR_POLYPHASE(s16, int16_t, float, float)
+MR_POLYPHASE(u8, uint8_t, float, float)
+MR_POLYPHASE(f16, __half, float, float)
+MR_POLYPHASE(s8f, int8_t, float, float)
+MR_POLYPHASE(bf16f, __nv_bfloat16, float, float)
+MR_POLYPHASE(s16_f16out, int16_t, float, __half)
+MR_POLYPHASE(u8_f16out, uint8_t, float, __half)
+MR_POLYPHASE(f16_f16out, __half, float, __half)
+MR_POLYPHASE(s8f_f16out, int8_t, float, __half)
+MR_POLYPHASE(bf16f_f16out, __nv_bfloat16, float, __half)
 
 #undef MR_POLYPHASE
 

@@ -1,6 +1,8 @@
 // Arbitrary-rate and Farrow resampler for Hopper (sm_90a): float32 (channel-
-// and time-major), and channel-major float64, complex64 and complex128
-// signals against real or complex tables.
+// and time-major), channel-major float64, complex64 and complex128 signals
+// against real or complex tables, and narrow reads (bfloat16, float16,
+// int16, int8 and uint8 samples against float32 tables, channel- and
+// time-major, with float32 or float16 stores).
 //
 // Replaces the TPU kernels of multirate_tpu/ops/pallas/ that resample at a
 // real rate:
@@ -39,6 +41,15 @@
 // complex64 (float2) or complex128 (double2) samples, interleaved as torch
 // stores them, against a real table of their precision or a complex one of
 // their type (mac.cuh). Taps are evaluated in W, alpha in W's real type.
+// A narrow read (stored type XR: __nv_bfloat16, __half, int16_t, int8_t,
+// uint8_t) stages each span as stored, so device memory moves 2 or 1 bytes
+// a sample, into the same double buffer, and once it has landed widens it
+// to float into one more shared buffer (mac.cuh widen, exact), from which
+// the unchanged inner loop reads: each output equals the float32 entry's on
+// the widened values bit for bit. cp.async copies 4, 8 or 16 bytes, so the
+// samples that do not go by 16-byte chunks (the history, rows that are not
+// 16-byte aligned) are loaded and stored one by one. Out is X, or __half
+// for the float16 output of float16 taps (round to nearest even).
 //
 // Exactness:
 // - a tile's base (u0 + n0*delta) / D is formed in 128 bits (__umul64hi):
@@ -115,11 +126,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mac.cuh"
 
 namespace {
 
 using mr::mac;
+
+// The type a stored sample is staged and summed in: itself, or float for a
+// narrow read.
+template <typename T> struct Staged { using type = T; };
+template <> struct Staged<__nv_bfloat16> { using type = float; };
+template <> struct Staged<__half> { using type = float; };
+template <> struct Staged<int16_t> { using type = float; };
+template <> struct Staged<int8_t> { using type = float; };
+template <> struct Staged<uint8_t> { using type = float; };
 
 constexpr int kThreadsCM = 128;   // channel-major: threads a block, at most
 constexpr int kThreadsTM = 256;   // time-major
@@ -258,20 +280,24 @@ __host__ __device__ __forceinline__ int block_threads(int tile, int run,
 }
 
 // Shared bytes of one block: the table (when staged), a double buffer of
-// the spans of cb channels (time-major: span rows of kLanes samples),
-// time-major a tile's taps and offsets, and channel-major runs (run > 1)
-// a warp's 32 runs of outputs, gathered for coalesced stores.
+// the spans of cb channels as stored (time-major: span rows of kLanes
+// samples; xsz bytes a sample), for a narrow read one buffer of the span
+// widened (csz bytes a sample), time-major a tile's taps and offsets, and
+// channel-major runs (run > 1) a warp's 32 runs of outputs, gathered for
+// coalesced stores.
 size_t smem_bytes(int tile, int cb, int run, int T, int P1, uint32_t nphi,
-                  uint64_t delta, size_t xsz, size_t wsz, bool table_smem,
-                  bool time_major) {
+                  uint64_t delta, size_t xsz, size_t csz, size_t wsz,
+                  bool table_smem, bool time_major) {
   size_t b = table_smem ? round16((size_t)P1 * T * nphi * wsz) : 0;
   const int span = (int)span_of(tile, T, nphi, delta);
-  b += 2 * round16((size_t)(time_major ? span : row_samples(span, xsz)) *
-                   cb * xsz);
+  const size_t row =
+      (size_t)(time_major ? span : row_samples(span, xsz)) * cb;
+  b += 2 * round16(row * xsz);
+  if (csz != xsz) b += round16(row * csz);
   if (time_major) b += round16((size_t)tile * T * wsz) + round16(tile * 4);
   if (run > 1)
     b += round16((size_t)block_threads(tile, run, time_major) * (run + 1) *
-                 xsz);
+                 csz);
   return b;
 }
 
@@ -294,6 +320,18 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
+}
+
+// One sample, or a zero where !ok: copied asynchronously where cp.async
+// takes its size (4, 8 or 16 bytes), else loaded and stored (a narrow
+// read's 2- and 1-byte samples), which the barriers before its use publish.
+template <typename X>
+__device__ __forceinline__ void copy_one(X* dst, const X* src, bool ok) {
+  if constexpr (sizeof(X) >= 4) {
+    cp_async<sizeof(X)>(dst, src, ok ? (int)sizeof(X) : 0);
+  } else {
+    *dst = ok ? *src : X{};
+  }
 }
 
 // Stage xext[e0, e0 + span) of channels g*kCB ... into buf. Channel-major:
@@ -321,8 +359,8 @@ __device__ __forceinline__ void stage(X* buf, int rs, int* lead, const X* x,
         if (e < H) {
 #pragma unroll
           for (int v = 0; v < V; ++v)
-            cp_async<sz>(dst + v, cc + v < C ? hist + (cc + v) * H + e : x,
-                         cc + v < C ? sz : 0);
+            copy_one(dst + v, cc + v < C ? hist + (cc + v) * H + e : x,
+                     cc + v < C);
         } else {
           const bool ok = cc < C && e < end;
           cp_async<16>(dst, ok ? x + (e - H) * C + cc : x, ok ? 16 : 0);
@@ -335,7 +373,7 @@ __device__ __forceinline__ void stage(X* buf, int rs, int* lead, const X* x,
         const bool ok = cc < C && e < end;
         const X* src = !ok ? x : (e < H ? hist + cc * H + e
                                         : x + (e - H) * C + cc);
-        cp_async<sz>(buf + i, src, ok ? sz : 0);
+        copy_one(buf + i, src, ok);
       }
     }
   } else {
@@ -361,7 +399,7 @@ __device__ __forceinline__ void stage(X* buf, int rs, int* lead, const X* x,
           const bool ok = cc < C && e < end;
           const X* src = !ok ? x : (e < H ? hist + cc * H + e
                                           : xc + (e - H));
-          cp_async<sz>(row + k, src, ok ? sz : 0);
+          copy_one(row + k, src, ok);
         }
         lead[slot] = 0;
       }
@@ -369,15 +407,18 @@ __device__ __forceinline__ void stage(X* buf, int rs, int* lead, const X* x,
   }
 }
 
-template <typename X, typename W, bool kTM, int kT, int kP1, int kCB,
-          bool kTableInSmem>
+template <typename XR, typename W, typename Out, bool kTM, int kT, int kP1,
+          int kCB, bool kTableInSmem>
 __global__ void __launch_bounds__(kTM ? kThreadsTM : kThreadsCM)
-resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
-                const W* __restrict__ table, X* __restrict__ y, int64_t C,
+resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
+                const W* __restrict__ table, Out* __restrict__ y, int64_t C,
                 int64_t xlen, int T_, int nphi_, int P1_, uint64_t delta,
                 uint64_t u0, int64_t d0, int64_t n_out, int tile, int run,
                 int span, int64_t n_tiles, int64_t groups) {
   using A = typename mr::Real<W>::type;
+  using X = typename Staged<XR>::type;  // what the dot reads and sums in
+  constexpr bool kNarrow = !std::is_same<X, XR>::value;
+  using mr::narrow;
   const int T = kT > 0 ? kT : T_;
   const int P1 = kP1 > 0 ? kP1 : P1_;
   const uint32_t nphi = (uint32_t)nphi_;
@@ -385,15 +426,18 @@ resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t s_base[2][2];  // (q0, r0) of this item and the next
   size_t at = kTableInSmem ? round16((size_t)P1 * TN * sizeof(W)) : 0;
-  // samples between staged rows (channel-major), and bytes of one buffer
-  const int rs = kTM ? kLanes : row_samples(span, sizeof(X));
-  const size_t buf_bytes = round16((size_t)rs * (kTM ? span : kCB) *
-                                   sizeof(X));
+  // samples between staged rows (channel-major), samples of a buffer, and
+  // bytes of one buffer as stored
+  const int rs = kTM ? kLanes : row_samples(span, sizeof(XR));
+  const int buf_n = rs * (kTM ? span : kCB);
+  const size_t buf_bytes = round16((size_t)buf_n * sizeof(XR));
   // span buffer b, addressed from smem_raw so that loads stay shared loads
   auto buf = [&, at](int b) {
-    return reinterpret_cast<X*>(smem_raw + at + b * buf_bytes);
+    return reinterpret_cast<XR*>(smem_raw + at + b * buf_bytes);
   };
   at += 2 * buf_bytes;
+  X* const s_wide = reinterpret_cast<X*>(smem_raw + at);  // narrow reads
+  if (kNarrow) at += round16((size_t)buf_n * sizeof(X));
   W* const s_tap = reinterpret_cast<W*>(smem_raw + at);  // time-major
   int* const s_off = reinterpret_cast<int*>(
       smem_raw + at + round16((size_t)tile * T * sizeof(W)));
@@ -432,8 +476,8 @@ resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   __syncthreads();
   uint64_t q_cur = s_base[0][0], r_cur = s_base[0][1];
   int lead_cur[kTM ? 1 : kCB], lead_next[kTM ? 1 : kCB];
-  stage<X, kTM, kCB>(buf(0), rs, lead_cur, x, hist, C, xlen, H,
-                     w / n_tiles, d0 - 1 + (int64_t)q_cur, span);
+  stage<XR, kTM, kCB>(buf(0), rs, lead_cur, x, hist, C, xlen, H,
+                      w / n_tiles, d0 - 1 + (int64_t)q_cur, span);
   cp_async_commit();
   if (kTM && kTableInSmem) {  // the taps are evaluated before a span wait
     cp_async_wait_one();       // the table has landed
@@ -449,8 +493,8 @@ resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
     if (wn < total) {
       q_next = s_base[cur ^ 1][0];
       r_next = s_base[cur ^ 1][1];
-      stage<X, kTM, kCB>(buf(cur ^ 1), rs, lead_next, x, hist, C, xlen, H,
-                         wn / n_tiles, d0 - 1 + (int64_t)q_next, span);
+      stage<XR, kTM, kCB>(buf(cur ^ 1), rs, lead_next, x, hist, C, xlen, H,
+                          wn / n_tiles, d0 - 1 + (int64_t)q_next, span);
     }
     cp_async_commit();
 
@@ -476,7 +520,15 @@ resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
     }
     cp_async_wait_one();  // this item's span has landed
     __syncthreads();
-    const X* s_x = buf(cur);
+    const X* s_x;
+    if constexpr (kNarrow) {  // widened once, read T times an output
+      const XR* raw = buf(cur);
+      for (int i = tid; i < buf_n; i += nth) s_wide[i] = mr::widen<X>(raw[i]);
+      __syncthreads();
+      s_x = s_wide;
+    } else {
+      s_x = buf(cur);
+    }
     if constexpr (kTM) {
       const int nw = nth / kLanes;
       const int64_t c = g * kLanes + lane;
@@ -486,7 +538,7 @@ resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
 #pragma unroll
         for (int t = 0; t < T; ++t)
           acc = mac(acc, wx[t * kLanes], s_tap[t * tile + j]);
-        if (c < C) y[(n0 + j) * C + c] = acc;
+        if (c < C) y[(n0 + j) * C + c] = narrow<Out>(acc);
       }
     } else {
       // thread tid runs outputs tid*run + s, s < run, in each round of
@@ -515,7 +567,8 @@ resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
             } else {
 #pragma unroll
               for (int k = 0; k < kCB; ++k)
-                if (g * kCB + k < C) y[(g * kCB + k) * n_out + n0 + j] = acc[k];
+                if (g * kCB + k < C)
+                  y[(g * kCB + k) * n_out + n0 + j] = narrow<Out>(acc[k]);
             }
           }
           p = add(p, d_one, nphi);
@@ -525,7 +578,7 @@ resample_kernel(const X* __restrict__ x, const X* __restrict__ hist,
           __syncwarp();
           for (int i = lane; i < 32 * run && base + i < nt; i += 32)
             y[g * n_out + n0 + base + i] =
-                wy[(i >> log_run) * (run + 1) + (i & (run - 1))];
+                narrow<Out>(wy[(i >> log_run) * (run + 1) + (i & (run - 1))]);
           __syncwarp();
         }
       }
@@ -553,27 +606,27 @@ int64_t resident_grid(K kern, int block, size_t smem, int64_t grid_x) {
   return grid_x < cap ? grid_x : cap;
 }
 
-template <typename X, typename W, bool kTM, int kT, int kP1, int kCB,
-          bool kTableInSmem>
+template <typename XR, typename W, typename Out, bool kTM, int kT, int kP1,
+          int kCB, bool kTableInSmem>
 int run_kernel(const void* x, const void* hist, const void* table, void* y,
                int64_t C, int64_t xlen, int T, int nphi, int P1,
                uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
                int tile, int run, int span, int64_t n_tiles, int64_t groups,
                int threads, size_t smem, int64_t grid, cudaStream_t stream) {
-  auto kern = resample_kernel<X, W, kTM, kT, kP1, kCB, kTableInSmem>;
+  auto kern = resample_kernel<XR, W, Out, kTM, kT, kP1, kCB, kTableInSmem>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   grid = resident_grid(kern, threads, smem, grid);
   kern<<<(unsigned)grid, threads, smem, stream>>>(
-      (const X*)x, (const X*)hist, (const W*)table, (X*)y, C, xlen, T, nphi,
-      P1, delta, u0, d0, n_out, tile, run, span, n_tiles, groups);
+      (const XR*)x, (const XR*)hist, (const W*)table, (Out*)y, C, xlen, T,
+      nphi, P1, delta, u0, d0, n_out, tile, run, span, n_tiles, groups);
   return cudaGetLastError();
 }
 
 // One variant's launch on the plan (tile, cb, run, grid); kT = kP1 = 0 is the
 // general variant.
-template <typename X, typename W, bool kTM, int kT, int kP1>
+template <typename XR, typename W, typename Out, bool kTM, int kT, int kP1>
 int launch_variant(const void* x, const void* hist, const void* table,
                    void* y, int64_t C, int64_t xlen, int T, int nphi, int P1,
                    uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
@@ -592,13 +645,14 @@ int launch_variant(const void* x, const void* hist, const void* table,
   if (grid < 1 || grid > kMaxGridX || grid > n_tiles * groups)
     return kErrBadPlan;
   const size_t smem = smem_bytes(tile, cb, run, T, P1, (uint32_t)nphi,
-                                 delta, sizeof(X), sizeof(W), table_smem,
-                                 kTM);
+                                 delta, sizeof(XR),
+                                 sizeof(typename Staged<XR>::type),
+                                 sizeof(W), table_smem, kTM);
   if (smem > kSmemLimit) return kErrTooLarge;
   const int span = (int)span_of(tile, T, (uint32_t)nphi, delta);
   const int threads = block_threads(tile, run, kTM);
 #define MR_RUN(CB, SMEM)                                                     \
-  run_kernel<X, W, kTM, kT, kP1, CB, SMEM>(                                \
+  run_kernel<XR, W, Out, kTM, kT, kP1, CB, SMEM>(                          \
       x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out, tile,   \
       run, span, n_tiles, groups, threads, smem, grid, stream)
   if constexpr (kTM) {
@@ -617,30 +671,27 @@ int launch_variant(const void* x, const void* hist, const void* table,
 
 // Launch on x (C, xlen) -> y (C, n_out), or time-major x (xlen, C) ->
 // y (n_out, C), by the plan's variant; see the extern "C" entries.
-template <typename X, typename W, bool kTM>
+template <typename XR, typename W, typename Out, bool kTM>
 int launch(const void* x, const void* hist, const void* table, void* y,
            int64_t C, int64_t xlen, int T, int nphi, int P1, uint64_t delta,
            uint64_t u0, int64_t d0, int64_t n_out, int variant, int tile,
            int cb, int run, int64_t grid, void* stream) {
   if (C <= 0 || n_out <= 0) return cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
+#define MR_VARIANT(KT, KP1)                                                  \
+  launch_variant<XR, W, Out, kTM, KT, KP1>(x, hist, table, y, C, xlen, T,    \
+                                           nphi, P1, delta, u0, d0, n_out,   \
+                                           tile, cb, run, grid, s)
   switch (variant) {
     case kGeneral:
-      return launch_variant<X, W, kTM, 0, 0>(x, hist, table, y, C, xlen, T,
-                                             nphi, P1, delta, u0, d0, n_out,
-                                             tile, cb, run, grid, s);
+      return MR_VARIANT(0, 0);
     case kT10P2:
-      return launch_variant<X, W, kTM, 10, 2>(x, hist, table, y, C, xlen, T,
-                                              nphi, P1, delta, u0, d0, n_out,
-                                              tile, cb, run, grid, s);
+      return MR_VARIANT(10, 2);
     case kT10P5:
-      return launch_variant<X, W, kTM, 10, 5>(x, hist, table, y, C, xlen, T,
-                                              nphi, P1, delta, u0, d0, n_out,
-                                              tile, cb, run, grid, s);
+      return MR_VARIANT(10, 5);
     case kT73P2:
-      return launch_variant<X, W, kTM, 73, 2>(x, hist, table, y, C, xlen, T,
-                                              nphi, P1, delta, u0, d0, n_out,
-                                              tile, cb, run, grid, s);
+      return MR_VARIANT(73, 2);
+#undef MR_VARIANT
     default:
       return kErrBadPlan;
   }
@@ -663,17 +714,20 @@ extern "C" {
 // outputs a thread runs (1, 2, 4, 8 or 16; 1 unless cb == 1) and blocks, at
 // most. Returns a cudaError_t code, kErrTooLarge when the plan's shared
 // memory exceeds the limit, or kErrBadPlan when the variant does not take
-// the plan.
-int mr_resample_f32(const void* x, const void* hist, const void* table,
-                    void* y, int64_t C, int64_t xlen, int T, int nphi, int P1,
-                    uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
-                    int time_major, int variant, int tile, int cb, int run,
-                    int64_t grid, void* stream) {
-  auto go = time_major ? launch<float, float, true>
-                       : launch<float, float, false>;
-  return go(x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out,
-             variant, tile, cb, run, grid, stream);
-}
+// the plan. The narrow reads (MR_RESAMPLE_NARROW) take the same arguments,
+// with x and hist of their stored type and y of their output type.
+#define MR_RESAMPLE_LAYOUT(name, XR, Out)                                    \
+  int mr_resample_##name(const void* x, const void* hist, const void* table, \
+                         void* y, int64_t C, int64_t xlen, int T, int nphi,  \
+                         int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
+                         int64_t n_out, int time_major, int variant,         \
+                         int tile, int cb, int run, int64_t grid,            \
+                         void* stream) {                                     \
+    auto go = time_major ? launch<XR, float, Out, true>                      \
+                         : launch<XR, float, Out, false>;                    \
+    return go(x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out, \
+              variant, tile, cb, run, grid, stream);                         \
+  }
 
 // Channel-major only, as mr_resample_f32 with time_major = 0: x and hist
 // (and y) of the signal type X, the table of type W, complex ones 8- or
@@ -684,23 +738,37 @@ int mr_resample_f32(const void* x, const void* hist, const void* table,
                          int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
                          int64_t n_out, int variant, int tile, int cb,      \
                          int run, int64_t grid, void* stream) {              \
-    return launch<X, W, false>(x, hist, table, y, C, xlen, T, nphi, P1,     \
-                               delta, u0, d0, n_out, variant, tile, cb, run,\
-                               grid, stream);                                \
+    return launch<X, W, X, false>(x, hist, table, y, C, xlen, T, nphi, P1,  \
+                                  delta, u0, d0, n_out, variant, tile, cb,  \
+                                  run, grid, stream);                        \
   }
 
+MR_RESAMPLE_LAYOUT(f32, float, float)
 MR_RESAMPLE(f64, double, double)
 MR_RESAMPLE(c64, float2, float)
 MR_RESAMPLE(c64c, float2, float2)
 MR_RESAMPLE(c128, double2, double)
 MR_RESAMPLE(c128c, double2, double2)
 
-#undef MR_RESAMPLE
-
 const char* mr_error_string(int code) {
   if (code == kErrTooLarge) return "the plan's shared memory exceeds the limit";
   if (code == kErrBadPlan) return "the variant does not take this plan";
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// narrow reads: float32 outputs, and float16 ones (the output type of
+// float16 taps with a narrow signal; bfloat16 with them gives float32)
+MR_RESAMPLE_LAYOUT(bf16, __nv_bfloat16, float)
+MR_RESAMPLE_LAYOUT(f16, __half, float)
+MR_RESAMPLE_LAYOUT(s16, int16_t, float)
+MR_RESAMPLE_LAYOUT(s8, int8_t, float)
+MR_RESAMPLE_LAYOUT(u8, uint8_t, float)
+MR_RESAMPLE_LAYOUT(f16_f16out, __half, __half)
+MR_RESAMPLE_LAYOUT(s16_f16out, int16_t, __half)
+MR_RESAMPLE_LAYOUT(s8_f16out, int8_t, __half)
+MR_RESAMPLE_LAYOUT(u8_f16out, uint8_t, __half)
+
+#undef MR_RESAMPLE
+#undef MR_RESAMPLE_LAYOUT
 
 }  // extern "C"

@@ -15,13 +15,11 @@ device; a numpy input runs on ``device=`` if one is given, else on the
 card. The CPU is used only when the caller names it (or hands over CPU
 tensors), and nothing moves a GPU computation to the CPU.
 
-Signals are float32, float64, complex64 or complex128 for every filter
-type, and bfloat16 and int8 for the quantized modes of the rational
-family (``ops/quant.py`` for the int8 helpers); at an arbitrary or Farrow
-rate a bfloat16 or int8 signal is widened to float32 and gives float32
-outputs. The output type is JAX's
-(``filt``'s docstring); ``make_kernel``'s ``store_dtype`` narrows a
-rational-family kernel's outputs.
+Signals and taps may be of every type the JAX package takes, for every
+filter type, with bfloat16 and int8 also the quantized modes of the
+rational family (``ops/quant.py`` for the int8 helpers). The output type
+is JAX's (``filt``'s docstring); ``make_kernel``'s ``store_dtype``
+narrows a rational-family kernel's outputs.
 """
 
 from __future__ import annotations
@@ -86,16 +84,23 @@ def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
 
     ``x`` has leading channel dims; time is the last axis. On x's device.
 
-    The output type is JAX's (``compute._out_dtype`` there): the promoted
-    type of taps and signal, ``torch.promote_types(taps, x)``. So float32
-    in gives float32 out, float64 taps with a float32 signal give float64
-    (numpy's default taps, and what ``firdes`` returns), float32 taps with
-    a complex64 signal complex64, float64 taps with a complex64 signal
-    complex128, and complex taps with a real signal a complex output. The
-    quantized modes: bfloat16 taps and signal give float32 accumulators,
-    int8 taps and signal exact int32 accumulators. At an arbitrary or
-    Farrow rate a bfloat16 or int8 signal gives float32 outputs (widened
-    to float32 before the kernel, with float32 or bfloat16 taps).
+    ``x`` may be of any type the JAX package takes: float32, float64,
+    complex64, complex128, float16, bfloat16, the integers (16-bit PCM,
+    uint8 I/Q, ...) and bool. The output type is JAX's
+    (``compute._out_dtype`` there): the promoted type of taps and signal
+    by JAX's table (``ops/dtypes.py``), float32 where that is bfloat16.
+    So float32 in gives float32 out, float64 taps with a float32 signal
+    give float64 (numpy's default taps, and what ``firdes`` returns),
+    float32 taps with an int16, uint8, float16 or bfloat16 signal float32,
+    float16 taps with such a signal float16, float32 taps with a complex64
+    signal complex64, and complex taps with a real signal a complex
+    output. The quantized modes: bfloat16 taps and signal give float32
+    accumulators, int8 taps and signal exact int32 accumulators. Other
+    integer taps with an integer signal give JAX's integer type, the exact
+    sum wrapped to it (taps and signal of 16 bits or fewer; at a rate
+    rounded to the nearest integer first). int16, uint8, float16,
+    bfloat16 and int8 signals are read as stored by the kernels; other
+    types are cast once to the output type (JAX's ``astype``).
     """
     x = _as_signal(x, device)
     params = _kernel_for(h, ratio_or_rate, nphi, polyorder, x.device)
@@ -118,13 +123,13 @@ class FIRFilter:
     output (index decisions exactly; values to the reduction order of the
     output type).
 
-    Taps and chunks may be float32, float64, complex64 or complex128 (and
-    bfloat16 or int8 in the rational family's quantized modes); each
-    chunk's output has the promoted type of taps and chunk, as for
-    ``filt``: float64 taps with a float32 chunk give float64, float32 taps
-    with a complex64 chunk complex64, float64 taps with a complex64 chunk
-    complex128. A chunk of another type than the last casts the carried
-    history to its own type.
+    Taps and chunks may be of any type ``filt`` takes; each chunk's
+    output has JAX's type for taps and chunk, as for ``filt``: float64
+    taps with a float32 chunk give float64, float32 taps with an int16
+    chunk float32, float32 taps with a complex64 chunk complex64. The
+    carried history keeps the chunk's type (an int16 stream keeps an
+    int16 history, as JAX's does); a chunk of another type than the last
+    casts the carried history to its own type.
 
     The stream runs on ``device`` if one is given, else on the device of
     torch taps; with numpy taps and no ``device``, on its first chunk's

@@ -20,31 +20,45 @@ The JAX package's other selectors (``gridsel``, ``winsel``, ``ratgrid``,
 ``slices``) choose TPU formulations of the same function and have no
 counterpart here.
 
-Every block runs at JAX's dtype semantics (``_out_dtype``,
-``compute.py:59-71`` there). bfloat16 taps with a bfloat16 signal run the
-bf16 mode (float32 outputs) and int8 with int8 the int8 mode (exact int32
-outputs), both rational family only. Any other pair runs in its promoted
-type, ``torch.promote_types(taps, signal)`` (float32 where that is
-bfloat16): float32, float64, complex64 or complex128. The signal and the
-history are cast to it; the bank to its real type when the taps are real
-(a real bank against complex samples, read interleaved), else to it. So
-float64 taps with a float32 signal give float64, float32 taps with a
-complex64 signal complex64, and float64 taps with a complex64 signal
-complex128; a real signal against complex taps is cast to complex. A
-kernel's ``store_dtype`` is the output type: float32 and bf16 modes store
-it narrow in the kernel, the others cast at the end, as JAX does outside
-its zero-copy path (``compute.py:1049-1056``). The carried history keeps
-the signal's type. At an arbitrary or Farrow rate a bfloat16 or int8
-signal is no mode of its own: it promotes to float32 with float32 taps,
-or with bfloat16 taps, whose bank holds the bf16 values in float32
-(``params.FIRArbitrary``). So the signal and the history are widened to
-float32 with one cast each before the launch and the float32 kernel runs,
-with float32 output, as the JAX package's TPU route does
+Every block runs at JAX's dtype semantics: its output type is JAX's
+``_out_dtype`` (``compute.py:59-71`` there), the promotion of the taps'
+type and the signal's by JAX's own table (``ops/dtypes.py``), float32
+where that is bfloat16. Each pair takes one of these routes (``_route``):
+
+- the quantized modes of the rational family: bfloat16 taps with a
+  bfloat16 signal (float32 outputs) and int8 with int8 (exact int32
+  outputs), as stored;
+- a narrow signal (int16, uint8, float16, bfloat16, int8) whose output is
+  float32 or float16: read as stored by the narrow-read entries of both
+  kernels, which widen each sample to float32 in the kernel, against a
+  float32 bank (float16 taps, and bfloat16 or integer taps widened, hold
+  their values exactly) with float32 sums; float16 outputs are stored
+  narrow in the kernel. No cast pass precedes these launches;
+- an integer output (integer taps with an integer signal, outside the int8
+  mode): signal and bank cast to float64, whose sums of products of
+  operands of 16 bits or fewer are exact, and the sum wrapped to the
+  output type as JAX's integer arithmetic wraps it (at an arbitrary or
+  Farrow rate, rounded to the nearest integer first). A 32- or 64-bit
+  integer operand there raises NotImplementedError: its sums can pass
+  2^53;
+- any other pair: the signal and history cast once to the output type
+  (JAX's own ``astype``: int32 above 2^24 rounds as it does, a signal
+  whose output is float16 then runs the float16 narrow-read entry), and
+  the bank to its real type when the taps are real (a real bank against
+  complex samples, read interleaved), else to it.
+
+A kernel's ``store_dtype`` is applied to that output: stored narrow in the
+kernel where an entry has the store, else cast at the end, as JAX does
+outside its zero-copy path (``compute.py:1049-1056``). The carried history
+keeps the signal's type, as JAX's [history ++ x] does. At an arbitrary or
+Farrow rate the narrow-read entries follow the JAX package's TPU route,
+which widens the signal to float32 before its kernel
 (``pallas/select3.py:344``, ``compute.py:714`` there); JAX's ``windows``
-path, which rounds the bf16 products to bf16 (``_row_contract``), is not
-followed. This replaces the TPU kernels' float64 modes and their complex
-modes (planar re/im applies and split tap banks) with kernels that read
-complex samples and taps interleaved, as torch stores them.
+path, which rounds bf16 products to bf16 and float16 taps to float16
+(``_row_contract``), is not followed. This replaces the TPU kernels'
+float64 modes and their complex modes (planar re/im applies and split tap
+banks) with kernels that read complex samples and taps interleaved, as
+torch stores them.
 
 Leading channel dims share one (phase, deficit) state, as in the JAX
 package, and run as one launch with channels on a grid dimension. There is
@@ -56,9 +70,11 @@ has no counterpart here.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
+from . import dtypes as _dt
 from . import indexing as idx
 from .cuda import polyphase as _pp
 from .cuda import resample as _rs
@@ -72,62 +88,106 @@ _RESAMPLE = {"kernel": _rs.resample, "windows": _rs.resample_plain}
 _RESAMPLE_TM = {"kernel": _rs.resample_tm, "windows": _rs.resample_tm_plain}
 
 
-# Per-family geometry: (paths, arguments after (x, hist) and before the
-# count). The standard and interpolator always enter at (1, 1) and the
-# decimator at phase 1, as the JAX package's _standard/_interpolator/
-# _decimator do; the accumulator family enters at (u0, d0) = (phase,
-# deficit).
+# Per-family geometry: (paths, arguments after (params, x, hist) and
+# before the count). The standard and interpolator always enter at (1, 1)
+# and the decimator at phase 1, as the JAX package's _standard/
+# _interpolator/_decimator do; the accumulator family enters at (u0, d0) =
+# (phase, deficit).
 
 def _standard(params: FIRStandard, state):
-    return _POLYPHASE, (params.bank, 1, 1, 1, 1)
+    return _POLYPHASE, (1, 1, 1, 1)
 
 
 def _interpolator(params: FIRInterpolator, state):
-    return _POLYPHASE, (params.bank, params.interpolation, 1, 1, 1)
+    return _POLYPHASE, (params.interpolation, 1, 1, 1)
 
 
 def _decimator(params: FIRDecimator, state):
-    return _POLYPHASE, (params.bank, 1, params.decimation, 1, state.deficit)
+    return _POLYPHASE, (1, params.decimation, 1, state.deficit)
 
 
 def _rational(params: FIRRational, state):
-    return _POLYPHASE, (params.bank, params.interpolation,
-                        params.decimation, state.phase, state.deficit)
+    return _POLYPHASE, (params.interpolation, params.decimation,
+                        state.phase, state.deficit)
 
 
-def _operand_types(bank_dtype, x_dtype):
-    """(signal type, bank type) of a block outside the quantized modes:
-    the promoted type (JAX ``_out_dtype``; float32 for bfloat16), and for
-    the bank its real type unless the taps are complex."""
-    dt = torch.promote_types(bank_dtype, x_dtype)
-    if not (dt.is_floating_point or dt.is_complex) or dt == torch.bfloat16:
-        dt = torch.float32
-    return dt, (dt if bank_dtype.is_complex else dt.to_real())
+class _Route(NamedTuple):
+    """How one block runs: the type its signal and history reach the
+    kernel in (None: as stored), its bank's, the kernel's output and the
+    block's output (JAX's type; an integer output is the kernel's float64
+    result wrapped to it)."""
+    x: torch.dtype | None
+    bank: torch.dtype
+    out: torch.dtype
+    final: torch.dtype
 
 
-def _polyphase(fn, store, x, hist, bank, L, M, phi0, d0, count):
-    """One polyphase block in the mode its operands set, stored as
-    ``store`` (the kernel's ``store_dtype``) if given."""
-    if not (x.dtype == bank.dtype and x.dtype in (torch.bfloat16,
-                                                    torch.int8)):
-        xt, bt = _operand_types(bank.dtype, x.dtype)
-        x, hist, bank = x.to(xt), hist.to(xt), bank.to(bt)
-    if store is not None and _pp.ACCUMULATOR[x.dtype] == torch.float32:
-        return fn(x, hist, bank, L, M, phi0, d0, count, out_dtype=store)
-    y = fn(x, hist, bank, L, M, phi0, d0, count)
+def _route(tap, bank, x, quantized: bool) -> _Route:
+    """The route of a block of ``x`` samples against taps of type ``tap``
+    held in a ``bank`` of that type or a wider one (module docstring);
+    ``quantized``: the rational family, which has the bf16 and int8
+    modes."""
+    if quantized and x == bank == tap and x in (torch.bfloat16, torch.int8):
+        return _Route(None, bank, _pp.ACCUMULATOR[x], _pp.ACCUMULATOR[x])
+    final = _dt.out_dtype(tap, x)
+    if final in _dt.INTEGERS:
+        if max(_dt.bits(tap), _dt.bits(x)) > 16:
+            raise NotImplementedError(
+                f"{tap} taps with a {x} signal: an integer output with a "
+                f"32- or 64-bit integer operand, whose sums can pass 2^53, "
+                f"where the float64 kernels round them (ROADMAP, left out)")
+        return _Route(torch.float64, torch.float64, torch.float64, final)
+    if final.is_complex:
+        return _Route(None if x == final else final,
+                      final if tap.is_complex else final.to_real(), final,
+                      final)
+    xt = x if x in _dt.NARROW and final in _dt.NARROW_OUT else final
+    if xt in _dt.NARROW:
+        return _Route(None if xt == x else xt, torch.float32, final, final)
+    return _Route(None if xt == x else xt, final, final, final)
+
+
+def _finish(y, final, rounded: bool):
+    """The block's output from the kernel's: an integer type takes the
+    float64 sum (exact; at a rate ``rounded`` to the nearest integer)
+    wrapped to it, bool whether it is nonzero, as JAX's integer
+    arithmetic gives them."""
+    if final not in _dt.INTEGERS:
+        return y
+    if final == torch.bool:
+        return y != 0
+    return (y.round() if rounded else y).to(torch.int64).to(final)
+
+
+def _polyphase(fn, params, x, hist, L, M, phi0, d0, count):
+    """One polyphase block on its route, stored as the kernel's
+    ``store_dtype`` if it has one."""
+    r = _route(params.tap_type, params.bank.dtype, x.dtype, True)
+    if r.x is not None:
+        x, hist = x.to(r.x), hist.to(r.x)
+    bank, store = params.bank.to(r.bank), params.store_dtype
+    out = r.out
+    if store is not None and r.out == torch.float32 and (
+            x.dtype, bank.dtype, store) in _pp.ENTRIES:
+        out = store  # stored narrow in the kernel
+    y = _finish(fn(x, hist, bank, L, M, phi0, d0, count, out_dtype=out),
+                r.final, False)
     return y if store is None else y.to(store)
 
 
 def _accumulator(params, state):
     """FIRArbitrary and FIRFarrow: the kernel reads its taps' kind from
     ``params`` (JAX ``_arbitrary``/``_farrow``)."""
-    return _RESAMPLE, (params, state.phase, state.deficit)
+    return _RESAMPLE, (state.phase, state.deficit)
 
 
-def _resample(fn, x, hist, params, u0, d0, count):
-    """One arbitrary/Farrow block in its promoted type."""
-    xt, bt = _operand_types(params.table.dtype, x.dtype)
-    return fn(x.to(xt), hist.to(xt), params.astype(bt), u0, d0, count)
+def _resample(fn, params, x, hist, u0, d0, count):
+    """One arbitrary/Farrow block on its route."""
+    r = _route(params.tap_type, params.table.dtype, x.dtype, False)
+    if r.x is not None:
+        x, hist = x.to(r.x), hist.to(r.x)
+    y = fn(x, hist, params.astype(r.bank), u0, d0, count, out_dtype=r.out)
+    return _finish(y, r.final, True)
 
 
 _IMPL = {FIRStandard: _standard, FIRInterpolator: _interpolator,
@@ -155,18 +215,13 @@ def _pick_path(x, path: str) -> str:
     return path
 
 
-_SIGNAL_DTYPES = (torch.float32, torch.float64, torch.complex64,
-                  torch.complex128, torch.bfloat16, torch.int8)
-
-
 def _check(params, state, x, lead=None):
     """``lead``: the history's channel dims, by default x's leading dims."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x must be a torch.Tensor, got {type(x)}")
-    if x.dtype not in _SIGNAL_DTYPES:
-        raise NotImplementedError(
-            f"signal dtype {x.dtype}: float32, float64, complex64, "
-            f"complex128, bfloat16 and int8 are ported")
+    if x.dtype not in _dt.LATTICE_TYPES:
+        raise TypeError(f"signal dtype {x.dtype} has no counterpart in "
+                        f"JAX: a real or complex type of its lattice")
     for name, dev in (("kernel bank", params.device),
                       ("state history", state.history.device)):
         if dev != x.device:
@@ -197,11 +252,8 @@ def filt_block_raw(params, state: FilterState, x, path: str = "auto"):
     hist = state.history.to(x.dtype)
     x2 = x.reshape(C, x.shape[-1]).contiguous()
     h2 = hist.reshape(C, params.h_min).contiguous()
-    if paths is _POLYPHASE:
-        y = _polyphase(paths[path], params.store_dtype, x2, h2, *geometry,
-                       count)
-    else:
-        y = _resample(paths[path], x2, h2, *geometry, count)
+    run = _polyphase if paths is _POLYPHASE else _resample
+    y = run(paths[path], params, x2, h2, *geometry, count)
     new_state = FilterState(history=_carry_history(params, hist, x),
                             phase=phase, deficit=deficit)
     return y.reshape(*lead, count), count, new_state
@@ -215,10 +267,10 @@ def filt_block_tm_raw(params, state: FilterState, xt, path: str = "auto"):
     The carried history stays channel-major (C, h_min), as in the JAX
     package (``compute.py:1160-1165`` there), so states move freely
     between ``filt_block`` and ``filt_block_tm``. Returns (y, count,
-    new_state) as ``filt_block_raw`` does. The time-major kernel is
-    float32; a block of any other promoted type runs the channel-major
-    block on ``xt.t()`` and transposes back, as JAX does
-    (``compute.py:1122-1131`` there).
+    new_state) as ``filt_block_raw`` does. The time-major kernel takes
+    float32 blocks and the narrow-read types (``resample.TM_ENTRIES``); a
+    block of any other route runs the channel-major block on ``xt.t()``
+    and transposes back, as JAX does (``compute.py:1122-1131`` there).
     """
     if not isinstance(params, (FIRArbitrary, FIRFarrow)):
         raise TypeError(
@@ -229,17 +281,18 @@ def filt_block_tm_raw(params, state: FilterState, xt, path: str = "auto"):
     E, C = xt.shape
     _check(params, state, xt, (C,))
     path = _pick_path(xt, path)
-    if _operand_types(params.table.dtype, xt.dtype) != (torch.float32,
-                                                        torch.float32):
+    r = _route(params.tap_type, params.table.dtype, xt.dtype, False)
+    kx = r.x or xt.dtype
+    if (kx, r.bank, r.out) not in _rs.TM_ENTRIES:
         y, count, new_state = filt_block_raw(params, state, xt.t(), path)
         return y.t().contiguous(), count, new_state
     count, phase, deficit = idx.host_carry(params, state.phase,
                                            state.deficit, E)
     hist = state.history.to(xt.dtype)
-    # a bfloat16 or int8 block widens to float32 here (one cast each)
-    y = _RESAMPLE_TM[path](xt.to(torch.float32).contiguous(),
-                           hist.to(torch.float32).contiguous(), params,
-                           state.phase, state.deficit, count)
+    # a signal of another type than its kernel's is cast once (JAX astype)
+    y = _RESAMPLE_TM[path](xt.to(kx).contiguous(), hist.to(kx).contiguous(),
+                           params.astype(r.bank), state.phase, state.deficit,
+                           count, out_dtype=r.out)
     H = params.h_min
     if E >= H:
         tail = xt[E - H:].t()

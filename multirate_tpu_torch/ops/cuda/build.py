@@ -5,8 +5,11 @@ a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas=-v -o build/<name>-<hash>/lib<name>.so \\
-         csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v --split-compile=0 \\
+         -o build/<name>-<hash>/lib<name>.so csrc/<name>.cu
+
+``--split-compile=0`` optimises and assembles the many kernel
+instantiations of one source on every host core at once.
 
 The host-only ring buffer ``csrc/mr_ring.cpp`` compiles the same way with
 g++ (``-O3 -std=c++17 -shared -fPIC``), so it builds where there is no
@@ -38,7 +41,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
@@ -108,19 +112,21 @@ def load_polyphase() -> ctypes.CDLL:
 @functools.cache
 def load_resample() -> ctypes.CDLL:
     """The arbitrary/Farrow kernel library (built at first use), argtypes
-    set for ``mr_resample_f32`` (which also takes the layout) and each
-    channel-major entry point ``mr_resample_<name>`` of
-    ``resample.ENTRIES``; each takes its launch's ``resample.plan``."""
-    from .resample import ENTRIES
+    set for each entry point ``mr_resample_<name>`` of
+    ``resample.ENTRIES``; those with a time-major form
+    (``resample.TM_ENTRIES``) also take the layout, and each takes its
+    launch's ``resample.plan``."""
+    from .resample import ENTRIES, TM_ENTRIES
 
     lib = ctypes.CDLL(str(build("resample")))
     p, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
                         ctypes.c_int)
     args = [p, p, p, p, i64, i64, i32, i32, i32, u64, u64, i64, i64]
     plan = [i32, i32, i32, i32, i64]  # variant, tile, channels, run, grid
-    for name in ENTRIES.values():
+    for key, name in ENTRIES.items():
         fn = getattr(lib, f"mr_resample_{name}")
-        fn.argtypes = args + ([i32] if name == "f32" else []) + plan + [p]
+        layout = [i32] if key in TM_ENTRIES else []
+        fn.argtypes = args + layout + plan + [p]
         fn.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p

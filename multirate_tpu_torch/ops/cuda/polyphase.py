@@ -21,10 +21,15 @@ the mode (JAX ``compute._out_dtype``), one kernel entry point each:
 - int8: exact int32 accumulators, int32 output;
 - complex64 or complex128 samples (interleaved, as torch stores them)
   against real taps of their precision (2 real multiply-adds a tap) or
-  complex taps of their type (4), complex sums and output.
+  complex taps of their type (4), complex sums and output;
+- narrow reads: int16, uint8, float16, bfloat16 or int8 samples against
+  float32 taps, read as stored and widened to float32 in the kernel
+  (exactly), then as float32: each output bit-equal to the float32
+  entry's on the widened values.
 
-``out_dtype`` stores the float32 and bf16 modes' output narrow (bfloat16
-or float16, round to nearest even: JAX ``store_dtype``). On a CUDA tensor
+``out_dtype`` stores the float32, bf16 and narrow-read modes' output
+narrow (float16, and bfloat16 for float32 and bf16 in; round to nearest
+even: JAX ``store_dtype``, and the float16 output type of float16 taps). On a CUDA tensor
 the wrapper launches the hand-written kernel in ``csrc/polyphase.cu`` (see
 its header for the design and what bounds it); on a CPU tensor it runs
 ``polyphase_plain``, the same function in plain PyTorch. There is no
@@ -48,18 +53,27 @@ from typing import NamedTuple
 
 import torch
 
+from ..dtypes import NARROW, NARROW_OUT
 from ..indexing import rational_indices
 from ..precision import fp32
 from .build import check_aligned, load_polyphase
 
 __all__ = ["polyphase", "polyphase_plain", "plan", "Plan", "launches",
-           "launches_by_variant", "VARIANTS", "REG_TAPS"]
+           "launches_by_variant", "VARIANTS", "REG_TAPS", "ENTRIES",
+           "ACCUMULATOR", "accumulator"]
 
 # The kernel's entry point (``mr_polyphase_<name>``, one instantiation of
 # csrc/polyphase.cu) for each (signal, taps, output) dtype triple, and each
-# signal type's accumulator (its default output).
+# signal type's accumulator (its default output; ``accumulator``).
 _F32, _F64, _C64, _C128 = (torch.float32, torch.float64, torch.complex64,
                            torch.complex128)
+_F16, _BF16, _S16, _U8, _S8 = (torch.float16, torch.bfloat16, torch.int16,
+                               torch.uint8, torch.int8)
+# The narrow-read entries (``dtypes.NARROW``) by signal type, against
+# float32 taps; the int8 and bf16 modes hold "s8" and "bf16", so those
+# narrow reads are "s8f" and "bf16f" (float taps).
+_NARROW_ENTRY = {x: f"{n}f" if x in (_S8, _BF16) else n
+                 for x, n in NARROW.items()}
 ENTRIES = {
     (_F32, _F32, _F32): "f32",
     (torch.bfloat16, torch.bfloat16, _F32): "bf16",
@@ -73,9 +87,21 @@ ENTRIES = {
     (_C64, _C64, _C64): "c64c",
     (_C128, _F64, _C128): "c128",
     (_C128, _C128, _C128): "c128c",
+    **{(x, _F32, o): name if o == _F32 else f"{name}_f16out"
+       for o in NARROW_OUT for x, name in _NARROW_ENTRY.items()},
 }
-ACCUMULATOR = {_F32: _F32, torch.bfloat16: _F32, torch.int8: torch.int32,
-               _F64: _F64, _C64: _C64, _C128: _C128}
+# by signal type; an int8 or bfloat16 signal against float32 taps sums in
+# float32 (``accumulator``)
+ACCUMULATOR = {_F32: _F32, _BF16: _F32, _S8: torch.int32, _F64: _F64,
+               _C64: _C64, _C128: _C128, _S16: _F32, _U8: _F32, _F16: _F32}
+
+
+def accumulator(x_dtype, bank_dtype) -> torch.dtype:
+    """The accumulator (the default output) of a (signal, taps) pair:
+    ``ACCUMULATOR``'s, but float32 for a narrow read."""
+    if x_dtype in NARROW and bank_dtype == _F32:
+        return _F32
+    return ACCUMULATOR[x_dtype]
 
 # The kernel's variants, by the number its entry points take.
 VARIANTS = ("general", "reg", "bcast", "slide")
@@ -104,7 +130,8 @@ _SLIDE_REPEATS = 8        # slide: periods a thread computes in a tile, at most
 _REG_PERIODS, _REG_MIN_TILE = 3, 6
 _MAX_GRID = 65535         # grid.x, at most (the kernels loop over tiles)
 _MAX_GENERAL_GRID = 1024
-# bytes of a staged signal or tap element (bf16 is staged as float)
+# bytes of a staged signal or tap element (bf16 is staged as float, and
+# so is every narrow read: ``plan``)
 _STAGED = {torch.float32: 4, torch.bfloat16: 4, torch.int8: 1,
            torch.float64: 8, torch.complex64: 8, torch.complex128: 16}
 
@@ -248,9 +275,11 @@ def plan(T: int, L: int, M: int, n_out: int, x_dtype, bank_dtype,
     of ``bcast``, ``slide``, ``reg`` that takes the geometry, else
     ``general``), the tile and the grid. Pure Python on the shape: the CPU tests check it.
     Raises ValueError if ``variant`` is named and cannot take the call."""
-    xs, ws = _STAGED[x_dtype], _STAGED[bank_dtype]
-    xsz = torch.empty((), dtype=x_dtype).element_size()
-    osz = torch.empty((), dtype=ACCUMULATOR[x_dtype]).element_size()
+    # csrc/polyphase.cu Mode: a narrow read stages float
+    narrow = x_dtype in NARROW and bank_dtype == _F32
+    xs, ws = 4 if narrow else _STAGED[x_dtype], _STAGED[bank_dtype]
+    xsz = x_dtype.itemsize
+    osz = accumulator(x_dtype, bank_dtype).itemsize
     n_out = max(int(n_out), 1)
     if variant is not None:
         if variant not in _PLANNERS:
@@ -271,10 +300,11 @@ def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
                     n_out: int, out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version: int64 index vectors, a window gather and a
     contraction. The float modes contract with an einsum under ``fp32()``
-    in the accumulator's type: float32 for float32 and bf16 (bf16 products
-    are exact in float32), else the signal's own type (float64, complex64
-    or complex128, real taps cast to it). int8 widens to int32 and sums
-    exact products (an int8 einsum would wrap in int8, and the card has no
+    in the accumulator's type: float32 for float32, bf16 (bf16 products
+    are exact in float32) and the narrow reads (the samples widened
+    exactly), else the signal's own type (float64, complex64 or
+    complex128, real taps cast to it). int8 widens to int32 and sums exact
+    products (an int8 einsum would wrap in int8, and the card has no
     integer matmul). Runs on any device; arguments as for ``polyphase``."""
     T = bank.shape[0]
     xext = torch.cat([hist, x], dim=-1)
@@ -282,11 +312,11 @@ def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
     ind = (inp - 1)[:, None] + torch.arange(T, device=x.device)[None, :]
     windows = xext[:, ind]                        # (C, n_out, T)
     taps = bank.t()[phi]                          # (n_out, T)
-    if x.dtype == torch.int8:
+    acc = accumulator(x.dtype, bank.dtype)
+    if acc == torch.int32:
         y = (windows.to(torch.int32) * taps.to(torch.int32)).sum(
             -1, dtype=torch.int32)
     else:
-        acc = ACCUMULATOR[x.dtype]
         with fp32():
             y = torch.einsum("cnt,nt->cn", windows.to(acc), taps.to(acc))
     return y if out_dtype is None else y.to(out_dtype)
@@ -329,15 +359,17 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
     ``ENTRIES``, all contiguous on one device; (phi0, d0) is the 1-based
     entry phase and deficit, and n_out the exact output count
     (``indexing.host_carry``). ``out_dtype`` is the output type, by
-    default the accumulator's (``ACCUMULATOR``: the signal's type, float32
-    for bfloat16, int32 for int8); float32 and bf16 signals also store
-    bfloat16 or float16. ``variant`` names the kernel's variant (one of
-    ``VARIANTS``) in place of ``plan``'s choice, for timing. Raises on
-    anything the kernel does not take.
+    default the accumulator's (``accumulator``: the signal's type, float32
+    for bfloat16 and the narrow reads, int32 for int8 with int8 taps);
+    float32 and bf16 signals also store bfloat16 or float16, narrow reads
+    float16. ``variant`` names the kernel's variant (one of ``VARIANTS``)
+    in place of ``plan``'s choice, for timing. Raises on anything the
+    kernel does not take.
     """
     if x.dtype not in ACCUMULATOR:
         raise TypeError(f"no polyphase kernel for {x.dtype} samples")
-    out_dtype = ACCUMULATOR[x.dtype] if out_dtype is None else out_dtype
+    if out_dtype is None:
+        out_dtype = accumulator(x.dtype, bank.dtype)
     _check(x, hist, bank, L, M, phi0, d0, n_out, out_dtype)
     shape = (bank.shape[0], L, M, n_out, x.dtype, bank.dtype, x.shape[0])
     if x.device.type == "cpu":

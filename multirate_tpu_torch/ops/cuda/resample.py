@@ -25,8 +25,13 @@ run ``resample_plain`` / ``resample_tm_plain``, the same function in plain
 PyTorch. There is no fallback from one to the other.
 
 x and hist share the signal type; the table is its real type, or its own
-type for complex taps (``ENTRIES``); y has the signal's type. The
-time-major kernel is float32 only.
+type for complex taps (``ENTRIES``); y has the signal's type. Narrow reads
+(int16, uint8, float16, bfloat16 and int8 samples, ``dtypes.NARROW``) take a
+float32 table: the kernel stages the samples as stored and widens them to
+float32 in shared memory, so each output is bit-equal to the float32
+entry's on the widened values; y is float32, or float16 (the output type
+of float16 taps), stored narrow by the kernel. The time-major kernel
+takes float32 and the narrow reads (``TM_ENTRIES``).
 
 The kernel has variants (``VARIANTS``), chosen by ``plan`` from the shape
 alone, never after a failure: one compiled for each (T, P+1) pair in use
@@ -47,38 +52,53 @@ from typing import NamedTuple
 
 import torch
 
+from ..dtypes import NARROW, NARROW_OUT
 from ..indexing import ACCUM_OPERAND_BITS, _muladd_divmod, accum_indices
 from ..params import PHASE_FRAC_BITS, FIRArbitrary, FIRFarrow
 from ..precision import fp32
 
 __all__ = ["resample", "resample_tm", "resample_plain", "resample_tm_plain",
-           "plan", "Plan", "walk_positions", "launches", "launches_tm",
-           "launches_by_variant", "ENTRIES", "VARIANTS", "COMPILED"]
+           "plan", "Plan", "walk_positions", "launches",
+           "launches_by_variant", "ENTRIES", "TM_ENTRIES", "VARIANTS",
+           "COMPILED"]
 
+_F32, _F16 = torch.float32, torch.float16
 # The kernel's channel-major entry point (``mr_resample_<name>``, one
-# instantiation of csrc/resample.cu) for each (signal, table) dtype pair.
+# instantiation of csrc/resample.cu) for each (signal, table, output)
+# dtype triple. The narrow reads (``dtypes.NARROW``, against float32
+# tables) take their type's short name; a float16 output is the
+# ``_f16out`` form of one.
 ENTRIES = {
-    (torch.float32, torch.float32): "f32",
-    (torch.float64, torch.float64): "f64",
-    (torch.complex64, torch.float32): "c64",
-    (torch.complex64, torch.complex64): "c64c",
-    (torch.complex128, torch.float64): "c128",
-    (torch.complex128, torch.complex128): "c128c",
+    (_F32, _F32, _F32): "f32",
+    (torch.float64, torch.float64, torch.float64): "f64",
+    (torch.complex64, _F32, torch.complex64): "c64",
+    (torch.complex64, torch.complex64, torch.complex64): "c64c",
+    (torch.complex128, torch.float64, torch.complex128): "c128",
+    (torch.complex128, torch.complex128, torch.complex128): "c128c",
+    # in name order; bfloat16 with float16 taps is float32: no bf16_f16out
+    **{(x, _F32, o): n if o == _F32 else f"{n}_f16out"
+       for o in NARROW_OUT for x, n in sorted(NARROW.items(),
+                                              key=lambda e: e[1])
+       if (x, o) != (torch.bfloat16, _F16)},
 }
+# The time-major forms, of float32 and the narrow reads: the same entry
+# points with a layout argument, counted as ``"<entry>_tm"``.
+TM_ENTRIES = {k: f"{n}_tm" for k, n in ENTRIES.items()
+              if k[0] in (_F32, *NARROW)}
 
 # The kernel's variants, by the number its entry points take, and the
 # (T, P+1) pair each compiled one is built for.
 VARIANTS = ("general", "t10p2", "t10p5", "t73p2")
 COMPILED = {(10, 2): "t10p2", (10, 5): "t10p5", (73, 2): "t73p2"}
 
-# Kernel launches made by ``resample`` (by entry point) and by
-# ``resample_tm`` (float32) in this process, and by both by entry point
-# and variant (``"f32/t10p2"``; time-major ``"tm/t10p5"``). Each grows by
-# one where its kernel is launched and nowhere else; a caller may reset
-# them.
-launches = dict.fromkeys(ENTRIES.values(), 0)
-launches_tm = 0
-launches_by_variant = {f"{e}/{v}": 0 for e in (*ENTRIES.values(), "tm")
+# Kernel launches made by ``resample`` and ``resample_tm`` in this
+# process, by entry point (time-major ``"<entry>_tm"``: ``"f32_tm"``,
+# ``"s16_tm"``), and by entry point and variant (``"f32/t10p2"``,
+# ``"f32_tm/t10p5"``). Each grows by one where its kernel is launched and
+# nowhere else; a caller may reset them.
+launches = dict.fromkeys([*ENTRIES.values(), *TM_ENTRIES.values()], 0)
+launches_by_variant = {f"{e}/{v}": 0 for e in (*ENTRIES.values(),
+                                               *TM_ENTRIES.values())
                        for v in VARIANTS}
 
 _N_OUT_LIMIT = 1 << 40  # keeps u0 + n_out*delta_fx below the kernel's 2^96
@@ -158,17 +178,22 @@ def _row_samples(span: int, xsz: int) -> int:
     return _ceil(span + v - 1, v) * v
 
 
-def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, wsz, table_smem, tm):
+def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, csz, wsz, table_smem,
+          tm):
     """csrc/resample.cu ``smem_bytes``: the table (when staged), a double
-    buffer of the spans, time-major a tile's taps and offsets, and a
-    gather of each warp's runs of outputs (run > 1)."""
+    buffer of the spans as stored (``xsz`` bytes a sample), for a narrow
+    read one of the spans widened (``csz`` bytes), time-major a tile's taps
+    and offsets, and a gather of each warp's runs of outputs (run > 1)."""
     b = _up16(P1 * T * nphi * wsz) if table_smem else 0
     span = _span(tile, nphi, delta_fx, T)
-    b += 2 * _up16((span if tm else _row_samples(span, xsz)) * cb * xsz)
+    row = (span if tm else _row_samples(span, xsz)) * cb
+    b += 2 * _up16(row * xsz)
+    if csz != xsz:
+        b += _up16(row * csz)
     if tm:
         b += _up16(tile * T * wsz) + _up16(tile * 4)
     if run > 1:
-        b += _up16(_threads(tile, run, tm) * (run + 1) * xsz)
+        b += _up16(_threads(tile, run, tm) * (run + 1) * csz)
     return b
 
 
@@ -183,6 +208,7 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
     is named and cannot take the call, or if one tile's span cannot fit in
     shared memory. Cached: a stream plans the same few shapes again."""
     xsz, wsz = x_dtype.itemsize, table_dtype.itemsize
+    csz = 4 if x_dtype in NARROW else xsz  # staged widened to float32
     t_bytes = P1 * T * nphi * wsz
     table_smem = t_bytes <= _TABLE_SMEM_LIMIT
     auto = COMPILED.get((T, P1)) if table_smem else None
@@ -199,7 +225,7 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
 
     def smem(tile):
         return _smem(tile, cb, _run_of(tile, cb, nphi, delta_fx), T, P1, nphi,
-                     delta_fx, xsz, wsz, table_smem, time_major)
+                     delta_fx, xsz, csz, wsz, table_smem, time_major)
 
     tile = _MAX_TILE_TM if time_major else _MAX_TILE_CM
     while tile > _MIN_TILE and _ceil(n_out, tile) * groups < _FILL:
@@ -284,37 +310,50 @@ def _taps_plain(params, phi, frac):
     return (powers.to(params.coeffs.dtype) @ params.coeffs).to(tdt)
 
 
-def resample_plain(x, hist, params, u0: int, d0: int,
-                   n_out: int) -> torch.Tensor:
+def resample_plain(x, hist, params, u0: int, d0: int, n_out: int,
+                   out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of ``resample``: int64 accumulator indices, a
     window gather and an einsum in the signal's type (real taps cast to
-    it). Runs on any device."""
+    it; a narrow read's samples widened to float32), stored as
+    ``out_dtype``. Runs on any device."""
     T = params.taps_per_phi
     xext = torch.cat([hist, x], dim=-1)
     inp, phi, frac = accum_indices(params.nphi, params.delta_fx, u0, d0,
                                    n_out, device=x.device)
     ind = (inp - 1)[:, None] + torch.arange(T, device=x.device)[None, :]
-    windows = xext[:, ind]                        # (C, n_out, T)
+    ct = _F32 if x.dtype in NARROW else x.dtype
+    windows = xext[:, ind].to(ct)                 # (C, n_out, T)
     with fp32():
         taps = _taps_plain(params, phi, frac)     # (n_out, T)
-        return torch.einsum("cnt,nt->cn", windows, taps.to(x.dtype))
+        y = torch.einsum("cnt,nt->cn", windows, taps.to(ct))
+    return y if out_dtype is None else y.to(out_dtype)
 
 
-def resample_tm_plain(xt, hist, params, u0: int, d0: int,
-                      n_out: int) -> torch.Tensor:
+def resample_tm_plain(xt, hist, params, u0: int, d0: int, n_out: int,
+                      out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of ``resample_tm``: (xlen, C) -> (n_out, C)."""
-    return resample_plain(xt.t(), hist, params, u0, d0, n_out).t().contiguous()
+    return resample_plain(xt.t(), hist, params, u0, d0, n_out,
+                          out_dtype).t().contiguous()
 
 
-def _check(x, hist, params, u0, d0, n_out, time_major):
+def _out_of(x_dtype, out_dtype):
+    """The output type of a call: ``out_dtype``, by default the signal's
+    (float32 for a narrow read)."""
+    if out_dtype is not None:
+        return out_dtype
+    return _F32 if x_dtype in NARROW else x_dtype
+
+
+def _check(x, hist, params, u0, d0, n_out, out_dtype, time_major):
     if not isinstance(params, (FIRArbitrary, FIRFarrow)):
         raise TypeError(f"resample takes FIRArbitrary or FIRFarrow, got "
                         f"{type(params).__name__}")
-    pair = (x.dtype, params.table.dtype)
-    if pair not in ENTRIES or (time_major and ENTRIES[pair] != "f32"):
+    key = (x.dtype, params.table.dtype, out_dtype)
+    if key not in (TM_ENTRIES if time_major else ENTRIES):
         raise TypeError(f"no {'time-major ' if time_major else ''}resample "
-                        f"kernel for {x.dtype} samples and a "
-                        f"{params.table.dtype} table")
+                        f"kernel for {x.dtype} samples, a "
+                        f"{params.table.dtype} table and {out_dtype} "
+                        f"outputs")
     for name, t in (("x", x), ("hist", hist), ("table", params.table)):
         if name == "hist" and t.dtype != x.dtype:
             raise TypeError(f"hist is {t.dtype}, x {x.dtype}")
@@ -352,22 +391,23 @@ def _plan_for(x, params, n_out, time_major, variant):
                 time_major, variant)
 
 
-def _launch(x, hist, params, u0, d0, n_out, time_major, variant):
+def _launch(x, hist, params, u0, d0, n_out, out_dtype, time_major,
+            variant):
     """y, after one launch of the planned variant, counted by entry point
     and variant; nothing runs for no output."""
-    global launches_tm
     C, xlen = (x.shape[1], x.shape[0]) if time_major else x.shape
     shape = (n_out, C) if time_major else (C, n_out)
-    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    y = torch.empty(shape, dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
     p = _plan_for(x, params, n_out, time_major, variant)
     from .build import check_aligned, load_resample
 
     check_aligned(x=x, hist=hist, table=params.table)
-    name = ENTRIES[x.dtype, params.table.dtype]
+    key = (x.dtype, params.table.dtype, out_dtype)
+    name = ENTRIES[key]
     lib = load_resample()
-    layout = (int(time_major),) if name == "f32" else ()
+    layout = (int(time_major),) if key in TM_ENTRIES else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, f"mr_resample_{name}")(
@@ -379,42 +419,45 @@ def _launch(x, hist, params, u0, d0, n_out, time_major, variant):
     if err != 0:
         raise RuntimeError("resample kernel launch failed: "
                            + lib.mr_error_string(err).decode())
-    if time_major:
-        launches_tm += 1
-    else:
-        launches[name] += 1
-    launches_by_variant[f"{'tm' if time_major else name}/{p.variant}"] += 1
+    counted = TM_ENTRIES[key] if time_major else name
+    launches[counted] += 1
+    launches_by_variant[f"{counted}/{p.variant}"] += 1
     return y
 
 
-def _run(x, hist, params, u0, d0, n_out, time_major, variant):
-    _check(x, hist, params, u0, d0, n_out, time_major)
+def _run(x, hist, params, u0, d0, n_out, out_dtype, time_major, variant):
+    out_dtype = _out_of(x.dtype, out_dtype)
+    _check(x, hist, params, u0, d0, n_out, out_dtype, time_major)
     if x.device.type == "cpu":
         if variant is not None:  # a named variant must take the call
             _plan_for(x, params, n_out, time_major, variant)
         plain = resample_tm_plain if time_major else resample_plain
-        return plain(x, hist, params, u0, d0, n_out)
+        return plain(x, hist, params, u0, d0, n_out, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {x.device}")
-    return _launch(x, hist, params, u0, d0, n_out, time_major, variant)
+    return _launch(x, hist, params, u0, d0, n_out, out_dtype, time_major,
+                   variant)
 
 
 def resample(x, hist, params, u0: int, d0: int, n_out: int,
-             variant: str | None = None) -> torch.Tensor:
+             variant: str | None = None, out_dtype=None) -> torch.Tensor:
     """y (C, n_out) from x (C, xlen) and hist (C, T-1), channel-major.
 
     ``params`` is an FIRArbitrary or FIRFarrow kernel on x's device whose
     table pairs with x's type in ``ENTRIES``; (u0, d0) the entry
     accumulator and deficit, n_out the exact output count
-    (``indexing.host_carry``). ``variant`` names the kernel's variant (one
-    of ``VARIANTS``) in place of ``plan``'s choice, for timing. Raises on
-    anything the kernel does not take.
+    (``indexing.host_carry``). ``out_dtype`` is the output type, by
+    default the signal's (float32 for a narrow read, which also stores
+    float16). ``variant`` names the kernel's variant (one of ``VARIANTS``)
+    in place of ``plan``'s choice, for timing. Raises on anything the
+    kernel does not take.
     """
-    return _run(x, hist, params, u0, d0, n_out, False, variant)
+    return _run(x, hist, params, u0, d0, n_out, out_dtype, False, variant)
 
 
 def resample_tm(xt, hist, params, u0: int, d0: int, n_out: int,
-                variant: str | None = None) -> torch.Tensor:
+                variant: str | None = None, out_dtype=None) -> torch.Tensor:
     """y (n_out, C) from time-major xt (xlen, C) and channel-major hist
-    (C, T-1), all float32; otherwise as ``resample``."""
-    return _run(xt, hist, params, u0, d0, n_out, True, variant)
+    (C, T-1), float32 or a narrow read (``TM_ENTRIES``); otherwise as
+    ``resample``."""
+    return _run(xt, hist, params, u0, d0, n_out, out_dtype, True, variant)

@@ -17,9 +17,13 @@ straight from a polyphase bank, so nothing else is needed.
 
 Banks keep their taps' type (``storage_dtype``): float32, float64,
 complex64 and complex128, and for the rational family also bfloat16 and
-int8 (the quantized modes, ``ops/quant.py``); any other real type becomes
-float32. Rational-family kernels may also carry a narrow ``store_dtype``
-for their outputs. The arbitrary table (``pfb``, ``dpfb``) and the Farrow
+int8 (the quantized modes, ``ops/quant.py``). Taps of any other type sit
+in a wider bank that holds their values exactly: float16, bfloat16 at a
+rate and the 8- and 16-bit integers in float32, the 32- and 64-bit
+integers in float64. Such a kernel keeps the taps' own type in
+``taps_dtype``, which sets the output type as the JAX kernel's tap type
+does (``tap_type``). Rational-family kernels may also carry a narrow
+``store_dtype`` for their outputs. The arbitrary table (``pfb``, ``dpfb``) and the Farrow
 table are in the taps' type too; the Farrow fit ``coeffs`` is float64, or
 complex128 for complex taps, as JAX keeps it. These banks replace the K
 stacks and tap planes of every TPU kernel mode: the float32, bf16, int8,
@@ -89,14 +93,24 @@ _STORE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def storage_dtype(dtype: torch.dtype, quantized: bool = True) -> torch.dtype:
-    """The type a bank or history of ``dtype`` values is stored in:
-    float32, float64, complex64 and complex128 stay, and so do bfloat16
-    and int8 where the quantized modes apply (``quantized``: the rational
-    family); any other complex type becomes complex64 and any other type
-    float32."""
+    """The type a bank of ``dtype`` taps is stored in: float32, float64,
+    complex64 and complex128 stay, and so do bfloat16 and int8 where the
+    quantized modes apply (``quantized``: the rational family); any other
+    complex type becomes complex64, a 32- or 64-bit integer float64 and
+    any other type float32, each of which holds the taps' values
+    exactly (64-bit integers to 2^53)."""
     if dtype in _WIDE or (quantized and dtype in _QUANTIZED):
         return dtype
-    return torch.complex64 if dtype.is_complex else torch.float32
+    if dtype.is_complex:
+        return torch.complex64
+    wide_int = not dtype.is_floating_point and dtype.itemsize >= 4
+    return torch.float64 if wide_int else torch.float32
+
+
+def _taps_dtype(taps: torch.dtype, stored: torch.dtype):
+    """A kernel's ``taps_dtype``: the taps' own type where the bank stores
+    them in another, else None."""
+    return None if taps == stored else taps
 
 
 def store_dtype_of(sd):
@@ -114,13 +128,13 @@ def store_dtype_of(sd):
 
 
 def _host_taps(h, quantized: bool = True):
-    """(host taps, bank dtype): the taps' storage type, and the taps as a
-    host array in it (bfloat16 values ride in float32 exactly: numpy has
-    no bfloat16 of its own)."""
+    """(host taps, bank dtype, taps_dtype): the taps' storage type, the
+    taps as a host array in it (bfloat16 values ride in float32 exactly:
+    numpy has no bfloat16 of its own), and the kernel's ``taps_dtype``."""
     t = to_tensor(h).detach().cpu()
     dtype = storage_dtype(t.dtype, quantized)
     host = t.to(torch.float32 if dtype == torch.bfloat16 else dtype)
-    return host.numpy(), dtype
+    return host.numpy(), dtype, _taps_dtype(t.dtype, dtype)
 
 
 def _device_of(h, device):
@@ -136,11 +150,19 @@ def _to(t, device, dtype=None) -> torch.Tensor:
 
 
 class _Kernel:
-    """Shared behaviour: the bank's device and a copy moved elsewhere."""
+    """Shared behaviour: the bank's device, the taps' type and a copy
+    moved elsewhere."""
 
     @property
     def device(self) -> torch.device:
         return self.bank.device
+
+    @property
+    def tap_type(self) -> torch.dtype:
+        """The taps' type, which sets the output type with the signal's
+        (JAX's ``pfb``/``taps_rev`` dtype): ``taps_dtype``, else the
+        bank's."""
+        return self.taps_dtype or self.bank.dtype
 
     def to(self, device):
         """A copy with every tensor field on ``device``."""
@@ -170,13 +192,14 @@ class FIRStandard(_Kernel):
     taps_rev: torch.Tensor
     hlen: int = 0
     store_dtype: torch.dtype | None = None  # narrow outputs (make_kernel)
+    taps_dtype: torch.dtype | None = None  # the taps' type, if not the bank's
 
     @classmethod
     def create(cls, h, device=None) -> "FIRStandard":
-        taps, dtype = _host_taps(h)
+        taps, dtype, tdt = _host_taps(h)
         return cls(taps_rev=_to(taps[::-1].copy(), _device_of(h, device),
                                 dtype),
-                   hlen=taps.shape[0])
+                   hlen=taps.shape[0], taps_dtype=tdt)
 
     @property
     def taps_per_phi(self) -> int:
@@ -195,13 +218,15 @@ class FIRInterpolator(_Kernel):
     interpolation: int = 1
     taps_per_phi: int = 0
     store_dtype: torch.dtype | None = None
+    taps_dtype: torch.dtype | None = None  # the taps' type, if not the bank's
 
     @classmethod
     def create(cls, h, interpolation: int, device=None) -> "FIRInterpolator":
-        taps, dtype = _host_taps(h)
+        taps, dtype, tdt = _host_taps(h)
         bank = _pfb.taps2pfb(taps, interpolation)
         return cls(pfb=_to(bank, _device_of(h, device), dtype),
-                   interpolation=interpolation, taps_per_phi=bank.shape[0])
+                   interpolation=interpolation, taps_per_phi=bank.shape[0],
+                   taps_dtype=tdt)
 
     @property
     def nphi(self) -> int:
@@ -220,13 +245,15 @@ class FIRDecimator(_Kernel):
     hlen: int = 0
     decimation: int = 1
     store_dtype: torch.dtype | None = None
+    taps_dtype: torch.dtype | None = None  # the taps' type, if not the bank's
 
     @classmethod
     def create(cls, h, decimation: int, device=None) -> "FIRDecimator":
-        taps, dtype = _host_taps(h)
+        taps, dtype, tdt = _host_taps(h)
         return cls(taps_rev=_to(taps[::-1].copy(), _device_of(h, device),
                                 dtype),
-                   hlen=taps.shape[0], decimation=decimation)
+                   hlen=taps.shape[0], decimation=decimation,
+                   taps_dtype=tdt)
 
     @property
     def taps_per_phi(self) -> int:
@@ -249,15 +276,16 @@ class FIRRational(_Kernel):
     decimation: int = 1     # M
     taps_per_phi: int = 0
     store_dtype: torch.dtype | None = None
+    taps_dtype: torch.dtype | None = None  # the taps' type, if not the bank's
 
     @classmethod
     def create(cls, h, interpolation: int, decimation: int,
                device=None) -> "FIRRational":
-        taps, dtype = _host_taps(h)
+        taps, dtype, tdt = _host_taps(h)
         bank = _pfb.taps2pfb(taps, interpolation)
         return cls(pfb=_to(bank, _device_of(h, device), dtype),
                    interpolation=interpolation, decimation=decimation,
-                   taps_per_phi=bank.shape[0])
+                   taps_per_phi=bank.shape[0], taps_dtype=tdt)
 
     @property
     def nphi(self) -> int:
@@ -298,9 +326,11 @@ class FIRArbitrary(_Kernel):
     ``table`` stacks two (taps_per_phi, nphi) banks: ``pfb`` from h and
     ``dpfb`` from dh = [diff(h); 0]. An output at phase p with fraction
     alpha takes taps pfb[:, p] + alpha * dpfb[:, p]: first-order
-    interpolation that never needs the next input sample. bfloat16 taps
-    give a float32 table of the values JAX's bfloat16 banks hold: the
-    taps, and their differences rounded to bfloat16.
+    interpolation that never needs the next input sample. bfloat16 and
+    float16 taps give a float32 table of the values JAX's banks of their
+    type hold: the taps, and their differences rounded to the taps' type.
+    Integer taps give the exact differences: JAX's integer banks truncate
+    alpha to 0 (a fault of the reference, ROADMAP queue 3).
     """
 
     table: torch.Tensor  # (2, taps_per_phi, nphi): pfb, dpfb
@@ -308,25 +338,27 @@ class FIRArbitrary(_Kernel):
     taps_per_phi: int = 0
     rate: float = 1.0
     delta_fx: int = 0  # nphi/rate in PHASE_FRAC_BITS fixed point
+    taps_dtype: torch.dtype | None = None  # the taps' type, if not the table's
 
     @classmethod
     def create(cls, h, rate: float, nphi: int = 32,
                device=None) -> "FIRArbitrary":
         rate = _check_rate(rate)
-        taps, dtype = _host_taps(h, quantized=False)
+        taps, dtype, tdt = _host_taps(h, quantized=False)
         dh = np.concatenate([np.diff(taps), np.zeros(1, dtype=taps.dtype)])
-        if to_tensor(h).dtype == torch.bfloat16:
-            # JAX takes the diff in bfloat16: dh holds it rounded, in float32
-            dh = torch.from_numpy(dh).to(torch.bfloat16).float().numpy()
+        if tdt in (torch.bfloat16, torch.float16):
+            # JAX takes the diff in the taps' type: dh holds it rounded
+            dh = torch.from_numpy(dh).to(tdt).to(dtype).numpy()
         table = np.stack([_pfb.taps2pfb(taps, nphi),
                           _pfb.taps2pfb(dh, nphi)])
         return cls(table=_to(table, _device_of(h, device), dtype),
                    nphi=nphi, taps_per_phi=table.shape[1], rate=rate,
-                   delta_fx=_delta_fx(nphi, rate))
+                   delta_fx=_delta_fx(nphi, rate), taps_dtype=tdt)
 
     def astype(self, dtype: torch.dtype) -> "FIRArbitrary":
-        """This kernel with its table in ``dtype``, a type at least as wide
-        (an exact cast, as JAX's ``pfb.astype`` before its TPU kernel)."""
+        """This kernel with its table in ``dtype``: an exact cast to a type
+        at least as wide, or JAX's own rounding where the output type is
+        narrower than the table (``pfb.astype`` before its TPU kernel)."""
         if dtype == self.table.dtype:
             return self
         return dataclasses.replace(self, table=self.table.to(dtype))
@@ -379,7 +411,7 @@ class FIRFarrow(_Kernel):
     across phases (pfb2pnfb, Filters.jl:311-321): ``coeffs`` (P+1, T),
     kept in float64 (complex128 for complex taps) as JAX keeps it. The
     kernel reads ``table``, the same polynomials re-centred at each phase
-    (``farrow_table``) in the taps' type.
+    (``farrow_table``) in the taps' storage type (``storage_dtype``).
     """
 
     pfb: torch.Tensor     # (taps_per_phi, nphi), the taps' type
@@ -390,20 +422,23 @@ class FIRFarrow(_Kernel):
     rate: float = 1.0
     delta_fx: int = 0
     polyorder: int = 4
+    taps_dtype: torch.dtype | None = None  # the taps' type, if not pfb's
 
     @classmethod
     def create(cls, h, rate: float, nphi: int, polyorder: int,
                device=None) -> "FIRFarrow":
         rate = _check_rate(rate)
-        bank = _pfb.taps2pfb(_host_taps(h, quantized=False)[0], nphi)
+        taps, _, tdt = _host_taps(h, quantized=False)
+        bank = _pfb.taps2pfb(taps, nphi)
         return cls.from_fit(bank, _pfb.pfb2pnfb(bank, polyorder), nphi,
                             rate, _delta_fx(nphi, rate),
-                            _device_of(h, device))
+                            _device_of(h, device), tdt)
 
     @classmethod
     def from_fit(cls, pfb, coeffs, nphi: int, rate: float, delta_fx: int,
-                 device) -> "FIRFarrow":
-        """The kernel from a bank and its fit (the JAX kernel's fields)."""
+                 device, taps_dtype=None) -> "FIRFarrow":
+        """The kernel from a bank and its fit (the JAX kernel's fields);
+        ``taps_dtype`` is the taps' type where ``pfb`` holds them wider."""
         pfb = to_tensor(pfb)
         dtype = storage_dtype(pfb.dtype, quantized=False)
         coeffs = np.array(coeffs)  # a copy: JAX's are read-only
@@ -412,7 +447,8 @@ class FIRFarrow(_Kernel):
         return cls(pfb=_to(pfb, device, dtype), coeffs=_to(coeffs, device),
                    table=_to(farrow_table(coeffs, nphi), device, dtype),
                    nphi=nphi, taps_per_phi=coeffs.shape[1], rate=rate,
-                   delta_fx=delta_fx, polyorder=coeffs.shape[0] - 1)
+                   delta_fx=delta_fx, polyorder=coeffs.shape[0] - 1,
+                   taps_dtype=taps_dtype or _taps_dtype(pfb.dtype, dtype))
 
     def astype(self, dtype: torch.dtype) -> "FIRFarrow":
         """This kernel with its table in ``dtype``, a type at least as

@@ -115,6 +115,20 @@ def _wire(t, group, copy: bool = False):
             else t.contiguous())
 
 
+# types whose collectives gloo refuses ("Invalid scalar type"); they cross
+# as their bytes (its point-to-point operations take any type)
+_GLOO_AS_BYTES = (torch.int16, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _collective(t, group):
+    """``t`` (contiguous) as a collective over ``group`` takes it: a uint8
+    view of its bytes where gloo refuses its type, else itself. A view: a
+    broadcast or gather into it writes ``t``."""
+    if _over_host(group) and t.dtype in _GLOO_AS_BYTES:
+        return t.view(torch.uint8)
+    return t
+
+
 def _peer(mesh: DeviceMesh, ci: int, k: int) -> int:
     return int(mesh.mesh[ci, k])
 
@@ -222,7 +236,7 @@ def broadcast_tail(x_local, H: int, mesh: DeviceMesh):
         return tail.clone(memory_format=torch.contiguous_format)
     group = mesh.get_group("t")
     tail = _wire(tail, group, copy=True)
-    dist.broadcast(tail, _peer(mesh, ci, n_t - 1), group)
+    dist.broadcast(_collective(tail, group), _peer(mesh, ci, n_t - 1), group)
     return tail.to(x_local.device)
 
 
@@ -235,7 +249,8 @@ def _gather(t, mesh: DeviceMesh, dim_name: str):
     group = mesh.get_group(dim_name)
     src = _wire(t, group)
     parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group)
+    dist.all_gather([_collective(p, group) for p in parts],
+                    _collective(src, group), group)
     return [p.to(t.device) for p in parts]
 
 

@@ -8,8 +8,9 @@ file, and a restart from a block boundary is exact.
 The file keeps the JAX package's keys, so a file written by either package
 loads in the other:
 
-- ``history``: the history samples in their type; numpy has no bfloat16,
-  so a bfloat16 history is saved as float32 (exact);
+- ``history``: the history samples in their type (the signal's: float,
+  complex, 16-bit PCM, uint8, ...); numpy has no bfloat16, so a bfloat16
+  history is saved as float32 (exact);
 - ``phase`` and ``deficit``: int64 (the arbitrary/Farrow phase is the
   32-bit-fraction accumulator u, below 2^63);
 - ``history_dtype``: the port's history type by name, which restores a
@@ -29,14 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.dtypes import LATTICE_TYPES
 from ..ops.params import FilterState, default_device
 
 __all__ = ["save_state", "load_state", "state_to_host", "state_from_host"]
 
-# the history types a file may name (``history_dtype``)
-_DTYPES = {str(t).removeprefix("torch."): t for t in (
-    torch.float32, torch.float64, torch.complex64, torch.complex128,
-    torch.bfloat16, torch.int8)}
+# the history types a file may name (``history_dtype``): every type JAX has
+_DTYPES = {str(t).removeprefix("torch."): t for t in LATTICE_TYPES}
 
 
 def state_to_host(state: FilterState, history_len: int | None = None

@@ -37,6 +37,7 @@ from multirate_tpu_torch.convert import (params_from_jax, state_from_jax,
 from multirate_tpu_torch.ops import params as tparams
 from multirate_tpu_torch.ops.cuda import polyphase as pp
 from multirate_tpu_torch.ops.cuda import resample as rs
+from multirate_tpu_torch.ops.dtypes import NARROW
 from multirate_tpu_torch.utils.oracle import naivefilt_farrow
 from multirate_tpu_torch.utils.testing import rel_max_err
 
@@ -341,7 +342,7 @@ def test_filt_block_tm_wide_equals_channel_major(kind, case):
     jp, p = _kernels(kind, h)
     s_cm = mt.setphase(p, mt.init_state(p, (5,)), 0.37)
     s_tm = s_cm
-    before = (dict(rs.launches), rs.launches_tm)
+    before = dict(rs.launches)
     i = 0
     for n in [1_001, 7, 1, 2_992]:
         blk = torch.from_numpy(x[:, i:i + n])
@@ -353,7 +354,7 @@ def test_filt_block_tm_wide_equals_channel_major(kind, case):
         assert torch.equal(s_cm.history, s_tm.history)
         assert torch.equal(y_tm.t(), y_cm)
         i += n
-    assert (rs.launches, rs.launches_tm) == before  # plain on the CPU
+    assert rs.launches == before  # plain on the CPU
     y_tm, c, _ = mt.filt_block_tm(p, mt.init_state(p, (5,)),
                                   torch.from_numpy(np.ascontiguousarray(
                                       x.T)))
@@ -469,13 +470,15 @@ def test_wrappers_take_the_new_types_on_cpu():
             pp.polyphase(x, hist, torch.zeros(7, 3, dtype=torch.float16), 3,
                          2, 1, 1, n)
     p = mt.make_kernel(_bench_taps(), rate=0.9173, nphi=32, device=CPU)
-    for (xt, tt), name in rs.ENTRIES.items():
+    for (xt, tt, out), name in rs.ENTRIES.items():
+        if xt in NARROW:  # the narrow reads: test_torch_signal_types.py
+            continue
         x = torch.randn(2, 500, generator=g, dtype=xt)
         hist = torch.zeros(2, p.h_min, dtype=xt)
         pk = p.astype(tt)
         n = mt.outputlength(p, 500)
         y = rs.resample(x, hist, pk, 0, 1, n)
-        assert y.dtype == xt and y.shape == (2, n)
+        assert y.dtype == xt == out and y.shape == (2, n)
         if name != "f32":
             with pytest.raises(TypeError, match="time-major"):
                 rs.resample_tm(x.t().contiguous(), hist, pk, 0, 1, n)

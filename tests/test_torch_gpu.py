@@ -6,9 +6,12 @@ the general one, equal bit for bit) and the copy and expand
 probes; the runtime on the card: StreamingResampler's block loop
 with no synchronizing call, and a profiler trace holding the kernel;
 the parallel layer on four gloo ranks sharing the card (halo through the
-host) against ``filt`` of the whole signal; and bf16 and int8 signals at
-an arbitrary or Farrow rate (widened to float32) against the plain
-version.
+host) against ``filt`` of the whole signal; and the narrow-read entries of
+both kernels (int16, uint8, float16, bfloat16 and int8 samples against
+float32 taps, float32 or float16 outputs), each against its plain version
+and bit-equal to the float32 entry on the widened values, on every
+variant, through the block entry points with one launch and no float32
+one.
 
 Marked ``gpu``: it skips without a CUDA device. It imports no JAX, so it
 runs on a machine with the card alone:
@@ -19,7 +22,8 @@ Tolerance: max|dy| <= 1e-5 * max|y| (the same float32 products, summed in
 another order; bf16 products are exact in float32; complex64 the same);
 1e-12 * max|y| for float64 and complex128; int8 equal (exact integer
 sums); narrow stores within one ulp of the store type; counts and states
-exact; the probes bit for bit.
+exact; the probes and the narrow reads against the float32 entry bit for
+bit.
 """
 
 import json
@@ -34,6 +38,7 @@ import multirate_tpu_torch as mt
 from multirate_tpu_torch.ops.cuda import polyphase as pp
 from multirate_tpu_torch.ops.cuda import probe
 from multirate_tpu_torch.ops.cuda import resample as rs
+from multirate_tpu_torch.ops.dtypes import NARROW
 from multirate_tpu_torch.utils.testing import rel_max_err, ulps_apart
 
 TOL = 1e-5
@@ -105,12 +110,12 @@ def test_resample_matches_plain_on_gpu(rate, nphi, polyorder, time_major):
     _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
     step = mt.filt_block_tm if time_major else mt.filt_block
     xs = x.t().contiguous() if time_major else x
-    count = rs.launches_tm if time_major else rs.launches["f32"]
+    entry = "f32_tm" if time_major else "f32"
+    count = rs.launches[entry]
     yk, ck, sk = step(p, st, xs, path="kernel")
     yp, cp, sp = step(p, st, xs, path="windows")
     torch.cuda.synchronize()
-    assert (rs.launches_tm if time_major else rs.launches["f32"]) \
-        == count + 1
+    assert rs.launches[entry] == count + 1
     assert ck == cp == yk.shape[0 if time_major else -1]
     assert (sk.phase, sk.deficit) == (sp.phase, sp.deficit)
     assert torch.equal(sk.history, sp.history)
@@ -225,12 +230,12 @@ def test_wide_resample_matches_plain_on_gpu(entry, rate, nphi, polyorder,
     _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
     step = mt.filt_block_tm if time_major else mt.filt_block
     xs = x.t().contiguous() if time_major else x
-    before = (rs.launches[entry], rs.launches_tm)
+    before = (rs.launches[entry], rs.launches["f32_tm"])
     yk, ck, sk = step(p, st, xs, path="kernel")
     yp, cp, sp = step(p, st, xs, path="windows")
     torch.cuda.synchronize()
-    assert (rs.launches[entry], rs.launches_tm) == (before[0] + 1,
-                                                    before[1])
+    assert (rs.launches[entry], rs.launches["f32_tm"]) == (before[0] + 1,
+                                                           before[1])
     assert ck == cp == yk.shape[0 if time_major else -1]
     assert yk.dtype == yp.dtype == xt
     assert (sk.phase, sk.deficit) == (sp.phase, sp.deficit)
@@ -251,6 +256,12 @@ def _signal(rng, shape, dtype):
     if dtype == torch.int8:
         return torch.from_numpy(np.clip(rng.standard_normal(shape) * 30,
                                         -127, 127).astype(np.int8))
+    if dtype == torch.int16:  # PCM whose sums stay in float16's range
+        return torch.from_numpy((rng.standard_normal(shape) * 100).astype(
+            np.int16))
+    if dtype == torch.uint8:  # offset-binary I/Q
+        return torch.from_numpy(np.clip(128 + 40 * rng.standard_normal(
+            shape), 0, 255).astype(np.uint8))
     return _wide(rng, shape, dtype)
 
 
@@ -281,7 +292,7 @@ def test_polyphase_variants_match_plain_on_gpu(entry, T, L, M, variant):
             torch.cuda.synchronize()
             assert pp.launches_by_variant[key] == before + 1
             assert y.dtype == yp.dtype and y.shape == yp.shape
-            if x_dt == torch.int8:
+            if o_dt == torch.int32:
                 assert torch.equal(y, yp)
             elif o_dt in (torch.bfloat16, torch.float16):
                 assert ulps_apart(y, yp, o_dt,
@@ -348,7 +359,7 @@ def test_resample_variants_match_plain_on_gpu(entry, kind, layout):
     want = plain(*args)
     got = {}
     for variant in (None, "general"):
-        key = f"{'tm' if tm else entry}/{variant or kind}"
+        key = f"{entry}{'_tm' if tm else ''}/{variant or kind}"
         before = rs.launches_by_variant[key]
         got[variant] = kern(*args, variant=variant)
         torch.cuda.synchronize()
@@ -548,9 +559,9 @@ def test_sharded_ranks_match_unsharded_on_gpu():
 @pytest.mark.parametrize("polyorder", [None, 4], ids=["arbitrary", "farrow"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 def test_widened_rate_matches_plain_on_gpu(dtype, polyorder, rate, channels):
-    """bf16 and int8 signals at a rate run the float32 kernel after one
-    cast: counts and states exact, outputs within 1e-5 * max|y| of the
-    plain version on the same widened values."""
+    """bf16 and int8 signals at a rate run their narrow-read entry in one
+    launch, no float32 one: counts and states exact, outputs within
+    1e-5 * max|y| of the plain version on the same widened values."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(14)
@@ -564,14 +575,130 @@ def test_widened_rate_matches_plain_on_gpu(dtype, polyorder, rate, channels):
         st = mt.init_state(p, (channels,), dtype)
         if phase is not None:
             st = mt.setphase(p, st, phase)
-        before = rs.launches["f32"]
+        entry = NARROW[dtype]
+        before = (rs.launches[entry], rs.launches["f32"])
         yk, ck, sk = mt.filt_block(p, st, x, path="kernel")
         yp, cp, sp = mt.filt_block(p, st, x, path="windows")
         torch.cuda.synchronize()
-        assert rs.launches["f32"] == before + 1
+        assert (rs.launches[entry], rs.launches["f32"]) == (before[0] + 1,
+                                                           before[1])
         assert yk.dtype == yp.dtype == torch.float32
         assert ck == cp == yk.shape[-1]
         assert (sk.phase, sk.deficit) == (sp.phase, sp.deficit)
         assert sk.history.dtype == dtype and torch.equal(sk.history,
                                                          sp.history)
+        assert rel_max_err(yk, yp) <= TOL
+
+
+# the narrow-read entries: each bit-equal to the float32 entry on the
+# widened values, on every variant (xlen 80,007 and 20,011: the second
+# channel's rows are not 16-byte aligned, so they stage sample by sample)
+NARROW_PP = [n for k, n in pp.ENTRIES.items() if k[0] in NARROW
+             and k[1] == torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [None, "general"], ids=["planned",
+                                                            "general"])
+@pytest.mark.parametrize("T,L,M", VARIANT_GEOMETRIES)
+@pytest.mark.parametrize("entry", NARROW_PP)
+def test_narrow_polyphase_equals_float32_entry_on_gpu(entry, T, L, M,
+                                                      variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x_dt, b_dt, o_dt = {v: k for k, v in pp.ENTRIES.items()}[entry]
+    rng = np.random.default_rng(15)
+    x = _signal(rng, (2, 80_007), x_dt).cuda()
+    hist = _signal(rng, (2, T - 1), x_dt).cuda()
+    bank = _signal(rng, (T, L), b_dt).cuda()
+    for C, (phi0, d0) in ((1, (1, 1)), (2, (L // 2 + 1, 3))):
+        n = ((80_007 - d0) * L - (phi0 - 1)) // M + 1
+        args = (x[:C], hist[:C], bank, L, M, phi0, d0, n)
+        y = pp.polyphase(*args, out_dtype=o_dt, variant=variant)
+        wide = pp.polyphase(x[:C].float(), hist[:C].float(), *args[2:],
+                            out_dtype=o_dt, variant=variant)
+        torch.cuda.synchronize()
+        assert y.dtype == o_dt and torch.equal(y, wide)
+
+
+NARROW_RS = [(k, tm) for tm, table in ((False, rs.ENTRIES),
+                                       (True, rs.TM_ENTRIES))
+             for k in table if k[0] in NARROW]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,xlen", [(1, 200_003), (3, 20_011), (64, 20_011)])
+@pytest.mark.parametrize("kind", list(RESAMPLE_KINDS))
+@pytest.mark.parametrize("types,time_major", NARROW_RS,
+                         ids=[f"{rs.ENTRIES[k]}{'_tm' if tm else ''}"
+                              for k, tm in NARROW_RS])
+def test_narrow_resample_equals_float32_entry_on_gpu(types, time_major,
+                                                     kind, C, xlen):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x_dt, _, o_dt = types
+    T, po = RESAMPLE_KINDS[kind]
+    rng = np.random.default_rng(16)
+    h = _wide(rng, T * 32, torch.float32)
+    p = mt.make_kernel(h, rate=1 / 2.123456789, nphi=32, polyorder=po,
+                       device="cuda")
+    x = _signal(rng, (C, xlen), x_dt).cuda()
+    st = mt.setphase(p, mt.init_state(p, (C,), x_dt), 0.37)
+    _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
+    n, _, _ = mt.ops.indexing.host_carry(p, st.phase, st.deficit, xlen)
+    xs = x.t().contiguous() if time_major else x
+    hist = st.history.contiguous()
+    kern = rs.resample_tm if time_major else rs.resample
+    plain = rs.resample_tm_plain if time_major else rs.resample_plain
+    want = plain(xs, hist, p, st.phase, st.deficit, n, o_dt)
+    for variant in (None, "general"):
+        y = kern(xs, hist, p, st.phase, st.deficit, n, variant=variant,
+                 out_dtype=o_dt)
+        wide = kern(xs.float(), hist.float(), p, st.phase, st.deficit, n,
+                    variant=variant).to(o_dt)
+        torch.cuda.synchronize()
+        assert y.dtype == o_dt and torch.equal(y, wide)
+        if o_dt == torch.float16:
+            assert ulps_apart(y, want, o_dt,
+                              TOL * float(want.float().abs().max())) <= 1
+        else:
+            assert rel_max_err(y, want) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps", [torch.float32, torch.float16])
+@pytest.mark.parametrize("spec", [Fraction(147, 160), 1 / 2.123456789],
+                         ids=["rational", "arbitrary"])
+@pytest.mark.parametrize("dtype", list(NARROW))
+def test_narrow_block_runs_one_narrow_launch_on_gpu(dtype, spec, taps):
+    # the block entry point reads the narrow samples in the kernel: one
+    # launch of the narrow-read entry, none of a float32 one, no cast
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(17)
+    h = (mt.firdes(24 * 147, 0.5 / 147, mt.kaiser, beta=7.8562) * 147
+         if isinstance(spec, Fraction) else
+         mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=7.0) * 32)
+    kw = ({"ratio": spec} if isinstance(spec, Fraction)
+          else {"rate": spec, "nphi": 32})
+    p = mt.make_kernel(torch.from_numpy(h).to(taps), device="cuda", **kw)
+    x = _signal(rng, (2, 40_011), dtype).cuda()
+    st = mt.init_state(p, (2,), dtype)
+    mod = pp if isinstance(spec, Fraction) else rs
+    before = dict(mod.launches)
+    yk, ck, sk = mt.filt_block(p, st, x, path="kernel")
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in mod.launches.items()
+                if v != before[k]}
+    yp, cp, sp = mt.filt_block(p, st, x, path="windows")
+    out = mt.ops.dtypes.out_dtype(p.tap_type, dtype)
+    types = {v: k for k, v in mod.ENTRIES.items()}
+    (name, n), = launched.items()
+    assert n == 1 and types[name] == (dtype, torch.float32, out)
+    assert yk.dtype == yp.dtype == out and ck == cp
+    assert sk.history.dtype == dtype and torch.equal(sk.history, sp.history)
+    if out == torch.float16:
+        assert ulps_apart(yk, yp, out, TOL * float(yp.float().abs().max())) \
+            <= 1
+    else:
         assert rel_max_err(yk, yp) <= TOL

@@ -229,9 +229,21 @@ def test_compute_rejects_what_is_not_ported():
     tp = mt.make_kernel(np.ones(8, np.float32), ratio=Fraction(3, 5),
                         device="cpu")
     st = mt.init_state(tp)
-    with pytest.raises(NotImplementedError, match="float16"):
-        mt.filt_block(tp, st, torch.zeros(10, dtype=torch.float16))
-    for dtype in (torch.bfloat16, torch.int8):  # widened, not refused
+    # a float16 signal is ported: JAX's output type and values
+    x16 = np.random.default_rng(0).standard_normal(40).astype(np.float16)
+    jp = mr.make_kernel(np.ones(8, np.float32), ratio=Fraction(3, 5))
+    yj, cj, _ = mr.filt_block(jp, mr.init_state(jp, (), jnp.float16),
+                              jnp.asarray(x16), path="windows")
+    y, c, s16 = mt.filt_block(tp, mt.init_state(tp, (), torch.float16),
+                              torch.from_numpy(x16))
+    assert y.dtype == torch.float32 == torch.from_numpy(
+        np.asarray(yj)).dtype and c == int(cj)
+    assert s16.history.dtype == torch.float16
+    assert float((y - torch.from_numpy(np.asarray(yj)[:c])).abs().max()) \
+        <= 1e-6 * float(y.abs().max())
+    with pytest.raises(TypeError, match="no counterpart in JAX"):
+        mt.filt_block(tp, st, torch.zeros(10, dtype=torch.complex32))
+    for dtype in (torch.bfloat16, torch.int8):  # read narrow, not refused
         x = torch.arange(-40, 40, dtype=torch.float32).to(dtype)
         y = mt.filt(np.ones(8, np.float32), x, 0.9)
         assert y.dtype == torch.float32

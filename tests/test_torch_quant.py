@@ -471,7 +471,8 @@ def test_entry_points_match_the_source():
     ctype = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
              torch.float16: "__half", torch.int8: "int8_t",
              torch.int32: "int32_t", torch.float64: "double",
-             torch.complex64: "float2", torch.complex128: "double2"}
+             torch.complex64: "float2", torch.complex128: "double2",
+             torch.int16: "int16_t", torch.uint8: "uint8_t"}
     assert src.count("MR_POLYPHASE(") - 1 == len(pp.ENTRIES)  # + #define
     for types, name in pp.ENTRIES.items():
         assert (f"MR_POLYPHASE({name}, "
@@ -494,8 +495,8 @@ def test_wrapper_modes_on_cpu(dtype):
     want = torch.stack([xext[:, (k * 2) // 3:(k * 2) // 3 + 7]
                         @ bank[:, (k * 2) % 3].long() for k in range(n)], -1)
     assert torch.equal(y.long(), want)
-    with pytest.raises(TypeError):
-        pp.polyphase(x, hist, bank.float(), 3, 2, 1, 1, n)
+    with pytest.raises(TypeError):  # float32 taps are a narrow read
+        pp.polyphase(x, hist, bank.double(), 3, 2, 1, 1, n)
     with pytest.raises(TypeError):
         pp.polyphase(x, hist, bank, 3, 2, 1, 1, n, out_dtype=torch.float64)
     if dtype == torch.int8:

@@ -1,7 +1,8 @@
 """bfloat16 and int8 signals at an arbitrary or Farrow rate, on the CPU.
 
-The port widens such a signal (and its history) to float32 before the
-kernel and returns float32, as the JAX package's TPU route does
+The port reads such a signal as stored (the narrow-read entries, which
+widen each sample to float32 in the kernel) and returns float32, the
+values of the JAX package's TPU route, which widens it before its kernel
 (``pallas/select3.py:344``). JAX's ``windows`` path would round the bf16
 products to bf16 (``_row_contract``), so the reference here is JAX
 ``windows`` given the same values already widened to float32: the signal,

@@ -153,7 +153,7 @@ def test_a_named_variant_that_cannot_run_raises(taps):
 
 def test_launch_counts_cover_every_entry_and_variant():
     assert set(rs.launches_by_variant) == {
-        f"{e}/{v}" for e in (*rs.ENTRIES.values(), "tm")
+        f"{e}/{v}" for e in (*rs.ENTRIES.values(), *rs.TM_ENTRIES.values())
         for v in rs.VARIANTS}
     assert set(rs.COMPILED.values()) == COMPILED <= set(rs.VARIANTS)
 
@@ -167,8 +167,7 @@ def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(
     x = torch.randn(3, 5000, generator=g)
     hist = torch.randn(3, p.h_min, generator=g)
     n = mt.outputlength(p, 5000 - 1)
-    before = (dict(rs.launches), rs.launches_tm,
-              dict(rs.launches_by_variant))
+    before = (dict(rs.launches), dict(rs.launches_by_variant))
     if time_major:
         y = rs.resample_tm(x.t().contiguous(), hist, p, 0, 1, n,
                            variant=variant)
@@ -177,7 +176,7 @@ def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(
         y = rs.resample(x, hist, p, 0, 1, n, variant=variant)
         want = rs.resample_plain(x, hist, p, 0, 1, n)
     assert torch.equal(y, want)
-    assert (rs.launches, rs.launches_tm, rs.launches_by_variant) == before
+    assert (rs.launches, rs.launches_by_variant) == before
     with pytest.raises(ValueError, match="t73p2"):
         rs.resample(x, hist, p, 0, 1, n, variant="t73p2")
 
