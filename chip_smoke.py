@@ -253,6 +253,45 @@ routes the other types with one cast to a type that has an entry):
    1/2.123456789 (uint8 entries on the I/Q pair), time-major on the
    (125,000, 64) Farrow row at 0.9173; each beside its bound, its plain
    version, the float32 entry on the widened values and its max abs error;
+Then the last operand pairs JAX takes, through new entries of both
+kernels: exact integer words (``i32``, ``i64``: integer outputs of the
+rational family, wrapping) and real signals against complex taps
+(``f32c``, ``f64c``, and the narrow reads against complex64, read as
+stored):
+
+3i. every such entry of both kernels against its plain version: the
+   polyphase ones through the variant matrix of phase 3 (integer words
+   over their whole range, equal; each real-sample entry bit-equal to the
+   complex-sample entry on the samples cast to complex on the same
+   variant), the resample ones channel-major with ``bench.py``'s bank
+   modulated to a complex bandpass at 1/2.123456789, 0.4709 (Farrow), 2.5
+   and 0.9173 (Farrow, nphi 7) and ``models.Resampler``'s T = 73, planned
+   and general, bit-equal to each other and to the complex-sample entry;
+   then the block entry points: six integer pairs (int16, int32, int64,
+   uint16 and uint32 taps with int32, int64, int8 and uint32/uint64
+   signals) at 147//160, 4//1 and 1//4 equal to the plain version, and
+   eight real signal types against complex64 taps in five families;
+4i. the slice at full width: the headline taps in Q15 (int16) on 8 M
+   samples of 24-bit PCM left-justified in int32 (``filt``, one ``i32``
+   launch, and ``FIRFilter`` in 250,000-sample chunks, equal) and in int64
+   against the taps as int32 (one ``i64`` launch), each bit-equal to the
+   exact integer oracle (Python-int sums wrapped mod 2^32 or 2^64) at
+   4,096 seeded outputs; the headline taps modulated to a complex bandpass
+   (h[n] exp(2 pi j n / 4)) on phase 4's 8 M float32 samples and on 4g's
+   16-bit PCM, and ``bench.py``'s modulated bank at 1/2.123456789 on the
+   float32 samples, through ``filt`` and chunked ``FIRFilter`` (equal),
+   against the complex128 ``naivefilt`` (8e-5; 1e-4 at 1/2.123456789) on
+   the first 200,000 outputs; each whole run's peak allocation no larger
+   than its output (no cast pass); each entry's launches counted;
+5i. times of every such entry, one launch after an L2 eviction (CUDA
+   events, median of 9): polyphase at the headline block on 8 M samples of
+   its type, resample on 8 M samples at 1/2.123456789; each beside its
+   bound, its plain version and today's route in turns (the cast to
+   complex and the complex-sample entry; for ``i32`` also int16 PCM with
+   Q15 taps through ``i32`` against the float64 route it ran before);
+   ``f32c`` also at 1//1 and 1//4 with 24 complex taps beside ``conv1d``
+   on complex inputs (TF32 off).
+
 4h. every example flow of ``multirate_tpu_torch.examples`` on the card
    (``main()``, with ``tests/test_examples.py``'s shrink keywords for
    ``arb_farrow_speed``), each with its kernel launches counted, and
@@ -265,8 +304,9 @@ launched and the general variant's time; one expand row for each store
 type; ``polyphase_f32_sharded``, the headline's shard on (1, 4) with its
 launches summed over the ranks; and one row for each narrow-read entry,
 ``polyphase_<entry>``, ``resample_<entry>`` and ``resample_<entry>_tm``,
-with its launches in 4g and its times of 5g), the ``nvidia-smi`` name and
-power-limit line,
+with its launches in 4g and its times of 5g; and one row for each entry
+of 3i-5i, with its launches in 4i and its times of 5i), the
+``nvidia-smi`` name and power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without the last line. Imports nothing of JAX.
 """
@@ -453,7 +493,9 @@ def _resample_variants(mt, torch, rs, params, st, x, time_major, case,
     (within ``tol`` of max|y|) and the two equal bit for bit, each launch
     counted once by entry point and variant; a narrow read (``out_dtype``
     its output type) also bit-equal to the float32 entry on the widened
-    values. Returns (max error, the planned variant)."""
+    values, and a real signal against a complex table bit-equal to the
+    complex-sample entry on the samples cast to complex. Returns (max
+    error, the planned variant)."""
     from multirate_tpu_torch.ops import indexing as idx
     from multirate_tpu_torch.ops.dtypes import NARROW
 
@@ -473,7 +515,14 @@ def _resample_variants(mt, torch, rs, params, st, x, time_major, case,
         key = f"{entry}/{variant or planned}"
         before = rs.launches_by_variant[key]
         got[variant] = kern(*args, variant=variant, out_dtype=out_dtype)
-        if x.dtype in NARROW:
+        if params.table.dtype.is_complex and not x.dtype.is_complex:
+            # a real signal: the complex-sample entry's bits on the samples
+            # cast to complex
+            ct = params.table.dtype
+            wide = kern(x.to(ct), args[1].to(ct), *args[2:], variant=variant)
+            check(torch.equal(got[variant], wide),
+                  f"{case} {key}: differs from the complex entry")
+        elif x.dtype in NARROW:
             wide = kern(x.float(), args[1].float(), *args[2:],
                         variant=variant).to(want.dtype)
             check(torch.equal(got[variant], wide),
@@ -560,9 +609,18 @@ def _variant_matrix(torch, dev, pp, entries):
                                             variant=variant)
                         check(torch.equal(y, wide),
                               f"{case}: differs from the float32 entry")
-                    if o_dt == torch.int32:
-                        err = float((y - yp).abs().max())
-                        check(err == 0, f"{case}: int8 differs by {err}")
+                    if b_dt.is_complex and not x_dt.is_complex:
+                        # a real signal: the complex-sample entry's bits on
+                        # the samples cast to complex, on the same variant
+                        wide = pp.polyphase(args[0].to(b_dt),
+                                            args[1].to(b_dt), *args[2:],
+                                            out_dtype=o_dt,
+                                            variant=p.variant)
+                        check(torch.equal(y, wide),
+                              f"{case}: differs from the complex entry")
+                    if o_dt in (torch.int32, torch.int64):
+                        err = 0.0 if torch.equal(y, yp) else 1.0
+                        check(err == 0, f"{case}: integers differ")
                     elif o_dt in (torch.bfloat16, torch.float16):
                         err = ulps_apart(y, yp, o_dt, floor)
                         check(err <= 1, f"{case}: {err} ulps apart")
@@ -1750,7 +1808,13 @@ def _expand_library(torch, xe, ratio, odt):
 
 def _probe_source(torch, rng, n, dtype):
     """Seeded samples of shape ``n`` in ``dtype`` (int8 as 16 x a standard
-    normal, int16 and uint8 as ``_narrow_signal``'s)."""
+    normal, int16 and uint8 as ``_narrow_signal``'s, int32 and int64 over
+    their whole range)."""
+    if dtype in (torch.int32, torch.int64):
+        info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+        return torch.from_numpy(rng.integers(info.min, info.max, n,
+                                             dtype=info.dtype,
+                                             endpoint=True))
     if dtype == torch.int8:
         return torch.from_numpy((rng.standard_normal(n) * 16).astype(
             np.int8))
@@ -2660,7 +2724,7 @@ def phase_narrow_vs_plain(mt, torch, dev, pp, rs):
                "model": mt.models.Resampler(R_REF, device="cpu").taps}
     n_rs, worst_rs, planned = 0, {}, {}
     for (x_dt, t_dt, o_dt), name in rs.ENTRIES.items():
-        if x_dt not in NARROW:
+        if x_dt not in NARROW or t_dt != torch.float32:
             continue
         for po, rate, nphi, design in NARROW_RATES:
             h = designs[design]
@@ -2715,7 +2779,7 @@ def phase_narrow_vs_plain(mt, torch, dev, pp, rs):
                     n_blk += 1
     missing = [n for n in names if not pp.launches[n]] + [
         n for k, n in (*rs.ENTRIES.items(), *rs.TM_ENTRIES.items())
-        if k[0] in NARROW and not rs.launches[n]]
+        if k[0] in NARROW and k[1] == torch.float32 and not rs.launches[n]]
     check(not missing, f"3g: entries never launched: {missing}")
     worst = {**{f"polyphase_{k}": v for k, v in worst_pp.items()},
              **worst_rs}
@@ -2952,7 +3016,7 @@ def phase_narrow_times(mt, torch, x, pcm, iq, x64, pp, rs, card):
     p_tm = mt.make_kernel(ha, rate=0.9173, nphi=32, polyorder=4, device=dev)
     for tm, table in ((False, rs.ENTRIES), (True, rs.TM_ENTRIES)):
         for (x_dt, t_dt, o_dt), name in table.items():
-            if x_dt not in NARROW:
+            if x_dt not in NARROW or t_dt != torch.float32:
                 continue
             p = p_tm if tm else p_cm
             if tm:
@@ -2982,6 +3046,471 @@ def phase_narrow_times(mt, torch, x, pcm, iq, x64, pp, rs, card):
     del flush
     print(f"[5g narrow-read times] one launch after a 256 MB write, CUDA "
           f"events, median of 9: {'; '.join(notes)}; card: {card}")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# 3i-5i: exact integer words and real signals against complex taps
+# --------------------------------------------------------------------------- #
+
+# 4i: the integer headline, 24-bit PCM left-justified in 32- and 64-bit words
+PCM24_SCALE = 2 ** 20     # 24-bit samples from phase 4's standard normals
+N_EXACT = 4096            # seeded output positions held to the exact oracle
+# the H100 SXM's int32 multiply-add rate: 64 INT32 lanes an SM (half the
+# 128 FP32 lanes of its 67 TFLOP/s float32) at the same clock; a 64-bit
+# multiply-add is I64_INSTRUCTIONS of those instructions (IMAD.WIDE.U32,
+# two IMADs for the cross terms and an add, in the SASS of the i64
+# entry's kernels: ``cuobjdump -sass`` of the built library)
+PEAK_OPS_PER_S["i32"] = PEAK_OPS_PER_S["f32"] / 2
+I64_INSTRUCTIONS = 4
+
+
+def _pairs_entries(table):
+    """The entries of this slice in a wrapper's ``ENTRIES``: integer words
+    and real signals against complex taps."""
+    return [n for (x_dt, b_dt, _), n in table.items()
+            if not (x_dt.is_floating_point or x_dt.is_complex)
+            and x_dt.itemsize >= 4
+            or (b_dt.is_complex and not x_dt.is_complex)]
+
+
+def _modulated(h, dtype):
+    """Taps shifted to a complex bandpass at a quarter of the rate:
+    h[n] exp(2 pi j 0.25 n)."""
+    h = np.asarray(h, np.float64)
+    return (h * np.exp(2j * np.pi * 0.25 * np.arange(len(h)))).astype(dtype)
+
+
+def phase_pairs_vs_plain(mt, torch, dev, pp, rs):
+    """3i: every integer-word and real-sample-against-complex-tap entry of
+    both kernels against its plain version: the polyphase ones through the
+    variant matrix of phase 3 (integers equal, each real-sample entry
+    bit-equal to the complex-sample entry on the samples cast to complex
+    on the same variant), the resample ones channel-major through the
+    planned and the general variant; then the block entry points."""
+    from multirate_tpu_torch.ops.dtypes import out_dtype
+
+    names = _pairs_entries(pp.ENTRIES)
+    _reset_counts(pp)
+    _reset_counts(rs)
+    n_pp, worst_pp, used = _variant_matrix(torch, dev, pp, names)
+    rng = np.random.default_rng(51)
+    designs = {"bench": bench_taps(mt),
+               "model": mt.models.Resampler(R_REF, device="cpu").taps}
+    n_rs, worst_rs, planned = 0, {}, {}
+    for (x_dt, t_dt, o_dt), name in rs.ENTRIES.items():
+        if name not in _pairs_entries(rs.ENTRIES):
+            continue
+        tol = 1e-12 if o_dt == torch.complex128 else TOL_KERNEL
+        for po, rate, nphi, design in NARROW_RATES:
+            h = designs[design]
+            h = _modulated(h if nphi == 32 else h[:10 * nphi + 3],
+                           np.complex64 if t_dt == torch.complex64
+                           else np.complex128)
+            p = mt.make_kernel(torch.from_numpy(h), rate=rate, nphi=nphi,
+                               polyorder=po, device=dev)
+            for C, xlen, tm in NARROW_LAYOUTS:
+                if tm:  # real x complex runs channel-major only
+                    continue
+                x = _probe_source(torch, rng, (C, xlen), x_dt).to(dev)
+                st = mt.init_state(p, (C,), x_dt)
+                _, _, st = mt.filt_block(p, mt.setphase(p, st, 0.37),
+                                         x[:, :777], path="windows")
+                case = (f"3i {name} P{po} {rate:.6g} nphi {nphi} {design} "
+                        f"C={C}")
+                err, var = _resample_variants(mt, torch, rs, p, st, x, False,
+                                              case, tol, o_dt)
+                worst_rs[f"resample_{name}"] = max(
+                    worst_rs.get(f"resample_{name}", 0.0), err)
+                planned[var] = planned.get(var, 0) + 1
+                n_rs += 1
+    # the block entry points: integer pairs of the rational family, and
+    # every real type against complex64 taps in each family
+    h_4 = mt.firdes(24 * 4, 0.5 / 4, mt.kaiser, beta=7.8562)
+    specs = [("head", headline_taps(mt), {"ratio": Fraction(147, 160)}),
+             ("T = 24", h_4 * 4, {"ratio": Fraction(4, 1)}),
+             ("T = 96", h_4, {"ratio": Fraction(1, 4)}),
+             ("bench", designs["bench"], {"rate": R_REF, "nphi": 32}),
+             ("bench", designs["bench"], {"rate": 0.4709, "nphi": 32,
+                                          "polyorder": 4})]
+    n_int = 0
+    for tap, sig in ((torch.int16, torch.int32), (torch.int32, torch.int32),
+                     (torch.int64, torch.int8), (torch.int16, torch.int64),
+                     (torch.uint32, torch.uint32),
+                     (torch.uint16, torch.uint64)):
+        for taps_name, h, kw in specs[:3]:
+            hq = torch.from_numpy(np.round(h * 2 ** 15).clip(
+                -2 ** 15, 2 ** 15 - 1)).to(tap)
+            p = mt.make_kernel(hq, device=dev, **kw)
+            x = _probe_source(torch, rng, (2, 30_011),
+                              torch.int64 if sig.itemsize == 8
+                              else torch.int32).to(sig).to(dev)
+            st = mt.init_state(p, (2,), sig)
+            if kw["ratio"].numerator > 1:
+                st = mt.setphase(p, st, 0.37)
+            _, _, st = mt.filt_block(p, st, x[:, :1237], path="windows")
+            yk, ck, sk = mt.filt_block(p, st, x, path="kernel")
+            yp, cp, sp = mt.filt_block(p, st, x, path="windows")
+            torch.cuda.synchronize()
+            case = f"3i block {tap} taps {sig} {taps_name}"
+            check(yk.dtype == yp.dtype == out_dtype(tap, sig)
+                  and ck == cp and torch.equal(yk, yp), f"{case}: differs")
+            check((sk.phase, sk.deficit) == (sp.phase, sp.deficit)
+                  and torch.equal(sk.history, sp.history)
+                  and sk.history.dtype == sig, f"{case}: states differ")
+            n_int += 1
+    n_blk, worst_blk = 0, 0.0
+    for x_dt in (torch.float32, torch.float64, torch.int16, torch.uint8,
+                 torch.float16, torch.bfloat16, torch.int8, torch.int32):
+        for taps_name, h, kw in specs:
+            p = mt.make_kernel(torch.from_numpy(_modulated(h, np.complex64)),
+                               device=dev, **kw)
+            x = _probe_source(torch, rng, (2, 30_011), x_dt).to(dev)
+            st = mt.init_state(p, (2,), x_dt)
+            if "rate" in kw or kw["ratio"].numerator > 1:
+                st = mt.setphase(p, st, 0.37)
+            _, _, st = mt.filt_block(p, st, x[:, :1237], path="windows")
+            out = out_dtype(torch.complex64, x_dt)
+            case = f"3i block {x_dt} complex64 taps {taps_name} {kw}"
+            worst_blk = max(worst_blk, _compare(
+                mt, torch, p, st, x, False, case,
+                1e-12 if out == torch.complex128 else TOL_KERNEL))
+            n_blk += 1
+    missing = [n for n in names if not pp.launches[n]] + [
+        n for n in _pairs_entries(rs.ENTRIES) if not rs.launches[n]]
+    check(not missing, f"3i: entries never launched: {missing}")
+    worst = {**{f"polyphase_{k}": v for k, v in worst_pp.items()},
+             **worst_rs}
+    print(f"[3i integer words, real x complex vs plain] polyphase: {n_pp} "
+          f"cases over {len(names)} entries, planned and general (integers "
+          f"equal; each real-sample entry bit-equal to the complex-sample "
+          f"entry on the cast samples); variants {used}; resample: {n_rs} "
+          f"cases over {len(worst_rs)} entries (channel-major; bench.py's "
+          f"bank modulated, four rates and nphi 7, models.Resampler's "
+          f"T = 73), planned {planned} and general, bit-equal to each other "
+          f"and to the complex-sample entry; worst by entry "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limit {TOL_KERNEL}, complex128 1e-12); block entry points: "
+          f"{n_int} integer cases (6 pairs x 147//160, 4//1, 1//4) equal, "
+          f"{n_blk} real x complex64 cases (8 signal types x 147//160, "
+          f"4//1, 1//4, arbitrary, Farrow), counts and states exact, worst "
+          f"{worst_blk:.3e}; launches {_by_variant(pp)} {_by_variant(rs)}")
+    return worst
+
+
+def _exact_headline(bank, x_np, n_out, bits, rng):
+    """(positions, wrapped values) of the exact 147//160 headline at
+    N_EXACT seeded output positions: Python-int sums of the int64 bank
+    (T, 147) against [23 zeros ++ x], wrapped to ``bits``."""
+    T = bank.shape[0]
+    pos = np.sort(rng.choice(n_out, N_EXACT, replace=False))
+    pos[0], pos[-1] = 0, n_out - 1
+    b = bank.tolist()
+    out = []
+    for n in pos.tolist():
+        t = n * 160
+        i0, ph = t // 147, t % 147  # xext index of the window's first sample
+        s = 0
+        for k in range(T):
+            e = i0 + k - (T - 1)
+            if e >= 0:
+                s += int(x_np[e]) * b[k][ph]
+        s %= 1 << bits
+        out.append(s - (1 << bits) if s >= 1 << (bits - 1) else s)
+    return pos, np.array(out, dtype=np.int64)
+
+
+def phase_pairs_slice(mt, torch, dev, pp, rs, x, pcm, card):
+    """4i: the slice at full width: the headline's taps in Q15 on 8 M
+    samples of 24-bit PCM left-justified in int32 (``filt`` and chunked
+    ``FIRFilter``) and in int64 against int32 taps (``filt``), each bit
+    for bit against the exact integer oracle at N_EXACT seeded outputs;
+    the headline taps modulated to a complex bandpass on 8 M float32 and
+    16-bit PCM samples, and bench.py's modulated bank at 1/2.123456789 on
+    8 M float32, through ``filt`` and chunked ``FIRFilter``, against the
+    complex128 oracle. Returns each entry's launches in this run and the
+    signals."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multirate_tpu_torch.utils.oracle import naivefilt
+
+    ratio, h, ha = Fraction(147, 160), headline_taps(mt), bench_taps(mt)
+    rng = np.random.default_rng(53)
+    hq = np.clip(np.round(h.astype(np.float64) * 2 ** 15), -2 ** 15,
+                 2 ** 15 - 1).astype(np.int16)
+    s24 = torch.round(x * PCM24_SCALE).clamp(-2 ** 23, 2 ** 23 - 1).to(
+        torch.int64)
+    x32 = (s24 << 8).to(torch.int32)   # left-justified in 32 bits
+    x64 = s24 << 40                    # and in 64
+    x32_np, x64_np = x32.cpu().numpy(), x64.cpu().numpy()
+    hc, hac = _modulated(h, np.complex64), _modulated(ha, np.complex64)
+    cuts = list(range(0, N_HEAD, CHUNK)) + [N_HEAD]
+    n_want = mt.outputlength(N_HEAD, ratio)
+    bank16 = mt.make_kernel(hq, ratio=ratio, device="cpu").bank.long()
+
+    def oracle(job):
+        kind, xs, rate = job
+        if kind == "i32":
+            return _exact_headline(bank16, xs, n_want, 32,
+                                   np.random.default_rng(1))
+        if kind == "i64":
+            return _exact_headline(bank16, xs, n_want, 64,
+                                   np.random.default_rng(2))
+        taps = (hc if rate is None else hac).astype(np.complex128)
+        if rate is None:
+            n_in = mt.inputlength(N_ORACLE, ratio)
+            return naivefilt(taps, xs[:n_in].astype(np.float64),
+                             ratio)[:N_ORACLE]
+        n_in = mt.inputlength(mt.make_kernel(ha, rate=rate, nphi=32,
+                                             device="cpu"), N_ORACLE)
+        return naivefilt(taps, xs[:n_in].astype(np.float64), rate,
+                         32)[:N_ORACLE]
+
+    x_np, pcm_np = x.cpu().numpy(), pcm.cpu().numpy()
+    jobs = {"i32": ("i32", x32_np, None), "i64": ("i64", x64_np, None),
+            "f32c": ("c", x_np, None), "s16c": ("c", pcm_np, None),
+            "arb f32c": ("c", x_np, R_REF)}
+    peaks = {}
+
+    def whole(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        return y
+
+    with ThreadPoolExecutor(4) as pool:  # host oracles while the card runs
+        futures = {k: pool.submit(oracle, v) for k, v in jobs.items()}
+        _reset_counts(pp)
+        _reset_counts(rs)
+        runs = {}
+        y32 = whole("i32", lambda: mt.filt(hq, x32, ratio))
+        f = mt.FIRFilter(hq, ratio)
+        runs["i32"] = (y32, [f.filt(x32[a:b]) for a, b in zip(cuts,
+                                                             cuts[1:])], f)
+        runs["i64"] = (whole("i64", lambda: mt.filt(hq.astype(np.int32),
+                                                     x64, ratio)), None,
+                       None)
+        for name, spec, taps, xs in (("f32c", ratio, hc, x),
+                                     ("s16c", ratio, hc, pcm),
+                                     ("arb f32c", R_REF, hac, x)):
+            args = (32,) if isinstance(spec, float) else ()
+            y = whole(name, lambda: mt.filt(taps, xs, spec, *args))
+            f = mt.FIRFilter(taps, spec, *args)
+            runs[name] = (y, [f.filt(xs[a:b]) for a, b in zip(cuts,
+                                                             cuts[1:])], f)
+        torch.cuda.synchronize()
+        launches = {**{f"polyphase_{k}": v for k, v in pp.launches.items()
+                       if v},
+                    **{f"resample_{k}": v for k, v in rs.launches.items()
+                       if v}}
+        by_variant = {**_by_variant(pp), **_by_variant(rs)}
+        refs = {k: v.result() for k, v in futures.items()}
+
+    n_chunks = len(cuts) - 1
+    want = {"polyphase_i32": 1 + n_chunks, "polyphase_i64": 1,
+            "polyphase_f32c": 1 + n_chunks, "polyphase_s16c": 1 + n_chunks,
+            "resample_f32c": 1 + n_chunks}
+    check(launches == want, f"4i launches {launches}, want {want} (one "
+          f"launch a block, no other entry)")
+    notes = []
+    for name, bits in (("i32", 32), ("i64", 64)):
+        y, parts, f = runs[name]
+        dt = torch.int32 if bits == 32 else torch.int64
+        out_bytes = n_want * dt.itemsize
+        check(y.dtype == dt and tuple(y.shape) == (n_want,),
+              f"4i {name}: {y.dtype} {tuple(y.shape)}")
+        check(peaks[name] <= out_bytes + (1 << 20),
+              f"4i {name}: peak allocation {peaks[name]} B over the "
+              f"output's {out_bytes}")
+        pos, exact = refs[name]
+        got = y[torch.from_numpy(pos).to(dev)].cpu().numpy().astype(np.int64)
+        check(np.array_equal(got, exact), f"4i {name}: differs from the "
+              f"exact oracle at {int((got != exact).sum())} positions")
+        note = (f"{name} 147//160, Q15 taps on {N_HEAD} samples of 24-bit "
+                f"PCM << {40 if bits == 64 else 8} -> {n_want} {dt}: "
+                f"{len(pos)} seeded outputs bit-equal to the exact oracle "
+                f"(wrapped mod 2^{bits}); peak allocation {peaks[name]} B "
+                f"(output {out_bytes} B: no cast pass)")
+        if parts is not None:
+            check(torch.equal(torch.cat(parts), y)
+                  and f.state.history.dtype == dt,
+                  f"4i {name}: chunked differs from whole")
+            note += f"; {n_chunks} chunks == whole"
+        notes.append(note)
+    for name, limit in (("f32c", TOL_ORACLE), ("s16c", TOL_ORACLE),
+                        ("arb f32c", TOL_ORACLE_ARB_REF)):
+        y, parts, f = runs[name]
+        n = y.shape[-1]
+        check(y.dtype == torch.complex64 and bool(torch.isfinite(y).all()),
+              f"4i {name}: {y.dtype}")
+        check(peaks[name] <= n * 8 + (1 << 20),
+              f"4i {name}: peak allocation {peaks[name]} B over the "
+              f"output's {n * 8}")
+        check(torch.equal(torch.cat(parts), y), f"4i {name}: chunked "
+              f"differs from whole")
+        rel = _rel_rms(y[:N_ORACLE].cpu().numpy().astype(np.complex128),
+                       refs[name])
+        check(rel <= limit, f"4i {name}: oracle rel RMS {rel:.3e}")
+        notes.append(f"{name} on {N_HEAD} real samples -> {n} complex64: "
+                     f"oracle rel RMS {rel:.3e} (limit {limit}); peak "
+                     f"allocation {peaks[name]} B (output {n * 8} B: no "
+                     f"cast pass); {n_chunks} chunks == whole")
+    print(f"[4i integer words, real x complex slice] {'; '.join(notes)}; "
+          f"launches {launches}, {by_variant}; card: {card}")
+    return launches, x32, x64, hq
+
+
+def phase_pairs_times(mt, torch, x, pcm, x32, x64, hq, pp, rs, card):
+    """5i: each entry of this slice at the main path's shapes, one launch
+    after an L2 eviction (CUDA events, median of 9), beside its bound, its
+    plain version and today's route timed in turns: the real-sample
+    entries against the cast to complex and the complex-sample entry, the
+    16-bit integer pair (int16 PCM, Q15 taps) through i32 against the
+    float64 route it took before; f32c also at 1//1 and 1//4 with T = 24
+    beside ``conv1d`` on complex inputs."""
+    from multirate_tpu_torch.ops.precision import fp32
+
+    ratio, h, ha = Fraction(147, 160), headline_taps(mt), bench_taps(mt)
+    dev = x.device
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(57)
+    n = mt.outputlength(N_HEAD, ratio)
+    out, notes = {}, []
+
+    def timed(fn):
+        return _time_ms(torch, fn, iters=1, reps=9, before=flush.zero_)
+
+    def one(name, kern, plain, args, x_in, mult_adds, kind, exact):
+        yk, yp = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        if exact:
+            check(torch.equal(yk, yp), f"5i {name}: kernel vs plain")
+            max_abs = 0.0
+        else:
+            max_abs = float((yk - yp).abs().max())
+            check(max_abs <= TOL_KERNEL * float(yp.abs().max()),
+                  f"5i {name}: kernel vs plain {max_abs:.3e}")
+        ms = timed(lambda: kern(*args))
+        plain_ms = _time_ms(torch, lambda: plain(*args), iters=1, reps=3)
+        nbytes = sum(t.numel() * t.element_size() for t in x_in) \
+            + yk.numel() * yk.element_size()
+        bound = _bound(nbytes, mult_adds, kind)
+        out[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=None)
+        return ms, bound
+
+    # polyphase at the headline block
+    signals = {torch.int32: x32, torch.int64: x64, torch.float32: x,
+               torch.float64: x.double(), torch.int16: pcm,
+               torch.uint8: _narrow_signal(torch, rng, (N_HEAD,),
+                                           torch.uint8).to(dev),
+               torch.float16: x.to(torch.float16),
+               torch.bfloat16: x.to(torch.bfloat16),
+               torch.int8: _as_mode(mt, torch, x, torch.int8)}
+    hc = torch.from_numpy(_modulated(h, np.complex128))
+    for (x_dt, b_dt, o_dt), name in pp.ENTRIES.items():
+        if name not in _pairs_entries(pp.ENTRIES):
+            continue
+        if b_dt.is_complex:
+            bank = mt.make_kernel(hc.to(b_dt), ratio=ratio, device=dev).bank
+        else:
+            bank = mt.make_kernel(torch.from_numpy(hq).to(b_dt), ratio=ratio,
+                                  device=dev).bank
+        xs = signals[x_dt].reshape(1, -1)
+        hist = torch.zeros(1, 23, dtype=x_dt, device=dev)
+        args = (xs, hist, bank, 147, 160, 1, 1, n)
+        if b_dt.is_complex:
+            kind = "f64" if b_dt == torch.complex128 else "f32"
+            macs = 2 * n * 24
+        else:
+            kind = "i32"
+            macs = n * 24 * (I64_INSTRUCTIONS if x_dt == torch.int64 else 1)
+        label = f"polyphase_{name}"
+        ms, bound = one(label, pp.polyphase, pp.polyphase_plain, args,
+                        (xs, hist, bank), macs, kind, not b_dt.is_complex)
+        row = out[label]
+        note = (f"{label} ({_plan_of(pp, args).variant}) {ms:.4f} ms, "
+                f"bound {bound[0]:.4f} ({bound[1]})")
+        if b_dt.is_complex:  # today's route: a cast, then the complex entry
+            row["cast_route_ms"] = timed(lambda: pp.polyphase(
+                xs.to(b_dt), hist.to(b_dt), bank, *args[3:]))
+            note += f", cast + {b_dt} entry {row['cast_route_ms']:.4f}"
+        if name == "f32c":  # 1//1, 1//4 at T = 24, beside conv1d
+            h24 = torch.from_numpy(_modulated(
+                np.random.default_rng(5).standard_normal(24) * 0.2,
+                np.complex64)).to(dev)
+            xc = xs.to(torch.complex64)
+            with fp32():
+                for M in (1, 4):
+                    m = mt.outputlength(N_HEAD, Fraction(1, M))
+                    b = h24.flip(0).view(24, 1).contiguous()
+                    a = (xs, hist, b, 1, M, 1, 1, m)
+                    yk = pp.polyphase(*a)
+                    yl = _conv_dec(torch, xc, b.view(-1), M, m)
+                    torch.cuda.synchronize()
+                    check(float((yk - yl).abs().max())
+                          <= TOL_KERNEL * float(yl.abs().max()),
+                          f"5i f32c 1//{M}: conv1d differs")
+                    row[f"dec{M}_ms"] = timed(lambda: pp.polyphase(*a))
+                    row[f"dec{M}_library_ms"] = timed(
+                        lambda: _conv_dec(torch, xc, b.view(-1), M, m))
+                    row[f"dec{M}_bound_ms"] = _polyphase_bound(
+                        torch, a, torch.complex64, "f32")[0]
+                    note += (f"; 1//{M} T = 24 {row[f'dec{M}_ms']:.4f} "
+                             f"(bound {row[f'dec{M}_bound_ms']:.4f}), conv1d "
+                             f"on complex inputs "
+                             f"{row[f'dec{M}_library_ms']:.4f}")
+        if name == "i32":  # the 16-bit pair: int16 PCM, Q15 taps
+            b16 = mt.make_kernel(hq, ratio=ratio, device=dev).bank
+            p16 = pcm.reshape(1, -1)
+            h16 = torch.zeros(1, 23, dtype=torch.int16, device=dev)
+
+            def new_route():
+                y = pp.polyphase(p16.to(torch.int32), h16.to(torch.int32),
+                                 b16.to(torch.int32), *args[3:])
+                return y.to(torch.int16)
+
+            def old_route():
+                y = pp.polyphase(p16.double(), h16.double(), b16.double(),
+                                 *args[3:])
+                return y.to(torch.int64).to(torch.int16)
+
+            check(torch.equal(new_route(), old_route()),
+                  "5i int16 pair: the routes differ")
+            row["int16_pair_ms"] = timed(new_route)
+            row["int16_pair_f64_route_ms"] = timed(old_route)
+            note += (f"; int16 PCM x Q15 taps (int16 out) through i32 "
+                     f"{row['int16_pair_ms']:.4f}, the float64 route "
+                     f"{row['int16_pair_f64_route_ms']:.4f}")
+        notes.append(note)
+    # resample, channel-major at 1/2.123456789
+    for (x_dt, t_dt, o_dt), name in rs.ENTRIES.items():
+        if name not in _pairs_entries(rs.ENTRIES):
+            continue
+        p = mt.make_kernel(torch.from_numpy(_modulated(ha, np.complex128)).to(
+            t_dt), rate=R_REF, nphi=32, device=dev)
+        xs = signals[x_dt].reshape(1, -1)
+        n_r = mt.outputlength(p, N_HEAD)
+        h_r = torch.zeros(1, p.h_min, dtype=x_dt, device=dev)
+        args = (xs, h_r, p, 0, 1, n_r)
+        label = f"resample_{name}"
+        kind = "f64" if t_dt == torch.complex128 else "f32"
+        ms, bound = one(label, rs.resample, rs.resample_plain, args,
+                        (xs, h_r, p.table),
+                        2 * _resample_mult_adds(p, 1, n_r), kind, False)
+        out[label]["cast_route_ms"] = timed(lambda: rs.resample(
+            xs.to(t_dt), h_r.to(t_dt), *args[2:]))
+        notes.append(f"{label} ({_resample_plan(rs, args, False).variant}) "
+                     f"{ms:.4f} ms, bound {bound[0]:.4f} ({bound[1]}), cast "
+                     f"+ {t_dt} entry {out[label]['cast_route_ms']:.4f}")
+    del flush
+    print(f"[5i integer words, real x complex times] one launch after a "
+          f"256 MB write, CUDA events, median of 9: {'; '.join(notes)}; "
+          f"card: {card}")
     return out
 
 
@@ -3061,6 +3590,12 @@ def main() -> int:
                                                  card)
         g_rows = phase_narrow_times(mt, torch, x, pcm, iq, x64, pp, rs,
                                     card)
+        phase_pairs_vs_plain(mt, torch, dev, pp, rs)
+        i_launches, x32, xi64, hq = phase_pairs_slice(mt, torch, dev, pp, rs,
+                                                      x, pcm, card)
+        i_rows = phase_pairs_times(mt, torch, x, pcm, x32, xi64, hq, pp, rs,
+                                   card)
+        del x32, xi64
         phase_examples(torch, pp, rs)
         phase_scaling(card)
         check("jax" not in sys.modules, "jax was imported")
@@ -3166,6 +3701,16 @@ def main() -> int:
                          f"{dense}" if name.startswith("polyphase")
                          else rs_tm if name.endswith("_tm") else rs_cm),
             "launches": g_launches.get(name, 0), **row})
+    # this slice's integer-word and real-sample entries: launches from 4i,
+    # times from 5i (the headline block; 8 M samples at 1/2.123456789)
+    for name, row in i_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"multirate_tpu_torch/csrc/{name.split('_')[0]}.cu",
+            "replaces": (f"{zc}, multirate_tpu/ops/pallas/rational2.py:181, "
+                         f"{dense}" if name.startswith("polyphase")
+                         else rs_cm),
+            "launches": i_launches.get(name, 0), **row})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

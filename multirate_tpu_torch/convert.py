@@ -18,10 +18,11 @@ sides.
 
 Banks and Farrow coefficients carry over in their storage type
 (``params.storage_dtype``): float32, float64, complex64 and complex128,
-and for the rational family also bfloat16 and int8 (the quantized modes),
-read through float32 where numpy holds bfloat16; taps of another type sit
-in a wider bank that holds their values, and the kernel keeps their type
-(``taps_dtype``), so its outputs take JAX's type. Histories carry over in
+and for the rational family also bfloat16 and every integer type (the
+quantized modes and the exact integer route), read through float32 where
+numpy holds bfloat16; taps of another type sit in a wider bank that holds
+their values (integer banks at a rate in int64, exactly), and the kernel
+keeps their type (``taps_dtype``), so its outputs take JAX's type. Histories carry over in
 their own type, whatever it is (int16 PCM, uint8, float16, ...), as JAX
 keeps them. ``state_to_jax`` hands histories back in their type, complex
 ones as complex; numpy has no bfloat16 of its own, so a bfloat16 history
@@ -55,10 +56,10 @@ def params_from_jax(fields, device=None):
     stacks ``k_super``, ``k_zc_hi`` and ``k_zc_lo``, ``sc_group``, the
     gridsel/ratgrid plans) are ignored. The class follows the fields
     present, as the JAX classes' fields do. A bank keeps its type (a
-    rational-family one also bfloat16 or int8) or goes to its storage
-    type with the taps' own type kept as ``taps_dtype``, Farrow ``coeffs``
-    stay float64 or complex128, and ``store_dtype`` carries over. The
-    kernel lives on ``device``, by default the card.
+    rational-family one also bfloat16 or an integer type) or goes to its
+    storage type with the taps' own type kept as ``taps_dtype``, Farrow
+    ``coeffs`` stay float64 or complex128, and ``store_dtype`` carries
+    over. The kernel lives on ``device``, by default the card.
     """
     dev = default_device() if device is None else torch.device(device)
 

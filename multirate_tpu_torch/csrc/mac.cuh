@@ -7,10 +7,20 @@
 // sample costs 2 real multiply-adds, a complex tap 4; each real one is an
 // FMA in the sample's precision.
 //
+// A real sample against a complex tap (float against float2, double
+// against double2) costs 2 FMAs, (r + 0i)(a + bi)'s nonzero products in
+// the complex tap's order: the bits of the complex-sample entry on the
+// sample cast to complex, up to the sign of a zero.
+//
 // Narrow reads: int16, uint8, int8, __half and __nv_bfloat16 samples are
 // read as stored and widened to float (``widen``) before the float
 // multiply-adds; each of these types converts to float exactly, so a
 // narrow read gives the float32 kernel's bits on the widened values.
+//
+// Integer words: uint32_t and uint64_t multiply-adds wrap modulo 2^32 or
+// 2^64 (unsigned arithmetic: signed overflow is undefined in C++), which
+// are the low bits of the exact two's-complement sum; the entries read
+// int32/int64 tensors (and uint32/uint64 ones) as these words.
 
 #pragma once
 
@@ -66,6 +76,20 @@ __device__ __forceinline__ float2 mac(float2 acc, float2 w, float b) {
 }
 __device__ __forceinline__ double2 mac(double2 acc, double2 w, double b) {
   return make_double2(fma(w.x, b, acc.x), fma(w.y, b, acc.y));
+}
+__device__ __forceinline__ float2 mac(float2 acc, float w, float2 b) {
+  return make_float2(fmaf(w, b.x, acc.x), fmaf(w, b.y, acc.y));
+}
+__device__ __forceinline__ double2 mac(double2 acc, double w, double2 b) {
+  return make_double2(fma(w, b.x, acc.x), fma(w, b.y, acc.y));
+}
+__device__ __forceinline__ uint32_t mac(uint32_t acc, uint32_t w,
+                                        uint32_t b) {
+  return acc + w * b;
+}
+__device__ __forceinline__ uint64_t mac(uint64_t acc, uint64_t w,
+                                        uint64_t b) {
+  return acc + w * b;
 }
 __device__ __forceinline__ float2 mac(float2 acc, float2 w, float2 b) {
   return make_float2(fmaf(-w.y, b.y, fmaf(w.x, b.x, acc.x)),

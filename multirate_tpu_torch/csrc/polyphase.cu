@@ -1,8 +1,9 @@
 // Polyphase FIR / rational resampler for Hopper (sm_90a): float32, float64,
-// complex64 and complex128 (against real or complex taps), the quantized
-// bfloat16 and int8 modes, and narrow reads of int16, uint8, float16,
-// bfloat16 and int8 samples against float32 taps, with float32 or narrow
-// float stores.
+// complex64 and complex128 (against real or complex taps), real samples
+// against complex taps, the quantized bfloat16 and int8 modes, narrow reads
+// of int16, uint8, float16, bfloat16 and int8 samples against float32 or
+// complex64 taps, with float32 or narrow float stores, and exact 32- and
+// 64-bit integer words.
 //
 // Replaces the TPU kernels multirate_tpu/ops/pallas/rational2.py
 // rational_supercycle_zc (float32, bf16, int8 and out_dtype modes; a
@@ -41,7 +42,17 @@
 //   float32 mode's arithmetic in the same order, so each output equals the
 //   float32 entry's on the widened values bit for bit, in every variant;
 // - narrow store (out_dtype): the float32 accumulator is stored through
-//   __float2bfloat16_rn / __float2half_rn, round to nearest even.
+//   __float2bfloat16_rn / __float2half_rn, round to nearest even;
+// - real samples against complex taps (float or a narrow read against
+//   float2, double against double2): staged real (4 or 8 bytes a sample,
+//   half a complex one's), 2 FMAs a tap into a complex accumulator
+//   (mac.cuh), each output the complex-sample entry's bits on the samples
+//   cast to complex, up to the sign of a zero;
+// - integer words (int32 or int64 tensors, and uint32/uint64 ones as their
+//   bits): staged as uint32_t/uint64_t, whose multiply-adds wrap modulo
+//   2^32 or 2^64 (unsigned: signed overflow is undefined), the low bits of
+//   the exact sum, stored as the signed word's bits. A 64-bit multiply-add
+//   is several instructions on Hopper.
 //
 // What bounds it. Device memory moves sizeof(X) bytes per input and
 // sizeof(Out)*L/M per output (62 MB, 18.3 us at 3.35 TB/s, for the 8 M
@@ -155,20 +166,47 @@ template <> struct Mode<uint8_t, float> : FloatMode {};
 template <> struct Mode<__half, float> : FloatMode {};
 template <> struct Mode<int8_t, float> : FloatMode {};
 template <> struct Mode<__nv_bfloat16, float> : FloatMode {};
+// integer words: summed as unsigned words, which wrap (store reinterprets)
+template <> struct Mode<int32_t, int32_t> {
+  using XStage = uint32_t;
+  using WStage = uint32_t;
+  using Acc = uint32_t;
+};
+template <> struct Mode<int64_t, int64_t> {
+  using XStage = uint64_t;
+  using WStage = uint64_t;
+  using Acc = uint64_t;
+};
+// a real sample (a narrow read widened to float) against a complex tap
+template <typename W> struct RealSampleMode {
+  using XStage = typename mr::Real<W>::type;
+  using WStage = W;
+  using Acc = W;
+};
+template <> struct Mode<float, float2> : RealSampleMode<float2> {};
+template <> struct Mode<double, double2> : RealSampleMode<double2> {};
+template <> struct Mode<int16_t, float2> : RealSampleMode<float2> {};
+template <> struct Mode<uint8_t, float2> : RealSampleMode<float2> {};
+template <> struct Mode<__half, float2> : RealSampleMode<float2> {};
+template <> struct Mode<int8_t, float2> : RealSampleMode<float2> {};
+template <> struct Mode<__nv_bfloat16, float2> : RealSampleMode<float2> {};
 
 // The register variant's outputs per thread R and tap padding E (U = T+E
 // registers a tap vector), and the broadcast variant's outputs per thread:
 // by the size of a staged tap and sample. Mirrored in ops/cuda/polyphase.py.
-// The register variant's blocks an SM must hold: 2 caps int8 and float64 at
-// 128 registers a thread, which ran them faster on the H100; the other
-// modes spill under that cap and ran slower (PERF.md).
+// The register variant's blocks an SM must hold: 2 caps int8 and float64
+// (with float64 taps) at 128 registers a thread, which ran them faster on
+// the H100; the other modes spill under that cap and ran slower (PERF.md).
 template <typename X, typename W> struct Shape {
   using XS = typename Mode<X, W>::XStage;
   using WS = typename Mode<X, W>::WStage;
   static constexpr int kR = sizeof(WS) <= 4 ? 4 : (sizeof(WS) <= 8 ? 2 : 1);
   static constexpr int kE = kR == 1 ? 0 : kR;
   static constexpr int kRegMinBlocks =
-      sizeof(XS) == 1 || std::is_same<X, double>::value ? 2 : 1;
+      sizeof(XS) == 1 ||
+              (std::is_same<X, double>::value && std::is_same<W, double>::value)
+          ? 2
+          : 1;
   static constexpr int kBcastR =
       sizeof(XS) <= 4 ? 9 : (sizeof(XS) <= 8 ? 5 : 3);
   static constexpr int kSlideR = kBcastR;
@@ -181,6 +219,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 __device__ __forceinline__ void store(__half* p, float v) {
   *p = __float2half_rn(v);
+}
+// a wrapped word's bits, as the signed word the tensor holds
+__device__ __forceinline__ void store(int32_t* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+__device__ __forceinline__ void store(int64_t* p, uint64_t v) {
+  *reinterpret_cast<uint64_t*>(p) = v;
 }
 
 // Bytes of a staged bank, rounded up so the span after it is 16-byte
@@ -915,6 +960,18 @@ MR_POLYPHASE(u8_f16out, uint8_t, float, __half)
 MR_POLYPHASE(f16_f16out, __half, float, __half)
 MR_POLYPHASE(s8f_f16out, int8_t, float, __half)
 MR_POLYPHASE(bf16f_f16out, __nv_bfloat16, float, __half)
+// real samples against complex taps, read as stored
+MR_POLYPHASE(f32c, float, float2, float2)
+MR_POLYPHASE(f64c, double, double2, double2)
+MR_POLYPHASE(s16c, int16_t, float2, float2)
+MR_POLYPHASE(u8c, uint8_t, float2, float2)
+MR_POLYPHASE(f16c, __half, float2, float2)
+MR_POLYPHASE(s8c, int8_t, float2, float2)
+MR_POLYPHASE(bf16c, __nv_bfloat16, float2, float2)
+// integer words, wrapping: int32 (any integer output of 32 bits or fewer)
+// and int64
+MR_POLYPHASE(i32, int32_t, int32_t, int32_t)
+MR_POLYPHASE(i64, int64_t, int64_t, int64_t)
 
 #undef MR_POLYPHASE
 

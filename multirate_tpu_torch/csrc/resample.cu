@@ -1,8 +1,9 @@
 // Arbitrary-rate and Farrow resampler for Hopper (sm_90a): float32 (channel-
 // and time-major), channel-major float64, complex64 and complex128 signals
-// against real or complex tables, and narrow reads (bfloat16, float16,
-// int16, int8 and uint8 samples against float32 tables, channel- and
-// time-major, with float32 or float16 stores).
+// against real or complex tables, real signals against complex tables
+// (channel-major), and narrow reads (bfloat16, float16, int16, int8 and
+// uint8 samples against float32 tables, channel- and time-major, with
+// float32 or float16 stores, and against complex64 tables, channel-major).
 //
 // Replaces the TPU kernels of multirate_tpu/ops/pallas/ that resample at a
 // real rate:
@@ -48,8 +49,13 @@
 // the unchanged inner loop reads: each output equals the float32 entry's on
 // the widened values bit for bit. cp.async copies 4, 8 or 16 bytes, so the
 // samples that do not go by 16-byte chunks (the history, rows that are not
-// 16-byte aligned) are loaded and stored one by one. Out is X, or __half
-// for the float16 output of float16 taps (round to nearest even).
+// 16-byte aligned) are loaded and stored one by one. A real sample (float,
+// double, or a narrow read widened to float) against a complex table
+// (float2, double2) sums in the table's type, 2 FMAs a tap (mac.cuh): the
+// span moves half a complex span's bytes, and each output is the
+// complex-sample entry's bits on the samples cast to complex, up to the
+// sign of a zero. Out is the accumulator's type, or __half for the float16
+// output of float16 taps (round to nearest even).
 //
 // Exactness:
 // - a tile's base (u0 + n0*delta) / D is formed in 128 bits (__umul64hi):
@@ -142,6 +148,12 @@ template <> struct Staged<__half> { using type = float; };
 template <> struct Staged<int16_t> { using type = float; };
 template <> struct Staged<int8_t> { using type = float; };
 template <> struct Staged<uint8_t> { using type = float; };
+
+// The accumulator of a staged sample type X against a table of type W: X,
+// or the table's complex type for a real sample against complex taps.
+template <typename X, typename W> struct Sum { using type = X; };
+template <> struct Sum<float, float2> { using type = float2; };
+template <> struct Sum<double, double2> { using type = double2; };
 
 constexpr int kThreadsCM = 128;   // channel-major: threads a block, at most
 constexpr int kThreadsTM = 256;   // time-major
@@ -283,11 +295,11 @@ __host__ __device__ __forceinline__ int block_threads(int tile, int run,
 // the spans of cb channels as stored (time-major: span rows of kLanes
 // samples; xsz bytes a sample), for a narrow read one buffer of the span
 // widened (csz bytes a sample), time-major a tile's taps and offsets, and
-// channel-major runs (run > 1) a warp's 32 runs of outputs, gathered for
-// coalesced stores.
+// channel-major runs (run > 1) a warp's 32 runs of outputs (asz bytes an
+// accumulator), gathered for coalesced stores.
 size_t smem_bytes(int tile, int cb, int run, int T, int P1, uint32_t nphi,
-                  uint64_t delta, size_t xsz, size_t csz, size_t wsz,
-                  bool table_smem, bool time_major) {
+                  uint64_t delta, size_t xsz, size_t csz, size_t asz,
+                  size_t wsz, bool table_smem, bool time_major) {
   size_t b = table_smem ? round16((size_t)P1 * T * nphi * wsz) : 0;
   const int span = (int)span_of(tile, T, nphi, delta);
   const size_t row =
@@ -297,7 +309,7 @@ size_t smem_bytes(int tile, int cb, int run, int T, int P1, uint32_t nphi,
   if (time_major) b += round16((size_t)tile * T * wsz) + round16(tile * 4);
   if (run > 1)
     b += round16((size_t)block_threads(tile, run, time_major) * (run + 1) *
-                 csz);
+                 asz);
   return b;
 }
 
@@ -416,7 +428,8 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
                 uint64_t u0, int64_t d0, int64_t n_out, int tile, int run,
                 int span, int64_t n_tiles, int64_t groups) {
   using A = typename mr::Real<W>::type;
-  using X = typename Staged<XR>::type;  // what the dot reads and sums in
+  using X = typename Staged<XR>::type;  // what the dot reads
+  using Acc = typename Sum<X, W>::type;   // what it sums in
   constexpr bool kNarrow = !std::is_same<X, XR>::value;
   using mr::narrow;
   const int T = kT > 0 ? kT : T_;
@@ -441,7 +454,7 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
   W* const s_tap = reinterpret_cast<W*>(smem_raw + at);  // time-major
   int* const s_off = reinterpret_cast<int*>(
       smem_raw + at + round16((size_t)tile * T * sizeof(W)));
-  X* const s_y = reinterpret_cast<X*>(smem_raw + at);  // channel-major runs
+  Acc* const s_y = reinterpret_cast<Acc*>(smem_raw + at);  // runs
   const int64_t total = n_tiles * groups;
   int64_t w = blockIdx.x;
   if (w >= total) return;
@@ -534,7 +547,7 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
       const int64_t c = g * kLanes + lane;
       for (int j = warp; j < nt; j += nw) {
         const X* wx = s_x + s_off[j] * kLanes + lane;
-        X acc = mr::zero<X>();
+        Acc acc = mr::zero<Acc>();
 #pragma unroll
         for (int t = 0; t < T; ++t)
           acc = mac(acc, wx[t * kLanes], s_tap[t * tile + j]);
@@ -543,7 +556,7 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
     } else {
       // thread tid runs outputs tid*run + s, s < run, in each round of
       // nth*run outputs; the rounds are the same in a whole warp
-      X* const wy = s_y + warp * 32 * (run + 1);
+      Acc* const wy = s_y + warp * 32 * (run + 1);
       Pos p = first;
       for (int base = warp * 32 * run; base < nt; base += nth * run) {
         for (int s = 0, j = base + lane * run; s < run; ++s, ++j) {
@@ -552,9 +565,9 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
             to_alpha(p.fr, &alpha);
             const W* coef = tb + p.phi;
             const X* wx = s_x + p.off;  // channel k's: wx + k*rs + lead
-            X acc[kCB];
+            Acc acc[kCB];
 #pragma unroll
-            for (int k = 0; k < kCB; ++k) acc[k] = mr::zero<X>();
+            for (int k = 0; k < kCB; ++k) acc[k] = mr::zero<Acc>();
 #pragma unroll
             for (int t = 0; t < T; ++t) {
               const W tap = eval_tap<kP1>(coef + t * nphi_, P1, TN, alpha);
@@ -644,10 +657,11 @@ int launch_variant(const void* x, const void* hist, const void* table,
   const int64_t groups = (C + cb - 1) / cb;
   if (grid < 1 || grid > kMaxGridX || grid > n_tiles * groups)
     return kErrBadPlan;
+  using X = typename Staged<XR>::type;
   const size_t smem = smem_bytes(tile, cb, run, T, P1, (uint32_t)nphi,
-                                 delta, sizeof(XR),
-                                 sizeof(typename Staged<XR>::type),
-                                 sizeof(W), table_smem, kTM);
+                                 delta, sizeof(XR), sizeof(X),
+                                 sizeof(typename Sum<X, W>::type), sizeof(W),
+                                 table_smem, kTM);
   if (smem > kSmemLimit) return kErrTooLarge;
   const int span = (int)span_of(tile, T, (uint32_t)nphi, delta);
   const int threads = block_threads(tile, run, kTM);
@@ -730,25 +744,26 @@ extern "C" {
   }
 
 // Channel-major only, as mr_resample_f32 with time_major = 0: x and hist
-// (and y) of the signal type X, the table of type W, complex ones 8- or
-// 16-byte aligned. One entry per (signal, table) pair: mr_resample_<name>.
-#define MR_RESAMPLE(name, X, W)                                              \
+// of the signal type X (its stored type for a narrow read), the table of
+// type W, y of type Out, complex ones 8- or 16-byte aligned. One entry per
+// (signal, table) pair: mr_resample_<name>.
+#define MR_RESAMPLE(name, X, W, Out)                                         \
   int mr_resample_##name(const void* x, const void* hist, const void* table, \
                          void* y, int64_t C, int64_t xlen, int T, int nphi,  \
                          int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
                          int64_t n_out, int variant, int tile, int cb,      \
                          int run, int64_t grid, void* stream) {              \
-    return launch<X, W, X, false>(x, hist, table, y, C, xlen, T, nphi, P1,  \
+    return launch<X, W, Out, false>(x, hist, table, y, C, xlen, T, nphi, P1,\
                                   delta, u0, d0, n_out, variant, tile, cb,  \
                                   run, grid, stream);                        \
   }
 
 MR_RESAMPLE_LAYOUT(f32, float, float)
-MR_RESAMPLE(f64, double, double)
-MR_RESAMPLE(c64, float2, float)
-MR_RESAMPLE(c64c, float2, float2)
-MR_RESAMPLE(c128, double2, double)
-MR_RESAMPLE(c128c, double2, double2)
+MR_RESAMPLE(f64, double, double, double)
+MR_RESAMPLE(c64, float2, float, float2)
+MR_RESAMPLE(c64c, float2, float2, float2)
+MR_RESAMPLE(c128, double2, double, double2)
+MR_RESAMPLE(c128c, double2, double2, double2)
 
 const char* mr_error_string(int code) {
   if (code == kErrTooLarge) return "the plan's shared memory exceeds the limit";
@@ -767,6 +782,14 @@ MR_RESAMPLE_LAYOUT(f16_f16out, __half, __half)
 MR_RESAMPLE_LAYOUT(s16_f16out, int16_t, __half)
 MR_RESAMPLE_LAYOUT(s8_f16out, int8_t, __half)
 MR_RESAMPLE_LAYOUT(u8_f16out, uint8_t, __half)
+// real samples against complex tables, read as stored (channel-major)
+MR_RESAMPLE(f32c, float, float2, float2)
+MR_RESAMPLE(f64c, double, double2, double2)
+MR_RESAMPLE(bf16c, __nv_bfloat16, float2, float2)
+MR_RESAMPLE(f16c, __half, float2, float2)
+MR_RESAMPLE(s16c, int16_t, float2, float2)
+MR_RESAMPLE(s8c, int8_t, float2, float2)
+MR_RESAMPLE(u8c, uint8_t, float2, float2)
 
 #undef MR_RESAMPLE
 #undef MR_RESAMPLE_LAYOUT

@@ -31,6 +31,7 @@ import torch
 
 from . import indexing as _idx
 from .compute import filt_block_raw, filt_block_tm_raw
+from .dtypes import INTEGERS
 from .params import (PHASE_ONE, FIRArbitrary, FIRFarrow, FIRInterpolator,
                      FIRRational, FilterState, default_device, init_state,
                      make_kernel, to_tensor)
@@ -94,13 +95,14 @@ def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
     float32 taps with an int16, uint8, float16 or bfloat16 signal float32,
     float16 taps with such a signal float16, float32 taps with a complex64
     signal complex64, and complex taps with a real signal a complex
-    output. The quantized modes: bfloat16 taps and signal give float32
-    accumulators, int8 taps and signal exact int32 accumulators. Other
-    integer taps with an integer signal give JAX's integer type, the exact
-    sum wrapped to it (taps and signal of 16 bits or fewer; at a rate
-    rounded to the nearest integer first). int16, uint8, float16,
-    bfloat16 and int8 signals are read as stored by the kernels; other
-    types are cast once to the output type (JAX's ``astype``).
+    output (the real samples read as stored). The quantized modes:
+    bfloat16 taps and signal give float32 accumulators, int8 taps and
+    signal exact int32 accumulators. Other integer taps with an integer
+    signal give JAX's integer type, the exact sum wrapped to it (at a
+    rate, the nearest integer to the float64 sum, wrapped). int16, uint8,
+    float16, bfloat16 and int8 signals are read as stored by the kernels;
+    other types are cast once to the output type (JAX's ``astype``), or
+    to its real type against complex taps.
     """
     x = _as_signal(x, device)
     params = _kernel_for(h, ratio_or_rate, nphi, polyorder, x.device)
@@ -231,8 +233,9 @@ def setphase(params, state: FilterState, phi) -> FilterState:
 def tapsforphase(params, phase: float) -> torch.Tensor:
     """Taps for a (possibly fractional) 1-based phase index.
 
-    Arbitrary kernel: pfb[:, p] + alpha * dpfb[:, p] in the taps' type,
-    for phase in [1, nphi + 1] (Filters.jl:677-690); Farrow kernel: the
+    Arbitrary kernel: pfb[:, p] + alpha * dpfb[:, p] in the table's type
+    (float64 for integer taps' int64 table), for phase in [1, nphi + 1]
+    (Filters.jl:677-690); Farrow kernel: the
     polynomial fit evaluated in float64 (complex128 for complex taps), for
     phase in [0, nphi + 1] (Filters.jl:764-775). On the kernel's device.
     """
@@ -243,7 +246,10 @@ def tapsforphase(params, phase: float) -> torch.Tensor:
         pidx = int(pidx)
         if pidx == params.nphi + 1:  # the right edge: bank nphi at alpha 1
             pidx, alpha = params.nphi, 1.0
-        return params.pfb[:, pidx - 1] + alpha * params.dpfb[:, pidx - 1]
+        table = params.table
+        if table.dtype in INTEGERS:
+            table = table.double()
+        return table[0][:, pidx - 1] + alpha * table[1][:, pidx - 1]
     if isinstance(params, FIRFarrow):
         if not 0 <= phase <= params.nphi + 1:
             raise ValueError("phase must be in [0, nphi + 1]")

@@ -35,12 +35,28 @@ where that is bfloat16. Each pair takes one of these routes (``_route``):
   their values exactly) with float32 sums; float16 outputs are stored
   narrow in the kernel. No cast pass precedes these launches;
 - an integer output (integer taps with an integer signal, outside the int8
-  mode): signal and bank cast to float64, whose sums of products of
-  operands of 16 bits or fewer are exact, and the sum wrapped to the
-  output type as JAX's integer arithmetic wraps it (at an arbitrary or
-  Farrow rate, rounded to the nearest integer first). A 32- or 64-bit
-  integer operand there raises NotImplementedError: its sums can pass
-  2^53;
+  mode), rational family: exact, as JAX's ``windows`` path gives it.
+  Signal and bank cross as two's-complement words (``dtypes.word``: int32
+  for an output of 32 bits or fewer, int64 for a 64-bit one; uint32 and
+  uint64 as views of their bits, narrower types cast once), the
+  polyphase kernel's ``i32`` or ``i64`` entry sums their products with
+  unsigned wrapping multiply-adds, and the output keeps the low bits: the
+  exact sum wrapped modulo 2^bits of the output type (a bool output:
+  whether the sum of its int32 words is nonzero);
+- an integer output at an arbitrary or Farrow rate: signal and table cast
+  to float64, the float64 entry, then the nearest integer to its sum,
+  wrapped to the output type (bool: whether it is nonzero). Below 2^53 that is the exact result's
+  nearest integer; beyond, the nearest integer to the float64 sum (an
+  int64 signal or tap beyond 2^53 also rounds when it is cast). JAX's own
+  value there casts alpha to the taps' integer type (ROADMAP queue 3);
+- a real signal against complex taps (a complex output): the samples read
+  as stored by the real-sample entries of both kernels against the
+  interleaved complex bank (2 FMAs a tap): float32 against complex64
+  (``f32c``), float64 against complex128 (``f64c``), and the narrow reads
+  against complex64 (``s16c``, ``u8c``, ``f16c``, ``s8c``, ``bf16c``);
+  any other real type cast once to the output's real type. No cast to
+  complex, as JAX's TPU route applies its real kernel to the re and im
+  halves of the bank (``compute.py:465-494, 1060-1064`` there);
 - any other pair: the signal and history cast once to the output type
   (JAX's own ``astype``: int32 above 2^24 rounds as it does, a signal
   whose output is float16 then runs the float16 narrow-read entry), and
@@ -114,8 +130,8 @@ def _rational(params: FIRRational, state):
 class _Route(NamedTuple):
     """How one block runs: the type its signal and history reach the
     kernel in (None: as stored), its bank's, the kernel's output and the
-    block's output (JAX's type; an integer output is the kernel's float64
-    result wrapped to it)."""
+    block's output (JAX's type; an integer output is the kernel's word or
+    float64 result wrapped to it)."""
     x: torch.dtype | None
     bank: torch.dtype
     out: torch.dtype
@@ -125,38 +141,63 @@ class _Route(NamedTuple):
 def _route(tap, bank, x, quantized: bool) -> _Route:
     """The route of a block of ``x`` samples against taps of type ``tap``
     held in a ``bank`` of that type or a wider one (module docstring);
-    ``quantized``: the rational family, which has the bf16 and int8
-    modes."""
+    ``quantized``: the rational family, which has the bf16 and int8 modes
+    and the exact integer route."""
     if quantized and x == bank == tap and x in (torch.bfloat16, torch.int8):
         return _Route(None, bank, _pp.ACCUMULATOR[x], _pp.ACCUMULATOR[x])
     final = _dt.out_dtype(tap, x)
     if final in _dt.INTEGERS:
-        if max(_dt.bits(tap), _dt.bits(x)) > 16:
-            raise NotImplementedError(
-                f"{tap} taps with a {x} signal: an integer output with a "
-                f"32- or 64-bit integer operand, whose sums can pass 2^53, "
-                f"where the float64 kernels round them (ROADMAP, left out)")
+        if quantized:
+            w = _dt.word(final)
+            return _Route(None if x == w else w, w, w, final)
         return _Route(torch.float64, torch.float64, torch.float64, final)
     if final.is_complex:
+        real = final.to_real()
+        if tap.is_complex and not x.is_complex:  # read as stored
+            xt = x if x == real or (
+                x in _dt.NARROW and final == _dt.NARROW_COMPLEX) else real
+            return _Route(None if xt == x else xt, final, final, final)
         return _Route(None if x == final else final,
-                      final if tap.is_complex else final.to_real(), final,
-                      final)
+                      final if tap.is_complex else real, final, final)
     xt = x if x in _dt.NARROW and final in _dt.NARROW_OUT else final
     if xt in _dt.NARROW:
         return _Route(None if xt == x else xt, torch.float32, final, final)
     return _Route(None if xt == x else xt, final, final, final)
 
 
+def _cast(t, dtype):
+    """``t`` in ``dtype``: integers of one width as a view of their bits
+    (uint32 as int32: torch does little arithmetic on uint32, and the
+    words' bits are what the kernels sum), else a cast (integers wrap)."""
+    if t.dtype == dtype:
+        return t
+    if (t.dtype in _dt.INTEGERS and dtype in _dt.INTEGERS
+            and t.dtype.itemsize == dtype.itemsize and t.dtype != torch.bool):
+        return t.view(dtype)
+    return t.to(dtype)
+
+
+def _wrap(y):
+    """float64 integers as int64 modulo 2^64 (two's complement): exact,
+    where a cast of a value beyond 2^63 would saturate."""
+    r = torch.fmod(y, 2.0 ** 64)
+    r = torch.where(r >= 2.0 ** 63, r - 2.0 ** 64,
+                    torch.where(r < -2.0 ** 63, r + 2.0 ** 64, r))
+    return r.to(torch.int64)
+
+
 def _finish(y, final, rounded: bool):
     """The block's output from the kernel's: an integer type takes the
-    float64 sum (exact; at a rate ``rounded`` to the nearest integer)
-    wrapped to it, bool whether it is nonzero, as JAX's integer
-    arithmetic gives them."""
+    word's low bits, or the float64 sum (at a rate ``rounded`` to the
+    nearest integer) wrapped to it; bool whether the sum is nonzero; as
+    JAX's integer arithmetic gives them."""
     if final not in _dt.INTEGERS:
         return y
     if final == torch.bool:
         return y != 0
-    return (y.round() if rounded else y).to(torch.int64).to(final)
+    if y.dtype == torch.float64:
+        y = _wrap(y.round() if rounded else y)
+    return _cast(y, final)
 
 
 def _polyphase(fn, params, x, hist, L, M, phi0, d0, count):
@@ -164,8 +205,8 @@ def _polyphase(fn, params, x, hist, L, M, phi0, d0, count):
     ``store_dtype`` if it has one."""
     r = _route(params.tap_type, params.bank.dtype, x.dtype, True)
     if r.x is not None:
-        x, hist = x.to(r.x), hist.to(r.x)
-    bank, store = params.bank.to(r.bank), params.store_dtype
+        x, hist = _cast(x, r.x), _cast(hist, r.x)
+    bank, store = _cast(params.bank, r.bank), params.store_dtype
     out = r.out
     if store is not None and r.out == torch.float32 and (
             x.dtype, bank.dtype, store) in _pp.ENTRIES:
@@ -185,7 +226,7 @@ def _resample(fn, params, x, hist, u0, d0, count):
     """One arbitrary/Farrow block on its route."""
     r = _route(params.tap_type, params.table.dtype, x.dtype, False)
     if r.x is not None:
-        x, hist = x.to(r.x), hist.to(r.x)
+        x, hist = _cast(x, r.x), _cast(hist, r.x)
     y = fn(x, hist, params.astype(r.bank), u0, d0, count, out_dtype=r.out)
     return _finish(y, r.final, True)
 

@@ -25,7 +25,15 @@ the mode (JAX ``compute._out_dtype``), one kernel entry point each:
 - narrow reads: int16, uint8, float16, bfloat16 or int8 samples against
   float32 taps, read as stored and widened to float32 in the kernel
   (exactly), then as float32: each output bit-equal to the float32
-  entry's on the widened values.
+  entry's on the widened values;
+- real samples against complex taps: float32 against complex64
+  (``f32c``), float64 against complex128 (``f64c``) and the narrow reads
+  against complex64 (``<short name>c``), read as stored (2 real
+  multiply-adds a tap), each bit-equal to the ``c64c``/``c128c`` entry on
+  the samples cast to complex (up to the sign of a zero);
+- int32 and int64 words (``i32``, ``i64``): products and sums wrap
+  modulo 2^32 or 2^64 (unsigned arithmetic in the kernel; the caller
+  passes uint32 and uint64 as views of their bits).
 
 ``out_dtype`` stores the float32, bf16 and narrow-read modes' output
 narrow (float16, and bfloat16 for float32 and bf16 in; round to nearest
@@ -53,7 +61,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..dtypes import NARROW, NARROW_OUT
+from ..dtypes import NARROW, NARROW_COMPLEX, NARROW_OUT
 from ..indexing import rational_indices
 from ..precision import fp32
 from .build import check_aligned, load_polyphase
@@ -69,6 +77,7 @@ _F32, _F64, _C64, _C128 = (torch.float32, torch.float64, torch.complex64,
                            torch.complex128)
 _F16, _BF16, _S16, _U8, _S8 = (torch.float16, torch.bfloat16, torch.int16,
                                torch.uint8, torch.int8)
+_I32, _I64 = torch.int32, torch.int64
 # The narrow-read entries (``dtypes.NARROW``) by signal type, against
 # float32 taps; the int8 and bf16 modes hold "s8" and "bf16", so those
 # narrow reads are "s8f" and "bf16f" (float taps).
@@ -89,16 +98,28 @@ ENTRIES = {
     (_C128, _C128, _C128): "c128c",
     **{(x, _F32, o): name if o == _F32 else f"{name}_f16out"
        for o in NARROW_OUT for x, name in _NARROW_ENTRY.items()},
+    # real samples against complex taps, read as stored
+    (_F32, _C64, _C64): "f32c",
+    (_F64, _C128, _C128): "f64c",
+    **{(x, NARROW_COMPLEX, NARROW_COMPLEX): f"{n}c" for x, n in NARROW.items()},
+    # exact integer words, wrapping
+    (_I32, _I32, _I32): "i32",
+    (_I64, _I64, _I64): "i64",
 }
 # by signal type; an int8 or bfloat16 signal against float32 taps sums in
-# float32 (``accumulator``)
+# float32, a real signal against complex taps in their type
+# (``accumulator``)
 ACCUMULATOR = {_F32: _F32, _BF16: _F32, _S8: torch.int32, _F64: _F64,
-               _C64: _C64, _C128: _C128, _S16: _F32, _U8: _F32, _F16: _F32}
+               _C64: _C64, _C128: _C128, _S16: _F32, _U8: _F32, _F16: _F32,
+               _I32: _I32, _I64: _I64}
 
 
 def accumulator(x_dtype, bank_dtype) -> torch.dtype:
     """The accumulator (the default output) of a (signal, taps) pair:
-    ``ACCUMULATOR``'s, but float32 for a narrow read."""
+    ``ACCUMULATOR``'s, but float32 for a narrow read and the taps' type
+    for a real signal against complex taps."""
+    if bank_dtype.is_complex and not x_dtype.is_complex:
+        return bank_dtype
     if x_dtype in NARROW and bank_dtype == _F32:
         return _F32
     return ACCUMULATOR[x_dtype]
@@ -133,7 +154,8 @@ _MAX_GENERAL_GRID = 1024
 # bytes of a staged signal or tap element (bf16 is staged as float, and
 # so is every narrow read: ``plan``)
 _STAGED = {torch.float32: 4, torch.bfloat16: 4, torch.int8: 1,
-           torch.float64: 8, torch.complex64: 8, torch.complex128: 16}
+           torch.float64: 8, torch.complex64: 8, torch.complex128: 16,
+           _I32: 4, _I64: 8}
 
 
 def _ceil(a: int, b: int) -> int:
@@ -276,7 +298,7 @@ def plan(T: int, L: int, M: int, n_out: int, x_dtype, bank_dtype,
     ``general``), the tile and the grid. Pure Python on the shape: the CPU tests check it.
     Raises ValueError if ``variant`` is named and cannot take the call."""
     # csrc/polyphase.cu Mode: a narrow read stages float
-    narrow = x_dtype in NARROW and bank_dtype == _F32
+    narrow = x_dtype in NARROW and bank_dtype in (_F32, NARROW_COMPLEX)
     xs, ws = 4 if narrow else _STAGED[x_dtype], _STAGED[bank_dtype]
     xsz = x_dtype.itemsize
     osz = accumulator(x_dtype, bank_dtype).itemsize
@@ -303,9 +325,12 @@ def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
     in the accumulator's type: float32 for float32, bf16 (bf16 products
     are exact in float32) and the narrow reads (the samples widened
     exactly), else the signal's own type (float64, complex64 or
-    complex128, real taps cast to it). int8 widens to int32 and sums exact
-    products (an int8 einsum would wrap in int8, and the card has no
-    integer matmul). Runs on any device; arguments as for ``polyphase``."""
+    complex128, real taps cast to it) or the complex taps' (a real signal
+    widened to complex). The integer modes multiply and sum in int64 (an
+    int8 einsum would wrap in int8, and the card has no integer matmul):
+    exact for int8, wrapping modulo 2^64 for the int32 and int64 words,
+    whose low bits are kept. Runs on any device; arguments as for
+    ``polyphase``."""
     T = bank.shape[0]
     xext = torch.cat([hist, x], dim=-1)
     inp, phi = rational_indices(L, M, phi0, d0, n_out, device=x.device)
@@ -313,9 +338,8 @@ def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
     windows = xext[:, ind]                        # (C, n_out, T)
     taps = bank.t()[phi]                          # (n_out, T)
     acc = accumulator(x.dtype, bank.dtype)
-    if acc == torch.int32:
-        y = (windows.to(torch.int32) * taps.to(torch.int32)).sum(
-            -1, dtype=torch.int32)
+    if acc in (_I32, _I64):
+        y = (windows.to(_I64) * taps.to(_I64)).sum(-1, dtype=_I64).to(acc)
     else:
         with fp32():
             y = torch.einsum("cnt,nt->cn", windows.to(acc), taps.to(acc))
@@ -360,7 +384,8 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
     entry phase and deficit, and n_out the exact output count
     (``indexing.host_carry``). ``out_dtype`` is the output type, by
     default the accumulator's (``accumulator``: the signal's type, float32
-    for bfloat16 and the narrow reads, int32 for int8 with int8 taps);
+    for bfloat16 and the narrow reads, int32 for int8 with int8 taps, the
+    taps' type for a real signal against complex taps);
     float32 and bf16 signals also store bfloat16 or float16, narrow reads
     float16. ``variant`` names the kernel's variant (one of ``VARIANTS``)
     in place of ``plan``'s choice, for timing. Raises on anything the

@@ -30,8 +30,14 @@ type for complex taps (``ENTRIES``); y has the signal's type. Narrow reads
 float32 table: the kernel stages the samples as stored and widens them to
 float32 in shared memory, so each output is bit-equal to the float32
 entry's on the widened values; y is float32, or float16 (the output type
-of float16 taps), stored narrow by the kernel. The time-major kernel
-takes float32 and the narrow reads (``TM_ENTRIES``).
+of float16 taps), stored narrow by the kernel. A real signal against a
+complex table (float32 or a narrow read against complex64, float64
+against complex128: ``f32c``, ``f64c``, ``<short name>c``) is read as
+stored and sums in the table's type, 2 real multiply-adds a tap; y has
+the table's type, bit-equal to the ``c64c``/``c128c`` entry's on the
+samples cast to complex (up to the sign of a zero). The time-major kernel
+takes float32 and the narrow reads against float32 tables
+(``TM_ENTRIES``).
 
 The kernel has variants (``VARIANTS``), chosen by ``plan`` from the shape
 alone, never after a failure: one compiled for each (T, P+1) pair in use
@@ -52,7 +58,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..dtypes import NARROW, NARROW_OUT
+from ..dtypes import NARROW, NARROW_COMPLEX, NARROW_OUT
 from ..indexing import ACCUM_OPERAND_BITS, _muladd_divmod, accum_indices
 from ..params import PHASE_FRAC_BITS, FIRArbitrary, FIRFarrow
 from ..precision import fp32
@@ -80,11 +86,17 @@ ENTRIES = {
        for o in NARROW_OUT for x, n in sorted(NARROW.items(),
                                               key=lambda e: e[1])
        if (x, o) != (torch.bfloat16, _F16)},
+    # real samples against complex tables, read as stored
+    (_F32, torch.complex64, torch.complex64): "f32c",
+    (torch.float64, torch.complex128, torch.complex128): "f64c",
+    **{(x, NARROW_COMPLEX, NARROW_COMPLEX): f"{n}c"
+       for x, n in sorted(NARROW.items(), key=lambda e: e[1])},
 }
-# The time-major forms, of float32 and the narrow reads: the same entry
-# points with a layout argument, counted as ``"<entry>_tm"``.
+# The time-major forms, of float32 and the narrow reads against float32
+# tables: the same entry points with a layout argument, counted as
+# ``"<entry>_tm"``.
 TM_ENTRIES = {k: f"{n}_tm" for k, n in ENTRIES.items()
-              if k[0] in (_F32, *NARROW)}
+              if k[0] in (_F32, *NARROW) and k[1] == _F32}
 
 # The kernel's variants, by the number its entry points take, and the
 # (T, P+1) pair each compiled one is built for.
@@ -114,6 +126,14 @@ _SMEM_TARGET = 64 * 1024  # per block, so that several blocks share an SM
 _FILL = 2 * 132           # blocks that fill the H100's SMs twice
 _MAX_GRID = 65535         # grid.x, at most (blocks loop over tiles)
 _RUNS = (1, 2, 4, 8, 16)  # neighbouring outputs a thread may run
+
+
+def _sum_type(x_dtype, table_dtype):
+    """The type a call sums in: a complex table's for a real signal, else
+    the signal's (float32 for a narrow read)."""
+    if table_dtype.is_complex and not x_dtype.is_complex:
+        return table_dtype
+    return _F32 if x_dtype in NARROW else x_dtype
 
 
 def _up16(n: int) -> int:
@@ -178,12 +198,13 @@ def _row_samples(span: int, xsz: int) -> int:
     return _ceil(span + v - 1, v) * v
 
 
-def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, csz, wsz, table_smem,
-          tm):
+def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, csz, asz, wsz,
+          table_smem, tm):
     """csrc/resample.cu ``smem_bytes``: the table (when staged), a double
     buffer of the spans as stored (``xsz`` bytes a sample), for a narrow
     read one of the spans widened (``csz`` bytes), time-major a tile's taps
-    and offsets, and a gather of each warp's runs of outputs (run > 1)."""
+    and offsets, and a gather of each warp's runs of outputs (run > 1,
+    ``asz`` bytes an accumulator)."""
     b = _up16(P1 * T * nphi * wsz) if table_smem else 0
     span = _span(tile, nphi, delta_fx, T)
     row = (span if tm else _row_samples(span, xsz)) * cb
@@ -193,7 +214,7 @@ def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, csz, wsz, table_smem,
     if tm:
         b += _up16(tile * T * wsz) + _up16(tile * 4)
     if run > 1:
-        b += _up16(_threads(tile, run, tm) * (run + 1) * csz)
+        b += _up16(_threads(tile, run, tm) * (run + 1) * asz)
     return b
 
 
@@ -209,6 +230,7 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
     shared memory. Cached: a stream plans the same few shapes again."""
     xsz, wsz = x_dtype.itemsize, table_dtype.itemsize
     csz = 4 if x_dtype in NARROW else xsz  # staged widened to float32
+    asz = _sum_type(x_dtype, table_dtype).itemsize  # an accumulator
     t_bytes = P1 * T * nphi * wsz
     table_smem = t_bytes <= _TABLE_SMEM_LIMIT
     auto = COMPILED.get((T, P1)) if table_smem else None
@@ -225,7 +247,7 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
 
     def smem(tile):
         return _smem(tile, cb, _run_of(tile, cb, nphi, delta_fx), T, P1, nphi,
-                     delta_fx, xsz, csz, wsz, table_smem, time_major)
+                     delta_fx, xsz, csz, asz, wsz, table_smem, time_major)
 
     tile = _MAX_TILE_TM if time_major else _MAX_TILE_CM
     while tile > _MIN_TILE and _ceil(n_out, tile) * groups < _FILL:
@@ -313,15 +335,16 @@ def _taps_plain(params, phi, frac):
 def resample_plain(x, hist, params, u0: int, d0: int, n_out: int,
                    out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of ``resample``: int64 accumulator indices, a
-    window gather and an einsum in the signal's type (real taps cast to
-    it; a narrow read's samples widened to float32), stored as
-    ``out_dtype``. Runs on any device."""
+    window gather and an einsum in the type the kernel sums in: the
+    signal's (real taps cast to it; a narrow read's samples widened to
+    float32), or a complex table's for a real signal (the samples widened
+    to it), stored as ``out_dtype``. Runs on any device."""
     T = params.taps_per_phi
     xext = torch.cat([hist, x], dim=-1)
     inp, phi, frac = accum_indices(params.nphi, params.delta_fx, u0, d0,
                                    n_out, device=x.device)
     ind = (inp - 1)[:, None] + torch.arange(T, device=x.device)[None, :]
-    ct = _F32 if x.dtype in NARROW else x.dtype
+    ct = _sum_type(x.dtype, params.table.dtype)
     windows = xext[:, ind].to(ct)                 # (C, n_out, T)
     with fp32():
         taps = _taps_plain(params, phi, frac)     # (n_out, T)
@@ -336,18 +359,13 @@ def resample_tm_plain(xt, hist, params, u0: int, d0: int, n_out: int,
                           out_dtype).t().contiguous()
 
 
-def _out_of(x_dtype, out_dtype):
-    """The output type of a call: ``out_dtype``, by default the signal's
-    (float32 for a narrow read)."""
-    if out_dtype is not None:
-        return out_dtype
-    return _F32 if x_dtype in NARROW else x_dtype
+def _out_of(x_dtype, table_dtype, out_dtype):
+    """The output type of a call: ``out_dtype``, by default the type it
+    sums in."""
+    return _sum_type(x_dtype, table_dtype) if out_dtype is None else out_dtype
 
 
 def _check(x, hist, params, u0, d0, n_out, out_dtype, time_major):
-    if not isinstance(params, (FIRArbitrary, FIRFarrow)):
-        raise TypeError(f"resample takes FIRArbitrary or FIRFarrow, got "
-                        f"{type(params).__name__}")
     key = (x.dtype, params.table.dtype, out_dtype)
     if key not in (TM_ENTRIES if time_major else ENTRIES):
         raise TypeError(f"no {'time-major ' if time_major else ''}resample "
@@ -426,7 +444,10 @@ def _launch(x, hist, params, u0, d0, n_out, out_dtype, time_major,
 
 
 def _run(x, hist, params, u0, d0, n_out, out_dtype, time_major, variant):
-    out_dtype = _out_of(x.dtype, out_dtype)
+    if not isinstance(params, (FIRArbitrary, FIRFarrow)):
+        raise TypeError(f"resample takes FIRArbitrary or FIRFarrow, got "
+                        f"{type(params).__name__}")
+    out_dtype = _out_of(x.dtype, params.table.dtype, out_dtype)
     _check(x, hist, params, u0, d0, n_out, out_dtype, time_major)
     if x.device.type == "cpu":
         if variant is not None:  # a named variant must take the call
@@ -448,7 +469,7 @@ def resample(x, hist, params, u0: int, d0: int, n_out: int,
     accumulator and deficit, n_out the exact output count
     (``indexing.host_carry``). ``out_dtype`` is the output type, by
     default the signal's (float32 for a narrow read, which also stores
-    float16). ``variant`` names the kernel's variant (one of ``VARIANTS``)
+    float16; a complex table's type for a real signal). ``variant`` names the kernel's variant (one of ``VARIANTS``)
     in place of ``plan``'s choice, for timing. Raises on anything the
     kernel does not take.
     """

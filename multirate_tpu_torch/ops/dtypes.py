@@ -17,8 +17,8 @@ import functools
 
 import torch
 
-__all__ = ["promote_types", "out_dtype", "NARROW", "NARROW_OUT", "INTEGERS",
-           "LATTICE_TYPES", "bits"]
+__all__ = ["promote_types", "out_dtype", "NARROW", "NARROW_OUT",
+           "NARROW_COMPLEX", "INTEGERS", "LATTICE_TYPES", "bits", "word"]
 
 # JAX's lattice (jax._src.dtypes), edges to the next wider types. "i*",
 # "f*" and "c*" are its weak (Python scalar) types: a least upper bound
@@ -48,13 +48,19 @@ LATTICE_TYPES = tuple(t for t in _LATTICE if isinstance(t, torch.dtype))
 _WEAK_DEFAULT = {"i*": torch.int64, "f*": torch.float64,
                  "c*": torch.complex128}
 
-# Signal types that the narrow-read entries of both kernels take as they
-# are stored (widened to float32 in the kernel), against float32 taps, by
-# the short name their entry points derive theirs from; the output types
-# those entries store; and the integer types.
+# The route sets of ``ops/compute.py``, and of the entry points both
+# kernels derive from them. Signal types that the narrow-read entries take
+# as they are stored (widened to float32 in the kernel), against float32
+# taps, by the short name their entry points derive theirs from; the
+# output types those entries store; and the complex tap type they also
+# take (complex64 outputs: entry ``<short name>c``, as float32 signals'
+# ``f32c`` and float64 ones' ``f64c`` against complex128 taps).
 NARROW = {torch.int16: "s16", torch.uint8: "u8", torch.float16: "f16",
           torch.int8: "s8", torch.bfloat16: "bf16"}
 NARROW_OUT = (torch.float32, torch.float16)
+NARROW_COMPLEX = torch.complex64
+# The integer types; the rational family sums an integer output (outside
+# the int8 mode) in two's-complement words, ``word``.
 INTEGERS = (torch.bool, torch.uint8, torch.uint16, torch.uint32,
             torch.uint64, torch.int8, torch.int16, torch.int32, torch.int64)
 
@@ -91,3 +97,12 @@ def out_dtype(taps: torch.dtype, signal: torch.dtype) -> torch.dtype:
 def bits(t: torch.dtype) -> int:
     """Bits of an integer type's values (bool: 1)."""
     return 1 if t == torch.bool else t.itemsize * 8
+
+
+def word(t: torch.dtype) -> torch.dtype:
+    """The word an integer output of type ``t`` sums in on the rational
+    family's exact route: int32 for 32 bits or fewer, else int64 (the
+    polyphase kernel's ``i32`` and ``i64`` entries). Products and sums wrap
+    modulo 2^32 or 2^64 and ``t`` keeps their low bits: JAX's wrapped
+    sum."""
+    return torch.int64 if bits(t) > 32 else torch.int32

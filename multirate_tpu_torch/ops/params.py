@@ -16,16 +16,21 @@ banded matrix ``k_super``, the zero-copy K stacks ``k_zc_hi``/``k_zc_lo``
 straight from a polyphase bank, so nothing else is needed.
 
 Banks keep their taps' type (``storage_dtype``): float32, float64,
-complex64 and complex128, and for the rational family also bfloat16 and
-int8 (the quantized modes, ``ops/quant.py``). Taps of any other type sit
-in a wider bank that holds their values exactly: float16, bfloat16 at a
-rate and the 8- and 16-bit integers in float32, the 32- and 64-bit
-integers in float64. Such a kernel keeps the taps' own type in
-``taps_dtype``, which sets the output type as the JAX kernel's tap type
-does (``tap_type``). Rational-family kernels may also carry a narrow
-``store_dtype`` for their outputs. The arbitrary table (``pfb``, ``dpfb``) and the Farrow
-table are in the taps' type too; the Farrow fit ``coeffs`` is float64, or
-complex128 for complex taps, as JAX keeps it. These banks replace the K
+complex64 and complex128, and for the rational family also bfloat16 (the
+quantized mode, ``ops/quant.py``) and every integer type (int8's
+quantized mode, and the exact integer route of ``ops/compute.py``, which
+needs the taps' own bits). Taps of any other type sit in a wider bank
+that holds their values exactly: float16 and bfloat16 at a rate in
+float32, integers at a rate in int64 (the arbitrary table's exact
+differences; a Farrow table of integer taps is float64). Such a kernel
+keeps the taps' own type in ``taps_dtype``, which sets the output type as
+the JAX kernel's tap type does (``tap_type``). A route casts a bank
+straight from its stored type to the route's (int64 to float32 in one
+rounding, as JAX's promotion does). Rational-family kernels may also
+carry a narrow ``store_dtype`` for their outputs. The arbitrary table
+(``pfb``, ``dpfb``) and the Farrow table are in the storage type too; the
+Farrow fit ``coeffs`` is float64, or complex128 for complex taps, as JAX
+keeps it. These banks replace the K
 stacks and tap planes of every TPU kernel mode: the float32, bf16, int8,
 float64 and complex modes of ``rational_supercycle_zc``,
 ``rational_supercycle_grouped`` and ``rational_supercycle_pallas``, and
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from . import pfb as _pfb
+from .dtypes import INTEGERS
 
 __all__ = [
     "PHASE_FRAC_BITS", "PHASE_ONE",
@@ -94,17 +100,17 @@ _STORE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 def storage_dtype(dtype: torch.dtype, quantized: bool = True) -> torch.dtype:
     """The type a bank of ``dtype`` taps is stored in: float32, float64,
-    complex64 and complex128 stay, and so do bfloat16 and int8 where the
-    quantized modes apply (``quantized``: the rational family); any other
-    complex type becomes complex64, a 32- or 64-bit integer float64 and
-    any other type float32, each of which holds the taps' values
-    exactly (64-bit integers to 2^53)."""
-    if dtype in _WIDE or (quantized and dtype in _QUANTIZED):
+    complex64 and complex128 stay, and so do bfloat16 and every integer
+    type in the rational family (``quantized``: its quantized modes and
+    its exact integer route); at a rate an integer type becomes int64
+    (exact differences of taps of 32 bits or fewer; 64-bit taps' wrap
+    modulo 2^64); any other complex type becomes complex64 and any other
+    type float32, each of which holds the taps' values exactly."""
+    if dtype in _WIDE or (quantized and dtype in (*_QUANTIZED, *INTEGERS)):
         return dtype
     if dtype.is_complex:
         return torch.complex64
-    wide_int = not dtype.is_floating_point and dtype.itemsize >= 4
-    return torch.float64 if wide_int else torch.float32
+    return torch.int64 if dtype in INTEGERS else torch.float32
 
 
 def _taps_dtype(taps: torch.dtype, stored: torch.dtype):
@@ -329,8 +335,9 @@ class FIRArbitrary(_Kernel):
     interpolation that never needs the next input sample. bfloat16 and
     float16 taps give a float32 table of the values JAX's banks of their
     type hold: the taps, and their differences rounded to the taps' type.
-    Integer taps give the exact differences: JAX's integer banks truncate
-    alpha to 0 (a fault of the reference, ROADMAP queue 3).
+    Integer taps give an int64 table of the exact differences: JAX's
+    integer banks truncate alpha to 0 (a fault of the reference, ROADMAP
+    queue 3).
     """
 
     table: torch.Tensor  # (2, taps_per_phi, nphi): pfb, dpfb
@@ -411,10 +418,11 @@ class FIRFarrow(_Kernel):
     across phases (pfb2pnfb, Filters.jl:311-321): ``coeffs`` (P+1, T),
     kept in float64 (complex128 for complex taps) as JAX keeps it. The
     kernel reads ``table``, the same polynomials re-centred at each phase
-    (``farrow_table``) in the taps' storage type (``storage_dtype``).
+    (``farrow_table``) in the taps' storage type (``storage_dtype``;
+    float64 for integer taps).
     """
 
-    pfb: torch.Tensor     # (taps_per_phi, nphi), the taps' type
+    pfb: torch.Tensor     # (taps_per_phi, nphi), the storage type
     coeffs: torch.Tensor  # (polyorder+1, taps_per_phi) float64/complex128
     table: torch.Tensor   # (polyorder+1, taps_per_phi, nphi), pfb's type
     nphi: int = 32
@@ -441,14 +449,18 @@ class FIRFarrow(_Kernel):
         ``taps_dtype`` is the taps' type where ``pfb`` holds them wider."""
         pfb = to_tensor(pfb)
         dtype = storage_dtype(pfb.dtype, quantized=False)
+        # the fit of integer taps is not integer: its table is float64
+        table_dtype = torch.float64 if dtype in INTEGERS else dtype
         coeffs = np.array(coeffs)  # a copy: JAX's are read-only
         coeffs = coeffs.astype(np.complex128 if np.iscomplexobj(coeffs)
                                else np.float64)
         return cls(pfb=_to(pfb, device, dtype), coeffs=_to(coeffs, device),
-                   table=_to(farrow_table(coeffs, nphi), device, dtype),
+                   table=_to(farrow_table(coeffs, nphi), device,
+                             table_dtype),
                    nphi=nphi, taps_per_phi=coeffs.shape[1], rate=rate,
                    delta_fx=delta_fx, polyorder=coeffs.shape[0] - 1,
-                   taps_dtype=taps_dtype or _taps_dtype(pfb.dtype, dtype))
+                   taps_dtype=taps_dtype or _taps_dtype(pfb.dtype,
+                                                        table_dtype))
 
     def astype(self, dtype: torch.dtype) -> "FIRFarrow":
         """This kernel with its table in ``dtype``, a type at least as

@@ -6,12 +6,16 @@ the general one, equal bit for bit) and the copy and expand
 probes; the runtime on the card: StreamingResampler's block loop
 with no synchronizing call, and a profiler trace holding the kernel;
 the parallel layer on four gloo ranks sharing the card (halo through the
-host) against ``filt`` of the whole signal; and the narrow-read entries of
+host) against ``filt`` of the whole signal; the narrow-read entries of
 both kernels (int16, uint8, float16, bfloat16 and int8 samples against
 float32 taps, float32 or float16 outputs), each against its plain version
 and bit-equal to the float32 entry on the widened values, on every
 variant, through the block entry points with one launch and no float32
-one.
+one; and the integer words (``i32``, ``i64``: equal to the plain version)
+and the real signals against complex taps (float32, float64 and the
+narrow reads), each bit-equal to the complex-sample entry on the samples
+cast to complex, on every variant, through the block entry points with
+one launch of their own entry.
 
 Marked ``gpu``: it skips without a CUDA device. It imports no JAX, so it
 runs on a machine with the card alone:
@@ -21,9 +25,10 @@ runs on a machine with the card alone:
 Tolerance: max|dy| <= 1e-5 * max|y| (the same float32 products, summed in
 another order; bf16 products are exact in float32; complex64 the same);
 1e-12 * max|y| for float64 and complex128; int8 equal (exact integer
-sums); narrow stores within one ulp of the store type; counts and states
-exact; the probes and the narrow reads against the float32 entry bit for
-bit.
+sums) and so are the integer words; narrow stores within one ulp of the
+store type; counts and states exact; the probes, the narrow reads against
+the float32 entry and the real-sample entries against the complex-sample
+entry bit for bit (``torch.equal``: a zero's sign aside).
 """
 
 import json
@@ -253,6 +258,11 @@ VARIANT_GEOMETRIES = [(24, 147, 160), (37, 7, 6), (37, 4, 1), (24, 4, 1),
 
 
 def _signal(rng, shape, dtype):
+    if dtype in (torch.int32, torch.int64):  # words over their whole range
+        info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+        return torch.from_numpy(rng.integers(info.min, info.max, shape,
+                                             dtype=info.dtype,
+                                             endpoint=True))
     if dtype == torch.int8:
         return torch.from_numpy(np.clip(rng.standard_normal(shape) * 30,
                                         -127, 127).astype(np.int8))
@@ -292,7 +302,7 @@ def test_polyphase_variants_match_plain_on_gpu(entry, T, L, M, variant):
             torch.cuda.synchronize()
             assert pp.launches_by_variant[key] == before + 1
             assert y.dtype == yp.dtype and y.shape == yp.shape
-            if o_dt == torch.int32:
+            if o_dt in (torch.int32, torch.int64):
                 assert torch.equal(y, yp)
             elif o_dt in (torch.bfloat16, torch.float16):
                 assert ulps_apart(y, yp, o_dt,
@@ -623,7 +633,7 @@ def test_narrow_polyphase_equals_float32_entry_on_gpu(entry, T, L, M,
 
 NARROW_RS = [(k, tm) for tm, table in ((False, rs.ENTRIES),
                                        (True, rs.TM_ENTRIES))
-             for k in table if k[0] in NARROW]
+             for k in table if k[0] in NARROW and k[1] == torch.float32]
 
 
 @pytest.mark.gpu
@@ -702,3 +712,111 @@ def test_narrow_block_runs_one_narrow_launch_on_gpu(dtype, spec, taps):
             <= 1
     else:
         assert rel_max_err(yk, yp) <= TOL
+
+
+# the real-sample entries against complex taps: each bit-equal to the
+# complex-sample entry on the samples cast to complex, on the same variant
+PAIRS_PP = [n for k, n in pp.ENTRIES.items()
+            if k[1].is_complex and not k[0].is_complex]
+PAIRS_RS = [k for k in rs.ENTRIES if k[1].is_complex and not k[0].is_complex]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [None, "general"], ids=["planned",
+                                                            "general"])
+@pytest.mark.parametrize("T,L,M", VARIANT_GEOMETRIES)
+@pytest.mark.parametrize("entry", PAIRS_PP)
+def test_real_sample_polyphase_equals_complex_entry_on_gpu(entry, T, L, M,
+                                                           variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x_dt, b_dt, o_dt = {v: k for k, v in pp.ENTRIES.items()}[entry]
+    rng = np.random.default_rng(18)
+    x = _signal(rng, (2, 80_007), x_dt).cuda()
+    hist = _signal(rng, (2, T - 1), x_dt).cuda()
+    bank = _signal(rng, (T, L), b_dt).cuda()
+    for C, (phi0, d0) in ((1, (1, 1)), (2, (L // 2 + 1, 3))):
+        n = ((80_007 - d0) * L - (phi0 - 1)) // M + 1
+        args = (x[:C], hist[:C], bank, L, M, phi0, d0, n)
+        p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant)
+        y = pp.polyphase(*args, variant=variant)
+        wide = pp.polyphase(x[:C].to(b_dt), hist[:C].to(b_dt), *args[2:],
+                            variant=p.variant)
+        torch.cuda.synchronize()
+        assert y.dtype == o_dt and torch.equal(y, wide)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,xlen", [(1, 200_003), (3, 20_011), (64, 20_011)])
+@pytest.mark.parametrize("kind", list(RESAMPLE_KINDS))
+@pytest.mark.parametrize("types", PAIRS_RS, ids=[rs.ENTRIES[k]
+                                                 for k in PAIRS_RS])
+def test_real_sample_resample_equals_complex_entry_on_gpu(types, kind, C,
+                                                          xlen):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x_dt, t_dt, o_dt = types
+    T, po = RESAMPLE_KINDS[kind]
+    rng = np.random.default_rng(19)
+    p = mt.make_kernel(_wide(rng, T * 32, t_dt), rate=1 / 2.123456789,
+                       nphi=32, polyorder=po, device="cuda")
+    x = _signal(rng, (C, xlen), x_dt).cuda()
+    st = mt.setphase(p, mt.init_state(p, (C,), x_dt), 0.37)
+    _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
+    n, _, _ = mt.ops.indexing.host_carry(p, st.phase, st.deficit, xlen)
+    hist = st.history.contiguous()
+    want = rs.resample_plain(x, hist, p, st.phase, st.deficit, n)
+    got = {}
+    for variant in (None, "general"):
+        got[variant] = rs.resample(x, hist, p, st.phase, st.deficit, n,
+                                   variant=variant)
+        wide = rs.resample(x.to(t_dt), hist.to(t_dt), p, st.phase,
+                           st.deficit, n, variant=variant)
+        torch.cuda.synchronize()
+        assert got[variant].dtype == o_dt
+        assert torch.equal(got[variant], wide)
+        assert rel_max_err(got[variant], want) <= _tol(o_dt)
+    assert torch.equal(got[None], got["general"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", [
+    (torch.int16, torch.int32, "i32"), (torch.int32, torch.int64, "i64"),
+    (torch.uint32, torch.uint32, "i32"), (torch.complex64, torch.float32,
+                                          "f32c"),
+    (torch.complex64, torch.int16, "s16c"),
+    (torch.complex128, torch.float64, "f64c")], ids=lambda p: str(p))
+@pytest.mark.parametrize("spec", [Fraction(147, 160), Fraction(1, 4)],
+                         ids=["rational", "decimator"])
+def test_pair_block_runs_one_launch_of_its_entry_on_gpu(spec, pair):
+    # an integer pair or a real signal against complex taps is one launch
+    # of its own entry, with no cast to a float or complex signal
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tap, sig, entry = pair
+    rng = np.random.default_rng(20)
+    h = mt.firdes(24 * 147, 0.5 / 147, mt.kaiser, beta=7.8562) * 147
+    if tap.is_complex:
+        h = h * np.exp(0.5j * np.pi * np.arange(len(h)))
+        x = _signal(rng, (2, 40_011), sig).cuda()
+    else:
+        h = np.clip(np.round(h * 2 ** 15), 0 if tap == torch.uint32
+                    else -2 ** 15, 2 ** 15 - 1)
+        x = _signal(rng, (2, 40_011), torch.int64 if sig.itemsize == 8
+                    else torch.int32).to(sig).cuda()
+    p = mt.make_kernel(torch.from_numpy(h).to(tap), ratio=spec,
+                       device="cuda")
+    st = mt.init_state(p, (2,), sig)
+    before = dict(pp.launches)
+    yk, ck, sk = mt.filt_block(p, st, x, path="kernel")
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in pp.launches.items()
+                if v != before[k]}
+    yp, cp, sp = mt.filt_block(p, st, x, path="windows")
+    assert launched == {entry: 1}
+    assert yk.dtype == yp.dtype and ck == cp
+    assert sk.history.dtype == sig and torch.equal(sk.history, sp.history)
+    if yk.dtype.is_complex:
+        assert rel_max_err(yk, yp) <= _tol(yk.dtype)
+    else:
+        assert torch.equal(yk, yp)

@@ -472,7 +472,8 @@ def test_entry_points_match_the_source():
              torch.float16: "__half", torch.int8: "int8_t",
              torch.int32: "int32_t", torch.float64: "double",
              torch.complex64: "float2", torch.complex128: "double2",
-             torch.int16: "int16_t", torch.uint8: "uint8_t"}
+             torch.int16: "int16_t", torch.uint8: "uint8_t",
+             torch.int64: "int64_t"}
     assert src.count("MR_POLYPHASE(") - 1 == len(pp.ENTRIES)  # + #define
     for types, name in pp.ENTRIES.items():
         assert (f"MR_POLYPHASE({name}, "

@@ -220,17 +220,6 @@ def test_integer_taps_at_a_rate_hold_the_float64_oracle(kind, sig):
         assert set(np.unique(d % 65536)) <= {0, 1, 65535}
 
 
-@pytest.mark.parametrize("pair", [("int32", "int16"), ("int64", "int8"),
-                                  ("int8", "int32")], ids="-".join)
-def test_wide_integer_operands_raise(pair):
-    tap, sig = pair
-    tp = mt.make_kernel(torch.ones(8, dtype=getattr(torch, tap)),
-                        ratio=Fraction(3, 2), device=CPU)
-    x = torch.ones(40, dtype=getattr(torch, sig))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.filt_block(tp, mt.init_state(tp, (), x.dtype), x)
-
-
 # --- float16 taps at a rate ------------------------------------------------
 
 def test_float16_taps_at_a_rate_match_the_tpu_kernel():
