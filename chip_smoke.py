@@ -26,8 +26,13 @@ prints one line:
    (each compiled T, L = 1, T outside the set, Q over a block's threads, a
    bank over shared memory), fresh and mid-phase, one and two channels at
    xlen 80,007, with all outputs, 1, 33 and one more than a tile, each
-   launch counted by entry point and variant (3c and 3d do the same for
-   their entry points);
+   launch counted by entry point and variant (3c, 3d, 3g and 3i do the
+   same for their entry points); there a float32 or complex64 output is
+   held to its own bound on two float32 sums of its n real products
+   (n = T, 2T or 4T) in any order, |dy| <= 2 gamma_n sum|x h| with
+   gamma_n = n u / (1 - n u), u = 2^-24 and sum|x h| from the plain
+   version's windows in float64 (real and imaginary parts each), and
+   the worst ratio to it is printed;
 4. the slice at full size: one 8 M-sample block through ``filt`` (relative
    RMS against the float64 ``naivefilt`` oracle on the first 200 000
    outputs <= 8e-5) and the same samples through ``FIRFilter`` in 250 000-
@@ -147,7 +152,8 @@ Then the same three steps for the runtime and its probe kernels
 4e. the runtime at full width: phase 4's 8 M samples pushed in seeded
    random chunks of 100-5000 samples through
    ``io.StreamingResampler(models.DATToCD(device="cuda"))`` (blocks of
-   65,536) and flushed, the push loop under
+   65,536; ``FIRFilter`` carries the history in place,
+   ``filt_block_inplace``) and flushed, the push loop under
    ``torch.cuda.set_sync_debug_mode("error")``; the same through
    ``models.Resampler(1/2.123456789)`` with its own designed taps; each
    stream's count equal to ``filt`` of the whole block and chunked-vs-whole
@@ -234,8 +240,10 @@ routes the other types with one cast to a type that has an entry):
    the float32 entry on the widened values; then the block entry points
    (``filt_block``, ``filt_block_tm``) on each narrow type with float32
    and float16 taps at 147//160, 4//1, 1//4, 1/2.123456789 and 0.4709
-   (Farrow), mid-stream: counts and states exact, outputs within 1e-5 *
-   max|y| (float16 outputs 2^-10); every narrow entry launched;
+   (Farrow), mid-stream: counts and states exact, outputs of the
+   rational family with float32 sums within the per-output bound of
+   phase 3, the others within 1e-5 * max|y| (float16 outputs 2^-10);
+   every narrow entry launched;
 4g. the slice at full width: 8 M samples of 16-bit PCM (phase 4's samples
    x 8000) through ``filt`` at 147//160 with the headline taps (one
    ``s16/reg`` launch, and a peak allocation no larger than the output's:
@@ -291,6 +299,23 @@ stored):
    Q15 taps through ``i32`` against the float64 route it ran before);
    ``f32c`` also at 1//1 and 1//4 with 24 complex taps beside ``conv1d``
    on complex inputs (TF32 off).
+
+3j. the edges, after 5i: an empty chunk mid-stream in each family (the
+   main path's taps, and one tap a phase), float32 and two channels of
+   int16, through ``filt_block`` and ``filt_block_inplace``: no launch of
+   either kernel, the state exactly as it was, an empty output of JAX's
+   type; one tap a phase (T = 1, a (C, 0) history: 1//1 with 1 tap, 4//1
+   with 4, 1//4 with 1, 3//2 with 3, arbitrary and Farrow with nphi taps)
+   through each kernel's planned and general variant against the plain
+   version (polyphase within the per-output bound, resample 1e-5 *
+   max|y|), the two equal bit for bit, and chunked ``FIRFilter`` (empty
+   and one-sample chunks) equal to the whole block; ``FIRFilter`` at the
+   headline on phase 4's 8 M samples in seeded chunks of 100-5000, and on
+   20,000 samples in chunks shorter than its 23-sample history: the
+   history at one address across every block (``filt_block_inplace``),
+   the outputs bit-equal to a ``filt_block`` loop over the same chunks;
+   ``FIRFilter(path="windows")`` on the card equal to the plain version
+   with no launch, and ``path="pallas"`` raising.
 
 4h. every example flow of ``multirate_tpu_torch.examples`` on the card
    (``main()``, with ``tests/test_examples.py``'s shrink keywords for
@@ -464,9 +489,13 @@ def _ptxas_rows(log):
     return [tuple(r) for r in rows]
 
 
-def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL):
+def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL,
+             ratios=None):
     """One kernel-vs-plain case through the block entry points; returns
-    max|dy| / max|y| (moduli for complex outputs), at most ``tol``."""
+    max|dy| / max|y| (moduli for complex outputs), at most ``tol``; or,
+    where ``ratios`` (a list) is given, for a rational-family block with
+    float32 sums: each output within its bound on two float32 sums of its
+    products (``_sum_bound_ratio``), the ratio appended to ``ratios``."""
     step = mt.filt_block_tm if time_major else mt.filt_block
     yk, ck, sk = step(params, st, x, path="kernel")
     yp, cp, sp = step(params, st, x, path="windows")
@@ -482,7 +511,25 @@ def _compare(mt, torch, params, st, x, time_major, case, tol=TOL_KERNEL):
     scale = float(yp.abs().max()) if yp.numel() else 0.0
     err = (float((yk - yp).abs().max()) / max(scale, 1e-30)
            if yp.numel() else 0.0)
-    check(err <= tol, f"{case}: rel err {err:.3e}")
+    if ratios is None:
+        check(err <= tol, f"{case}: rel err {err:.3e}")
+        return err
+    from multirate_tpu_torch.ops import compute
+    from multirate_tpu_torch.ops.cuda import polyphase as pp
+
+    # sum|x h| of each output, from the plain version's windows
+    lead = x.shape[:-1]
+    C = int(np.prod(lead))
+    geometry = compute._IMPL[type(params)](params, st)[1]
+    s_abs = pp.polyphase_plain(
+        _magnitude(torch, x.reshape(C, -1)),
+        _magnitude(torch, st.history.reshape(C, -1)),
+        _magnitude(torch, params.bank), *geometry, ck).reshape(*lead, ck)
+    r = _sum_bound_ratio(torch, yk, yp, s_abs, _mult_adds(
+        x.dtype, params.bank.dtype, params.taps_per_phi))
+    check(r <= 1, f"{case}: {r:.3f} of the float32 sum bound "
+          f"(max|dy|/max|y| {err:.3e})")
+    ratios.append(r)
     return err
 
 
@@ -552,23 +599,60 @@ def _resample_plan(rs, args, time_major, variant=None):
                    C, x.dtype, p.table.dtype, time_major, variant)
 
 
+U32 = 2.0 ** -24  # float32's unit roundoff
+
+
+def _magnitude(torch, t):
+    """|t| in float64 (moduli of complex values)."""
+    return t.abs().double() if t.is_complex() else t.double().abs()
+
+
+def _mult_adds(x_dt, b_dt, T):
+    """Real multiply-adds an output of T taps takes: T, 2T where one of
+    samples and taps is complex, 4T where both are."""
+    return T * (1 + x_dt.is_complex) * (1 + b_dt.is_complex)
+
+
+def _sum_bound_ratio(torch, y, yp, s_abs, n):
+    """The worst |y - yp| over each output's bound on two float32 sums of
+    the same n products in any order, 2 gamma_n sum|x h| with gamma_n =
+    n u / (1 - n u) (real and imaginary parts each; ``s_abs`` the float64
+    sum|x h| of each output, from the plain version's windows). At most 1
+    where both are float32 sums of the products."""
+    gamma = n * U32 / (1 - n * U32)
+    d = (y.to(yp.dtype) - yp)
+    d = torch.view_as_real(d).abs().amax(-1) if d.is_complex() else d.abs()
+    if d.numel() == 0:
+        return 0.0
+    bound = 2 * gamma * s_abs
+    check(bool((d[bound == 0] == 0).all()), "nonzero error where "
+          "sum|x h| is 0")
+    return float((d.double() / bound.clamp(min=1e-300)).max())
+
+
 def _variant_matrix(torch, dev, pp, entries):
     """Each of ``entries`` (polyphase entry points) through the variant
     ``plan`` picks and through the general variant, against the plain
     version, at VARIANT_GEOMETRIES: one channel and two at xlen 80,007,
     fresh and mid-phase entry states, all outputs, 1, 33 and one more than
-    a tile. Checks that the planned variant was launched. Returns (cases,
-    {entry: worst error}, {variant: launches})."""
+    a tile. Checks that the planned variant was launched. A float32 or
+    complex64 output is held to each output's bound on two float32 sums
+    of its products (``_sum_bound_ratio``), float64 and complex128 to
+    1e-12 of max|y|, narrow stores to one ulp, integers equal. Returns
+    (cases, {entry: worst max|dy|/max|y| or ulps}, {variant: launches},
+    {entry: worst ratio to the float32 sum bound})."""
     from multirate_tpu_torch.ops.dtypes import NARROW
     from multirate_tpu_torch.utils.testing import ulps_apart
 
     rng = np.random.default_rng(7)
     dtypes = {name: key for key, name in pp.ENTRIES.items()}
     worst, used, n_cases = dict.fromkeys(entries, 0.0), {}, 0
+    ratio = dict.fromkeys(entries, 0.0)
     for entry in entries:
         x_dt, b_dt, o_dt = dtypes[entry]
         tol = 1e-12 if x_dt in (torch.float64, torch.complex128) else \
             TOL_KERNEL
+        f32_sum = o_dt in (torch.float32, torch.complex64)
         for T, L, M in VARIANT_GEOMETRIES:
             bank = _probe_source(torch, rng, (T, L), b_dt).to(dev)
             if o_dt == torch.float16 and x_dt in NARROW \
@@ -590,6 +674,9 @@ def _variant_matrix(torch, dev, pp, entries):
                 args = (x[:C], hist[:C], bank, L, M, phi0, d0, n)
                 yp = pp.polyphase_plain(*args, out_dtype=o_dt)
                 floor = tol * max(float(yp.abs().max()), 1e-30)
+                s_abs = pp.polyphase_plain(
+                    *(_magnitude(torch, t) for t in args[:3]),
+                    *args[3:]) if f32_sum else None
                 for variant in (None, "general"):
                     p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant)
                     key = f"{entry}/{p.variant}"
@@ -627,11 +714,27 @@ def _variant_matrix(torch, dev, pp, entries):
                     else:
                         err = float((y - yp).abs().max()) / max(
                             float(yp.abs().max()), 1e-30)
-                        check(err <= tol, f"{case}: rel err {err:.3e}")
+                        if f32_sum:
+                            r = _sum_bound_ratio(torch, y, yp, s_abs,
+                                                 _mult_adds(x_dt, b_dt, T))
+                            check(r <= 1, f"{case}: {r:.3f} of the float32 "
+                                  f"sum bound (max|dy|/max|y| {err:.3e})")
+                            ratio[entry] = max(ratio[entry], r)
+                        else:
+                            check(err <= tol, f"{case}: rel err {err:.3e}")
                     worst[entry] = max(worst[entry], err)
                     used[p.variant] = used.get(p.variant, 0) + 1
                     n_cases += 1
-    return n_cases, worst, used
+    return n_cases, worst, used, ratio
+
+
+def _bound_note(ratio):
+    """The worst ratios to the float32 sum bound, for a phase's line."""
+    shown = {e: r for e, r in ratio.items() if r}
+    return ("; worst ratio to the per-output float32 sum bound "
+            "2 gamma_n sum|x h| (limit 1): "
+            + ", ".join(f"{e} {r:.4f}" for e, r in shown.items())
+            if shown else "")
 
 
 def _reset_counts(kernel):
@@ -690,10 +793,11 @@ def phase_kernel_vs_plain(mt, torch, dev, pp):
                 worst = max(worst, _compare(mt, torch, params, st, x, False,
                                             case))
                 n_cases += 1
-    n_var, w_var, used = _variant_matrix(torch, dev, pp, ("f32",))
+    n_var, w_var, used, ratio = _variant_matrix(torch, dev, pp, ("f32",))
     print(f"[3 kernel vs plain] {n_cases} cases, counts and states exact, "
           f"worst max|dy|/max|y| {worst:.3e} (limit {TOL_KERNEL}); "
-          f"variants: {n_var} f32 cases {used}, worst {w_var['f32']:.3e}")
+          f"variants: {n_var} f32 cases {used}, worst max|dy|/max|y| "
+          f"{w_var['f32']:.3e}{_bound_note(ratio)}")
 
 
 def phase_slice(mt, torch, dev, pp):
@@ -1158,9 +1262,11 @@ def phase_quant_vs_plain(mt, torch, dev, pp):
                         check(err <= 1, f"{case}: {err} ulps apart")
                     worst[mode] = max(worst[mode], err)
                     n_cases += 1
-    n_var, w_var, used = _variant_matrix(torch, dev, pp, tuple(modes))
+    n_var, w_var, used, ratio = _variant_matrix(torch, dev, pp,
+                                                tuple(modes))
     print(f"[3c quantized vs plain] variants: {n_var} cases {used}, worst "
-          + ", ".join(f"{m} {w_var[m]:.3g}" for m in modes))
+          + ", ".join(f"{m} {w_var[m]:.3g}" for m in modes)
+          + _bound_note(ratio))
     print(f"[3c quantized vs plain] {n_cases} cases, counts and states "
           f"exact; worst: bf16 max|dy|/max|y| {worst['bf16']:.3e} (limit "
           f"{TOL_KERNEL}), int8 max|dy| {worst['s8']:g} (limit 0), narrow "
@@ -1555,9 +1661,10 @@ def phase_wide_vs_plain(mt, torch, dev, pp, rs):
                                   f"{case}: {cb} channels a block")
                             n_group += cb == 8
                         n_rs += 1
-    n_var, w_var, used = _variant_matrix(torch, dev, pp, tuple(WIDE))
+    n_var, w_var, used, ratio = _variant_matrix(torch, dev, pp, tuple(WIDE))
     print(f"[3d wide vs plain] polyphase variants: {n_var} cases {used}, "
-          f"worst " + ", ".join(f"{e} {w_var[e]:.3e}" for e in WIDE))
+          f"worst " + ", ".join(f"{e} {w_var[e]:.3e}" for e in WIDE)
+          + _bound_note(ratio))
     check({"t10p2", "t10p5", "general"} <= set(rs_used),
           f"3d planned only {rs_used}")
     check(n_group == 4 * len(WIDE), f"3d: {n_group} 8-channel cases")
@@ -2718,7 +2825,7 @@ def phase_narrow_vs_plain(mt, torch, dev, pp, rs):
              and k[1] == torch.float32]
     _reset_counts(pp)
     _reset_counts(rs)
-    n_pp, worst_pp, used = _variant_matrix(torch, dev, pp, names)
+    n_pp, worst_pp, used, ratio_pp = _variant_matrix(torch, dev, pp, names)
     rng = np.random.default_rng(41)
     designs = {"bench": bench_taps(mt),
                "model": mt.models.Resampler(R_REF, device="cpu").taps}
@@ -2757,7 +2864,7 @@ def phase_narrow_vs_plain(mt, torch, dev, pp, rs):
              ("bench", designs["bench"], {"rate": R_REF, "nphi": 32}),
              ("bench", designs["bench"], {"rate": 0.4709, "nphi": 32,
                                           "polyorder": 4})]
-    n_blk, worst_blk = 0, 0.0
+    n_blk, worst_blk, ratio_blk = 0, 0.0, []
     for x_dt in NARROW:
         for t_dt in (torch.float32, torch.float16):
             for taps_name, h, kw in specs:
@@ -2774,8 +2881,11 @@ def phase_narrow_vs_plain(mt, torch, dev, pp, rs):
                     out = out_dtype(p.tap_type, x_dt)
                     case = (f"3g block {x_dt} {t_dt} taps {taps_name} {kw} "
                             f"{'tm' if tm else 'cm'}")
+                    # rational-family float32 sums: the per-output bound
+                    bounded = "ratio" in kw and out == torch.float32
                     worst_blk = max(worst_blk, _compare(
-                        mt, torch, p, st, xs, tm, case, _f16_tol(torch, out)))
+                        mt, torch, p, st, xs, tm, case, _f16_tol(torch, out),
+                        ratio_blk if bounded else None))
                     n_blk += 1
     missing = [n for n in names if not pp.launches[n]] + [
         n for k, n in (*rs.ENTRIES.items(), *rs.TM_ENTRIES.items())
@@ -2792,10 +2902,14 @@ def phase_narrow_vs_plain(mt, torch, dev, pp, rs):
           f"bit-equal to each other and to the float32 entry on the widened "
           f"values; worst by entry "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f" (limit {TOL_KERNEL}, float16 outputs 2^-10); block entry "
+          + f" (limit: the per-output float32 sum bound for polyphase float32"
+          f" outputs, {TOL_KERNEL} for resample, float16 outputs 2^-10)"
+          f"{_bound_note(ratio_pp)}; block entry "
           f"points: {n_blk} cases (5 narrow types x float32 and float16 "
           f"taps x 147//160, 4//1, 1//4, arbitrary, Farrow, channel- and "
-          f"time-major), counts and states exact, worst {worst_blk:.3e}; "
+          f"time-major), counts and states exact, worst {worst_blk:.3e}, "
+          f"worst ratio of the {len(ratio_blk)} rational-family float32 "
+          f"blocks to the per-output bound {max(ratio_blk):.4f}; "
           f"launches {_by_variant(pp)} {_by_variant(rs)}")
     return worst
 
@@ -3093,7 +3207,7 @@ def phase_pairs_vs_plain(mt, torch, dev, pp, rs):
     names = _pairs_entries(pp.ENTRIES)
     _reset_counts(pp)
     _reset_counts(rs)
-    n_pp, worst_pp, used = _variant_matrix(torch, dev, pp, names)
+    n_pp, worst_pp, used, ratio_pp = _variant_matrix(torch, dev, pp, names)
     rng = np.random.default_rng(51)
     designs = {"bench": bench_taps(mt),
                "model": mt.models.Resampler(R_REF, device="cpu").taps}
@@ -3190,7 +3304,9 @@ def phase_pairs_vs_plain(mt, torch, dev, pp, rs):
           f"T = 73), planned {planned} and general, bit-equal to each other "
           f"and to the complex-sample entry; worst by entry "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f" (limit {TOL_KERNEL}, complex128 1e-12); block entry points: "
+          + f" (limit: the per-output float32 sum bound for polyphase "
+          f"complex64 outputs, {TOL_KERNEL} for resample, complex128 1e-12)"
+          f"{_bound_note(ratio_pp)}; block entry points: "
           f"{n_int} integer cases (6 pairs x 147//160, 4//1, 1//4) equal, "
           f"{n_blk} real x complex64 cases (8 signal types x 147//160, "
           f"4//1, 1//4, arbitrary, Farrow), counts and states exact, worst "
@@ -3518,6 +3634,211 @@ def phase_pairs_times(mt, torch, x, pcm, x32, x64, hq, pp, rs, card):
 # 4h: the example flows on the card
 # --------------------------------------------------------------------------- #
 
+# 3j: one tap a phase (T = 1) in each family, (name, make_kernel keywords,
+# taps), and the samples a channel of its kernel-vs-plain cases
+ONE_TAP = (("1//1", {"ratio": Fraction(1, 1)}, 1),
+           ("4//1", {"ratio": Fraction(4, 1)}, 4),
+           ("1//4", {"ratio": Fraction(1, 4)}, 1),
+           ("3//2", {"ratio": Fraction(3, 2)}, 3),
+           ("arbitrary", {"rate": 0.77, "nphi": 32}, 32),
+           ("Farrow", {"rate": 1.3, "nphi": 32, "polyorder": 4}, 32))
+EDGE_XLEN = 100_003
+# 3j: chunk sizes, cycled, of a headline stream with chunks shorter than
+# its 23-sample history and empty ones
+SHORT_CHUNKS = (0, 1, 5, 22, 23, 24, 40, 3, 0, 1000)
+
+
+def _all_counts(pp, rs):
+    """Every launch count of both kernels' wrappers."""
+    return (dict(pp.launches), dict(pp.launches_by_variant),
+            dict(rs.launches), dict(rs.launches_by_variant))
+
+
+def _inplace_stream(mt, torch, f, x, sizes):
+    """``x`` through FIRFilter ``f`` on the card in chunks of ``sizes`` (an
+    iterator), beside a ``filt_block`` loop over the same chunks: checks
+    that the history keeps one address and that the two are bit-equal.
+    Returns the chunks run."""
+    p = f.kernel
+    st = mt.init_state(p, x.shape[:-1], x.dtype)
+    ys, yws, ptrs = [], [], set()
+    i = 0
+    while i < x.shape[-1]:
+        xb = x[..., i:i + next(sizes)]
+        i += xb.shape[-1]
+        ys.append(f.filt(xb))
+        ptrs.add(f.history.data_ptr())
+        yw, _, st = mt.filt_block(p, st, xb)
+        yws.append(yw)
+    check(len(ptrs) == 1, f"the history moved: {len(ptrs)} addresses")
+    check(torch.equal(torch.cat(ys, dim=-1), torch.cat(yws, dim=-1))
+          and torch.equal(f.history, st.history)
+          and (f.state.phase, f.state.deficit) == (st.phase, st.deficit),
+          "FIRFilter differs from the filt_block loop")
+    return len(ys)
+
+
+def phase_edges(mt, torch, dev, pp, rs, x):
+    """3j: empty chunks mid-stream in each family on both kernels (no
+    launch, the state as it was, an empty output of JAX's type); one tap a
+    phase (T = 1) through each kernel's planned and general variant
+    against the plain version, chunked == whole; ``FIRFilter``'s in-place
+    history at the headline on ``x`` (phase 4's 8 M samples) and on short
+    chunks; ``FIRFilter(path="windows")`` on the card."""
+    import itertools
+
+    from multirate_tpu_torch.ops import compute
+    from multirate_tpu_torch.ops.dtypes import out_dtype
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(61)
+    h_head, h_bench = headline_taps(mt), bench_taps(mt)
+    ratio = Fraction(147, 160)
+
+    # empty chunks mid-stream, at the main path's taps and at T = 1
+    fams = [("147//160", h_head, {"ratio": ratio}),
+            ("1//1", h_head, {"ratio": 1}), ("4//1", h_head, {"ratio": 4}),
+            ("1//4", h_head, {"ratio": Fraction(1, 4)}),
+            ("arbitrary", h_bench, {"rate": R_REF, "nphi": 32}),
+            ("Farrow", h_bench, {"rate": 0.4709, "nphi": 32,
+                                 "polyorder": 4})]
+    fams += [(f"{name} T=1", rng.standard_normal(n).astype(np.float32), kw)
+             for name, kw, n in ONE_TAP]
+    n_empty = 0
+    for name, h, kw in fams:
+        p = mt.make_kernel(h, device=dev, **kw)
+        for lead, dt in (((), torch.float32), ((2,), torch.int16)):
+            xs = _probe_source(torch, rng, (*lead, 20_011), dt).to(dev)
+            _, _, st = mt.filt_block(p, mt.init_state(p, lead, dt), xs,
+                                     path="kernel")
+            hist, ptr = st.history.clone(), st.history.data_ptr()
+            torch.cuda.synchronize()
+            before = _all_counts(pp, rs)
+            for step in (mt.filt_block, mt.filt_block_inplace):
+                y, c, s2 = step(p, st, xs[..., :0], "kernel")
+                torch.cuda.synchronize()
+                case = f"3j empty {name} {dt} lead={lead} {step.__name__}"
+                check(_all_counts(pp, rs) == before, f"{case}: launched")
+                check(c == 0 and tuple(y.shape) == (*lead, 0)
+                      and y.dtype == out_dtype(p.tap_type, dt)
+                      and y.device == xs.device,
+                      f"{case}: {tuple(y.shape)} {y.dtype}")
+                check((s2.phase, s2.deficit) == (st.phase, st.deficit)
+                      and torch.equal(s2.history, hist)
+                      and s2.history.dtype == dt, f"{case}: state changed")
+            check(s2.history.data_ptr() == ptr, f"{case}: history moved")
+            n_empty += 1
+
+    # T = 1: a (C, 0) history, planned and general variant against plain
+    n_one, worst, ratio_one, used = 0, 0.0, 0.0, {}
+    for name, kw, n in ONE_TAP:
+        h = rng.standard_normal(n).astype(np.float32)
+        p = mt.make_kernel(h, device=dev, **kw)
+        check(p.taps_per_phi == 1 and p.h_min == 0,
+              f"3j {name}: {p.taps_per_phi} taps a phase")
+        spec = kw.get("ratio", kw.get("rate"))
+        for C in (1, 2):
+            xs = _probe_source(torch, rng, (C, EDGE_XLEN),
+                               torch.float32).to(dev)
+            st = mt.init_state(p, (C,))
+            if name not in ("1//1", "1//4"):  # the types with a phase
+                st = mt.setphase(p, st, 0.37)
+            n_out = mt.outputlength(p, EDGE_XLEN, state=st)
+            if "rate" in kw:
+                mod, args = rs, (xs, st.history, p, st.phase, st.deficit,
+                                 n_out)
+                planned = _resample_plan(rs, args, False).variant
+            else:
+                geometry = compute._IMPL[type(p)](p, st)[1]
+                mod, args = pp, (xs, st.history, p.bank, *geometry, n_out)
+                planned = pp.plan(1, *geometry[:2], n_out, torch.float32,
+                                  torch.float32, C).variant
+            kern, plain = ((rs.resample, rs.resample_plain) if mod is rs
+                           else (pp.polyphase, pp.polyphase_plain))
+            yp = plain(*args)
+            got = {}
+            for variant in (None, "general"):
+                key = f"f32/{variant or planned}"
+                before = mod.launches_by_variant[key]
+                got[variant] = kern(*args, variant=variant)
+                torch.cuda.synchronize()
+                case = f"3j T=1 {name} C={C} {key}"
+                check(mod.launches_by_variant[key] == before + 1,
+                      f"{case}: not launched once")
+                check(got[variant].shape == yp.shape == (C, n_out),
+                      f"{case}: {tuple(got[variant].shape)}")
+                err = float((got[variant] - yp).abs().max()) / max(
+                    float(yp.abs().max()), 1e-30)
+                worst = max(worst, err)
+                if mod is rs:
+                    check(err <= TOL_KERNEL, f"{case}: rel err {err:.3e}")
+                else:  # one product an output
+                    s_abs = pp.polyphase_plain(
+                        *(_magnitude(torch, t) for t in args[:3]),
+                        *args[3:])
+                    r = _sum_bound_ratio(torch, got[variant], yp, s_abs, 1)
+                    check(r <= 1, f"{case}: {r:.3f} of the sum bound")
+                    ratio_one = max(ratio_one, r)
+                used[key] = used.get(key, 0) + 1
+                n_one += 1
+            check(torch.equal(got[None], got["general"]),
+                  f"3j T=1 {name}: {planned} and general differ")
+            # chunked == whole, through FIRFilter (in place) and filt_block
+            whole, cw, sw = mt.filt_block(p, st, xs, path="kernel")
+            f = mt.FIRFilter(h, spec, nphi=kw.get("nphi", 32),
+                             polyorder=kw.get("polyorder"), device=dev)
+            f.state = mt.FilterState(st.history.clone(), st.phase,
+                                     st.deficit)
+            parts = [f.filt(xs[:, a:b]) for a, b in (
+                (0, 0), (0, 1), (1, 1), (1, 777), (777, EDGE_XLEN),
+                (EDGE_XLEN, EDGE_XLEN))]
+            check(torch.equal(torch.cat(parts, dim=-1), whole)
+                  and (f.state.phase, f.state.deficit)
+                  == (sw.phase, sw.deficit) and cw == n_out,
+                  f"3j T=1 {name} C={C}: chunked differs from whole")
+
+    # FIRFilter on the card carries its history in place: the headline
+    # on phase 4's samples in seeded chunks, and chunks shorter than h_min
+    lo, hi = STREAM_CHUNKS
+    chunks = _inplace_stream(
+        mt, torch, mt.FIRFilter(h_head, ratio, device=dev), x,
+        iter(lambda: int(rng.integers(lo, hi + 1)), None))
+    short = _inplace_stream(
+        mt, torch, mt.FIRFilter(h_head, ratio, device=dev),
+        x[:20_000].view(1, -1), itertools.cycle(SHORT_CHUNKS))
+
+    # path="windows" on the card: the plain version, no launch
+    fw = mt.FIRFilter(h_head, ratio, path="windows", device=dev)
+    st = mt.init_state(fw.kernel)
+    torch.cuda.synchronize()
+    before = _all_counts(pp, rs)
+    for a, b in ((0, 50_000), (50_000, 50_007), (50_007, 200_000)):
+        yw, _, st = mt.filt_block(fw.kernel, st, x[a:b], path="windows")
+        check(torch.equal(fw.filt(x[a:b]), yw),
+              "FIRFilter(path='windows') differs from the plain version")
+    torch.cuda.synchronize()
+    check(_all_counts(pp, rs) == before, "path='windows' launched a kernel")
+    try:
+        mt.FIRFilter(h_head, ratio, path="pallas", device=dev)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "FIRFilter(path='pallas') did not raise")
+    print(f"[3j edges] empty chunks mid-stream: {n_empty} streams (6 "
+          f"families at their main-path taps and at T = 1; float32 and 2 "
+          f"channels of int16; filt_block and filt_block_inplace): no "
+          f"launch, state unchanged, empty outputs of JAX's type; T = 1: "
+          f"{n_one} cases {used}, worst max|dy|/max|y| {worst:.3e} "
+          f"(resample limit {TOL_KERNEL}), polyphase worst ratio to the "
+          f"per-output sum bound {ratio_one:.4f} (limit 1), planned == "
+          f"general and chunked == whole bit for bit; FIRFilter in place: "
+          f"147//160 on {N_HEAD} samples in {chunks} seeded chunks of "
+          f"{lo}-{hi} and 20,000 in {short} chunks of {SHORT_CHUNKS}: one "
+          f"history address, bit-equal to filt_block; path='windows' on "
+          f"the card equal to the plain version with no launch, "
+          f"path='pallas' raises; {time.perf_counter() - t0:.1f} s")
+
+
 def phase_examples(torch, pp, rs):
     """4h: each example module's ``main()`` on the card, with the shrink
     keywords ``tests/test_examples.py`` uses, and ``wav_resample --demo``
@@ -3596,6 +3917,7 @@ def main() -> int:
         i_rows = phase_pairs_times(mt, torch, x, pcm, x32, xi64, hq, pp, rs,
                                    card)
         del x32, xi64
+        phase_edges(mt, torch, dev, pp, rs, x)
         phase_examples(torch, pp, rs)
         phase_scaling(card)
         check("jax" not in sys.modules, "jax was imported")

@@ -72,6 +72,7 @@ from .ops import (
     PHASE_ONE,
     filt,
     filt_block,
+    filt_block_inplace,
     filt_block_tm,
     init_state,
     inputlength,
@@ -100,7 +101,8 @@ __all__ = [
     "FIRFilter", "FIRStandard", "FIRInterpolator", "FIRDecimator",
     "FIRRational", "FIRArbitrary", "FIRFarrow", "FilterState",
     "PHASE_FRAC_BITS", "PHASE_ONE",
-    "filt", "filt_block", "filt_block_tm", "init_state",
+    "filt", "filt_block", "filt_block_inplace", "filt_block_tm",
+    "init_state",
     "inputlength", "max_outputs",
     "nextphase", "outputlength", "polyfit", "polyval", "pfb2pnfb", "reset",
     "setphase", "taps2pfb", "tapsforphase", "quant", "io", "models",

@@ -158,6 +158,7 @@ class StreamingResampler:
         else:
             f = FIRFilter.__new__(FIRFilter)
             f.params = params_or_filter
+            f.path = "auto"
             f.device = params_or_filter.device
             f.state = None
         if f.device is None:  # pin the stream now, not inside the loop

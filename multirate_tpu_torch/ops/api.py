@@ -30,14 +30,16 @@ from fractions import Fraction
 import torch
 
 from . import indexing as _idx
-from .compute import filt_block_raw, filt_block_tm_raw
+from .compute import (check_path, filt_block_inplace, filt_block_raw,
+                      filt_block_tm_raw)
 from .dtypes import INTEGERS
 from .params import (PHASE_ONE, FIRArbitrary, FIRFarrow, FIRInterpolator,
                      FIRRational, FilterState, default_device, init_state,
                      make_kernel, to_tensor)
 
 __all__ = [
-    "filt", "filt_block", "filt_block_tm", "FIRFilter", "setphase", "reset",
+    "filt", "filt_block", "filt_block_inplace", "filt_block_tm", "FIRFilter",
+    "setphase", "reset",
     "tapsforphase", "outputlength", "inputlength", "nextphase",
     "max_outputs",
 ]
@@ -72,7 +74,7 @@ def _as_signal(x, device) -> torch.Tensor:
 
 
 def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
-         polyorder=None, device=None):
+         polyorder=None, path: str = "auto", device=None):
     """One-shot stateless filtering and resampling.
 
     - ``filt(h, x, L_over_M)`` with a Fraction, int or (L, M) tuple: the
@@ -84,6 +86,11 @@ def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
       resampling (Filters.jl:870-873).
 
     ``x`` has leading channel dims; time is the last axis. On x's device.
+    ``path`` is ``filt_block``'s: ``"auto"`` (the hand-written kernel on
+    the card, the plain version on the CPU), ``"kernel"`` or
+    ``"windows"`` (the plain PyTorch version on any device: the
+    counterpart of JAX's ``interpret_kernels`` for debugging). JAX's
+    TPU-only names raise ValueError.
 
     ``x`` may be of any type the JAX package takes: float32, float64,
     complex64, complex128, float16, bfloat16, the integers (16-bit PCM,
@@ -107,7 +114,7 @@ def filt(h, x, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
     x = _as_signal(x, device)
     params = _kernel_for(h, ratio_or_rate, nphi, polyorder, x.device)
     state = init_state(params, x.shape[:-1], x.dtype)
-    y, _, _ = filt_block(params, state, x)
+    y, _, _ = filt_block(params, state, x, path)
     return y
 
 
@@ -136,11 +143,18 @@ class FIRFilter:
     The stream runs on ``device`` if one is given, else on the device of
     torch taps; with numpy taps and no ``device``, on its first chunk's
     device (a numpy chunk's: the card). Until then the kernel waits on the
-    CPU, where it was built.
+    CPU, where it was built. Each chunk takes ``path`` (``filt``'s).
+
+    On the card a chunk runs through ``filt_block_inplace``, as JAX's
+    ``FIRFilter`` donates its state on an accelerator: the history stays
+    at one address and is overwritten, so a state read from the filter
+    (``state``, ``history``) holds the newest history after the next
+    chunk. On the CPU it runs through ``filt_block``.
     """
 
     def __init__(self, h, ratio_or_rate=Fraction(1, 1), nphi: int = 32,
-                 polyorder=None, device=None):
+                 polyorder=None, path: str = "auto", device=None):
+        self.path = check_path(path)
         # the device the stream is pinned to, if the caller named one
         # (explicitly or through torch taps); else its first chunk's
         self.device = (torch.device(device) if device is not None
@@ -151,6 +165,10 @@ class FIRFilter:
         if self.device is not None:  # "cuda" names the card's index
             self.device = self.params.device
         self.state: FilterState | None = None
+
+    @property
+    def kernel(self):
+        return self.params
 
     @property
     def history(self):
@@ -182,7 +200,8 @@ class FIRFilter:
         """Filter a chunk, carrying streaming state across calls."""
         x = _as_signal(x, self.device)
         self._ensure_state(x)
-        y, _, self.state = filt_block(self.params, self.state, x)
+        step = filt_block_inplace if x.is_cuda else filt_block
+        y, _, self.state = step(self.params, self.state, x, self.path)
         return y
 
     __call__ = filt

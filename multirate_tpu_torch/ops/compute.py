@@ -97,7 +97,8 @@ from .cuda import resample as _rs
 from .params import (FIRArbitrary, FIRDecimator, FIRFarrow, FIRInterpolator,
                      FIRRational, FIRStandard, FilterState)
 
-__all__ = ["filt_block_raw", "filt_block_tm_raw"]
+__all__ = ["filt_block_raw", "filt_block_inplace", "filt_block_tm_raw",
+           "PATHS", "check_path"]
 
 _POLYPHASE = {"kernel": _pp.polyphase, "windows": _pp.polyphase_plain}
 _RESAMPLE = {"kernel": _rs.resample, "windows": _rs.resample_plain}
@@ -247,12 +248,34 @@ def _carry_history(params, hist, x):
     return tail.clone(memory_format=torch.contiguous_format)
 
 
+def _carry_in_place(params, hist, x):
+    """``_carry_history`` written into ``hist``: the x tail copied
+    straight in, or, for a chunk shorter than h_min, [old history ++ x]'s
+    tail formed before the write (it reads the old history)."""
+    H = params.h_min
+    xlen = x.shape[-1]
+    if xlen >= H:
+        hist.copy_(x[..., xlen - H:])
+    elif xlen:
+        hist.copy_(torch.cat([hist[..., xlen:], x], dim=-1))
+
+
+# The paths a block takes (``_pick_path``).
+PATHS = ("auto", "kernel", "windows")
+
+
+def check_path(path: str) -> str:
+    """``path`` if it is one of ``PATHS``, else ValueError. The JAX
+    package's other names (``pallas``, ``supercycle``, ``gridsel``, ...)
+    choose TPU formulations and have no counterpart here."""
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r}; one of {list(PATHS)}")
+    return path
+
+
 def _pick_path(x, path: str) -> str:
-    if path == "auto":
+    if check_path(path) == "auto":
         return "kernel" if x.is_cuda else "windows"
-    if path not in _POLYPHASE:
-        raise ValueError(
-            f"unknown path {path!r}; one of {sorted(_POLYPHASE)}")
     return path
 
 
@@ -273,13 +296,10 @@ def _check(params, state, x, lead=None):
                          f"{tuple(state.history.shape)}, expected {want}")
 
 
-def filt_block_raw(params, state: FilterState, x, path: str = "auto"):
-    """Filter one block. Returns (y, count, new_state).
-
-    ``y`` has exactly ``count`` samples along its last axis (the JAX
-    package's y_padded with no padding): the count is exact on the host,
-    so no buffer is sized for the worst case. ``count`` is a Python int.
-    """
+def _block(params, state: FilterState, x, path: str):
+    """One block's outputs: (y, count, phase, deficit, hist), with
+    ``hist`` the history in x's type (``state.history`` itself where the
+    types agree), read by the launch already queued."""
     if type(params) not in _IMPL:
         raise TypeError(f"unknown kernel {type(params)}")
     _check(params, state, x)
@@ -295,9 +315,42 @@ def filt_block_raw(params, state: FilterState, x, path: str = "auto"):
     h2 = hist.reshape(C, params.h_min).contiguous()
     run = _polyphase if paths is _POLYPHASE else _resample
     y = run(paths[path], params, x2, h2, *geometry, count)
+    return y.reshape(*lead, count), count, phase, deficit, hist
+
+
+def filt_block_raw(params, state: FilterState, x, path: str = "auto"):
+    """Filter one block. Returns (y, count, new_state).
+
+    ``y`` has exactly ``count`` samples along its last axis (the JAX
+    package's y_padded with no padding): the count is exact on the host,
+    so no buffer is sized for the worst case. ``count`` is a Python int.
+    """
+    y, count, phase, deficit, hist = _block(params, state, x, path)
     new_state = FilterState(history=_carry_history(params, hist, x),
                             phase=phase, deficit=deficit)
-    return y.reshape(*lead, count), count, new_state
+    return y, count, new_state
+
+
+def filt_block_inplace(params, state: FilterState, x, path: str = "auto"):
+    """``filt_block_raw`` with the history carried in place: the same
+    (y, count, new_state), bit for bit, where ``new_state.history`` is
+    ``state.history``'s own storage, overwritten with the new history.
+
+    The counterpart of JAX's ``filt_block_inplace``, which donates the
+    state: the state passed in is consumed (its history now holds the new
+    one), so thread it linearly, as ``FIRFilter`` does on the card. The
+    history stays at one address across a stream's blocks. A chunk of
+    another type than the history's gives a new history in the chunk's
+    type, as ``filt_block_raw`` does (the history takes the signal's type);
+    the blocks after it write that one in place. The write is queued after
+    the launch that reads the old history, on the same stream.
+    """
+    y, count, phase, deficit, hist = _block(params, state, x, path)
+    if hist is state.history:
+        _carry_in_place(params, hist, x)
+    else:
+        hist = _carry_history(params, hist, x)
+    return y, count, FilterState(history=hist, phase=phase, deficit=deficit)
 
 
 def filt_block_tm_raw(params, state: FilterState, xt, path: str = "auto"):

@@ -325,7 +325,7 @@ def _taps_plain(params, phi, frac):
     tdt = params.table.dtype
     if isinstance(params, FIRArbitrary):
         alpha = frac.to(tdt.to_real())[:, None]
-        return params.pfb.t()[phi] + alpha * params.dpfb.t()[phi]
+        return params.table[0].t()[phi] + alpha * params.table[1].t()[phi]
     psi = 1.0 + phi.to(torch.float64) + frac
     powers = psi[:, None] ** torch.arange(
         params.polyorder + 1, dtype=torch.float64, device=psi.device)[None, :]

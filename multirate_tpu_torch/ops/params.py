@@ -28,7 +28,8 @@ the JAX kernel's tap type does (``tap_type``). A route casts a bank
 straight from its stored type to the route's (int64 to float32 in one
 rounding, as JAX's promotion does). Rational-family kernels may also
 carry a narrow ``store_dtype`` for their outputs. The arbitrary table
-(``pfb``, ``dpfb``) and the Farrow table are in the storage type too; the
+and the Farrow table are in the storage type too (the arbitrary kernel's
+``pfb`` and ``dpfb`` read its table in the taps' type, JAX's); the
 Farrow fit ``coeffs`` is float64, or complex128 for complex taps, as JAX
 keeps it. These banks replace the K
 stacks and tap planes of every TPU kernel mode: the float32, bf16, int8,
@@ -56,7 +57,7 @@ from .dtypes import INTEGERS
 __all__ = [
     "PHASE_FRAC_BITS", "PHASE_ONE",
     "FIRStandard", "FIRInterpolator", "FIRDecimator", "FIRRational",
-    "FIRArbitrary", "FIRFarrow",
+    "FIRArbitrary", "FIRFarrow", "KERNEL_TYPES",
     "FilterState", "init_state", "make_kernel", "default_device",
     "to_tensor", "storage_dtype", "store_dtype_of",
 ]
@@ -372,11 +373,22 @@ class FIRArbitrary(_Kernel):
 
     @property
     def pfb(self) -> torch.Tensor:
-        return self.table[0]
+        """The bank of h (taps_per_phi, nphi) in JAX's type for its banks:
+        ``table[0]``, cast to ``taps_dtype`` where the table holds the
+        taps wider. Read-only use: the kernel reads ``table``."""
+        return self._bank(0)
 
     @property
     def dpfb(self) -> torch.Tensor:
-        return self.table[1]
+        """The bank of dh = [diff(h); 0], as ``pfb``: ``table[1]`` in
+        ``taps_dtype``, where the exact difference of integer taps wraps
+        to their type as numpy's ``diff`` does (JAX's bank). Read-only
+        use, as ``pfb``."""
+        return self._bank(1)
+
+    def _bank(self, i: int) -> torch.Tensor:
+        b = self.table[i]
+        return b if self.taps_dtype is None else b.to(self.taps_dtype)
 
     @property
     def bank(self) -> torch.Tensor:
@@ -474,6 +486,11 @@ class FIRFarrow(_Kernel):
     @property
     def bank(self) -> torch.Tensor:
         return self.table
+
+
+# Every kernel type, in JAX's order (``params.py:475`` there).
+KERNEL_TYPES = (FIRStandard, FIRInterpolator, FIRDecimator, FIRRational,
+                FIRArbitrary, FIRFarrow)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,9 @@ one; and the integer words (``i32``, ``i64``: equal to the plain version)
 and the real signals against complex taps (float32, float64 and the
 narrow reads), each bit-equal to the complex-sample entry on the samples
 cast to complex, on every variant, through the block entry points with
-one launch of their own entry.
+one launch of their own entry; empty chunks (no launch, the state as it
+was) and one tap a phase (T = 1, a (C, 0) history) in every family, and
+``FIRFilter``'s history carried in place on the card (one ``data_ptr``).
 
 Marked ``gpu``: it skips without a CUDA device. It imports no JAX, so it
 runs on a machine with the card alone:
@@ -31,6 +33,7 @@ the float32 entry and the real-sample entries against the complex-sample
 entry bit for bit (``torch.equal``: a zero's sign aside).
 """
 
+import itertools
 import json
 import os
 from fractions import Fraction
@@ -820,3 +823,125 @@ def test_pair_block_runs_one_launch_of_its_entry_on_gpu(spec, pair):
         assert rel_max_err(yk, yp) <= _tol(yk.dtype)
     else:
         assert torch.equal(yk, yp)
+
+
+# one tap a phase (T = 1) in each family, the geometries of the smoke's
+# phase 3j: (make_kernel keywords, taps)
+ONE_TAP = {"1//1": ({"ratio": Fraction(1, 1)}, 1),
+           "4//1": ({"ratio": Fraction(4, 1)}, 4),
+           "1//4": ({"ratio": Fraction(1, 4)}, 1),
+           "3//2": ({"ratio": Fraction(3, 2)}, 3),
+           "arbitrary": ({"rate": 0.77, "nphi": 32}, 32),
+           "farrow": ({"rate": 1.3, "nphi": 32, "polyorder": 4}, 32)}
+
+
+def _launch_counts():
+    return (dict(pp.launches), dict(pp.launches_by_variant),
+            dict(rs.launches), dict(rs.launches_by_variant))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("one_tap", [True, False], ids=["T1", "T24"])
+@pytest.mark.parametrize("family", list(ONE_TAP))
+def test_empty_chunk_launches_nothing_on_gpu(family, one_tap):
+    # an empty chunk mid-stream: no launch of either kernel, the state
+    # exactly as it was, an empty output of JAX's type
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw, n = ONE_TAP[family]
+    rng = np.random.default_rng(21)
+    h = rng.standard_normal(n * (1 if one_tap else 24)).astype(np.float32)
+    p = mt.make_kernel(h, device="cuda", **kw)
+    x = torch.from_numpy(rng.standard_normal((2, 5000)).astype(
+        np.float32)).cuda()
+    _, _, st = mt.filt_block(p, mt.init_state(p, (2,)), x, path="kernel")
+    torch.cuda.synchronize()
+    before = _launch_counts()
+    for path in ("kernel", "auto"):
+        y, c, st2 = mt.filt_block(p, st, x[:, :0], path=path)
+        torch.cuda.synchronize()
+        assert _launch_counts() == before
+        assert c == 0 and y.shape == (2, 0) and y.dtype == torch.float32
+        assert y.device == x.device
+        assert (st2.phase, st2.deficit) == (st.phase, st.deficit)
+        assert torch.equal(st2.history, st.history)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [None, "general"], ids=["planned",
+                                                            "general"])
+@pytest.mark.parametrize("family", list(ONE_TAP))
+def test_one_tap_a_phase_matches_plain_on_gpu(family, variant):
+    # T = 1 (a (C, 0) history) through each kernel's planned and general
+    # variant, against the plain version, and chunked == whole
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw, n = ONE_TAP[family]
+    rng = np.random.default_rng(22)
+    p = mt.make_kernel(rng.standard_normal(n).astype(np.float32),
+                       device="cuda", **kw)
+    assert p.taps_per_phi == 1 and p.h_min == 0
+    x = torch.from_numpy(rng.standard_normal((2, 30_011)).astype(
+        np.float32)).cuda()
+    st = mt.init_state(p, (2,))
+    if family not in ("1//1", "1//4"):
+        st = mt.setphase(p, st, 0.37)
+    n_out, _, _ = mt.ops.indexing.host_carry(p, st.phase, st.deficit,
+                                             x.shape[-1])
+    hist = st.history
+    assert hist.shape == (2, 0)
+    if family in ("arbitrary", "farrow"):
+        args = (x, hist, p, st.phase, st.deficit, n_out)
+        y = rs.resample(*args, variant=variant)
+        yp = rs.resample_plain(*args)
+    else:
+        from multirate_tpu_torch.ops import compute
+
+        # (L, M, phi0, d0) as the block step enters the family
+        geometry = compute._IMPL[type(p)](p, st)[1]
+        args = (x, hist, p.bank, *geometry, n_out)
+        y = pp.polyphase(*args, variant=variant)
+        yp = pp.polyphase_plain(*args)
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape == (2, n_out)
+    assert rel_max_err(y, yp) <= TOL
+    # chunked == whole through the block entry points
+    yw, cw, sw = mt.filt_block(p, st, x, path="kernel")
+    parts, s = [], st
+    for a, b in ((0, 0), (0, 1), (1, 777), (777, 777), (777, 30_011)):
+        yc, _, s = mt.filt_block(p, s, x[:, a:b], path="kernel")
+        parts.append(yc)
+    assert torch.equal(torch.cat(parts, dim=-1), yw) and cw == n_out
+    assert (s.phase, s.deficit) == (sw.phase, sw.deficit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [Fraction(147, 160), 0.77],
+                         ids=["rational", "arbitrary"])
+def test_firfilter_history_stays_in_place_on_gpu(spec):
+    # FIRFilter on the card carries its history in place (one data_ptr),
+    # bit-equal to a filt_block loop over the same chunks, chunks shorter
+    # than h_min and empty ones included
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(23)
+    h = (mt.firdes(24 * 147, 0.5 / 147, mt.kaiser, beta=7.8562) * 147
+         ).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((2, 60_000)).astype(
+        np.float32)).cuda()
+    f = mt.FIRFilter(h, spec, device="cuda")
+    p = f.kernel
+    st = mt.init_state(p, (2,))
+    sizes = itertools.cycle([5, 0, 3, 1000, 0, 17, 2, 4096, 1])
+    at, ptr = 0, None
+    while at < x.shape[-1]:
+        xb = x[:, at:at + next(sizes)]
+        at += xb.shape[-1]
+        y = f.filt(xb)
+        yw, _, st = mt.filt_block(p, st, xb)
+        ptr = ptr or f.history.data_ptr()
+        assert f.history.data_ptr() == ptr
+        assert torch.equal(y, yw)
+    torch.cuda.synchronize()
+    assert torch.equal(f.history, st.history)
+    assert (f.state.phase, f.state.deficit) == (st.phase, st.deficit)

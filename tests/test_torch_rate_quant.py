@@ -162,10 +162,12 @@ def test_bf16_taps_bank_holds_jax_values(taps):
     jb = np.asarray(jnp.asarray(taps, jnp.bfloat16))
     a = mt.make_kernel(hb, rate=0.4709, device="cpu")
     ja = mr.make_kernel(jb, rate=0.4709)
+    # the table holds them in float32; pfb and dpfb read it in JAX's type
     assert a.table.dtype == torch.float32
-    np.testing.assert_array_equal(a.pfb.numpy(),
+    assert a.pfb.dtype == a.dpfb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(a.pfb.float().numpy(),
                                   np.asarray(ja.pfb, np.float32))
-    np.testing.assert_array_equal(a.dpfb.numpy(),
+    np.testing.assert_array_equal(a.dpfb.float().numpy(),
                                   np.asarray(ja.dpfb, np.float32))
     f = mt.make_kernel(hb, rate=0.4709, polyorder=4, device="cpu")
     jf = mr.make_kernel(jb, rate=0.4709, polyorder=4)

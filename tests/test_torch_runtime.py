@@ -644,9 +644,9 @@ def test_stream_expand_counts_bytes_as_jax(odt, ratio, monkeypatch):
     assert tuple(y.shape) == (300, ratio * 128)
 
 
-# JAX names the port leaves out on purpose (ROADMAP.md queue 1): buffer
-# donation, which PyTorch does not need
-LEFT_OUT = {"filt_block_inplace"}
+# JAX names the port leaves out on purpose: none (filt_block_inplace, the
+# last one, carries the history in place)
+LEFT_OUT = set()
 
 
 @pytest.mark.parametrize("where", ["top", "ops"])
