@@ -42,8 +42,8 @@ prints one line:
 5. times: kernel and plain version at the headline block, CUDA events,
    median of 7 runs after a warm-up; the kernel alone for one launch
    after a 256 MB write that evicts the 50 MB L2, and at 1//1, 4//1 and
-   1//4 with T = 24 random taps on the same 8 M samples, and one
-   65,536-sample block; every polyphase time here and in 5c-5e is taken
+   1//4 with T = 24 random taps on the same 8 M samples (with the plain
+   version), and one 65,536-sample block; every polyphase time here and in 5c-5e is taken
    for the planned variant and for the general one in turn.
 
 Then the same three steps for the arbitrary/Farrow path:
@@ -171,16 +171,17 @@ Then the same three steps for the runtime and its probe kernels
    ``polyphase_reg<entry::mr_polyphase_f32, ...>``. Prints
    ``stats()``, the stream's rate (Msps in, from the first push to the
    end of ``flush``) and one block's kernel time alone (CUDA events; the
-   resample block also with the general variant), the share of the
+   general variant and the plain version in turn), the share of the
    stream's wall time that the kernels fill;
 5e. times: ``utils.metrics.stream_copy_gbps()`` (32 M float32) and
    ``stream_expand_gbps()`` (8 M inputs at 1:4) with each store type, as
    GB/s and as a share of 3.35 TB/s (over 105% fails: the probe would be
    reading the cache; these ceilings are the denominators of every "% of
    copy ceiling"), with each probe's launch count over those calls;
-   each probe kernel after an L2 eviction (a 256 MB write; the expand
-   probe also after a 256 MB read, which leaves the L2 no dirty lines to
-   write back) against its bound, its plain version and ``Tensor.copy_``
+   each probe kernel after an L2 eviction (a 256 MB write; each probe
+   also after a 256 MB read, which leaves the L2 no dirty lines to write
+   back: the copy as GB/s under both evictions; the ceilings evict by the
+   read) against its bound, its plain version and ``Tensor.copy_``
    / ``torch.cat`` for the float32 store / one casting copy of the
    broadcast rows for bf16 and f16 (none for int8, whose scale and clamp
    take more calls); ``measure_chained`` on the 8 M
@@ -321,6 +322,16 @@ stored):
    (``main()``, with ``tests/test_examples.py``'s shrink keywords for
    ``arb_farrow_speed``), each with its kernel launches counted, and
    ``wav_resample --demo``'s 1 kHz amplitude within 0.45-0.55.
+
+5k. the port's benchmark harness, after 5f (its scaling run shares the
+   card): ``python3 -m multirate_tpu_torch.bench`` in a subprocess with a
+   time limit (its process group killed at the limit): exit 0; the 15
+   rows of ``bench.py`` in its order, each through ``path="kernel"`` with
+   the entry and variant ``BENCH_VARIANTS`` names, none over its oracle
+   budget, every ``roofline_pct`` <= 100 and ``pct_of_copy_ceiling`` <=
+   105, every timed chain queued inside its device sleep; chunked-vs-whole
+   RMS <= 1e-6; no scaling error; the last line with exactly the headline
+   keys of ``bench.py``. Prints the headline and the row table.
 
 Then a JSON line of the kernels (each with its bound: the larger of the
 bytes it must move over 3.35 TB/s and its multiply-adds over the card's
@@ -901,9 +912,12 @@ def phase_times(mt, torch, h, x, pp, card):
         g_args = (x2, hist, bank, L, M, 1, 1, n_g)
         g_ms, g_general = _time_variants(torch, pp.polyphase, g_args)
         g_bound = _polyphase_bound(torch, g_args, torch.float32, "f32")[0]
+        g_plain = _time_ms(torch, lambda: pp.polyphase_plain(*g_args),
+                           iters=2)
         geo.append(f"{L}//{M} {_plan_of(pp, g_args).variant} {g_ms:.4f} ms "
                    f"({N_HEAD / g_ms / 1e3:.1f} Msps in), general "
-                   f"{g_general:.4f} ms, bound {g_bound:.4f} ms")
+                   f"{g_general:.4f} ms, plain {g_plain:.4f} ms, bound "
+                   f"{g_bound:.4f} ms")
     # one 65,536-sample block of the stream (phase 4e): the grid's fill
     n_b = mt.outputlength(1 << 16, Fraction(147, 160))
     b_args = (x2[:, :1 << 16], h2, params.bank, 147, 160, 1, 1, n_b)
@@ -2085,6 +2099,9 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
         # the general variant in turn (the same call with it forced)
         gen_ms = _time_ms(torch, lambda: blk[0](*blk[1], variant="general"),
                           iters=20)
+        plain = (pp.polyphase_plain if blk[0] is pp.polyphase
+                 else rs.resample_plain)
+        plain_ms = _time_ms(torch, lambda: plain(*blk[1]), iters=2)
         busy = s.stats()["blocks"] * blk_ms / (sec * 1e3)
         whole = mt.filt(model.taps, x, *spec).cpu().numpy()
         check(y.dtype == np.float32 and y.shape == whole.shape
@@ -2106,7 +2123,8 @@ def phase_runtime(mt, torch, dev, pp, rs, x, card):
             f"from the first push to the end of flush"
             f"{', push loop under sync debug mode error' if s is s_d else ''}"
             f"); one block's kernel {blk_ms * 1e3:.2f} us (general variant "
-            f"{gen_ms * 1e3:.2f} us, bound {blk_bound[0] * 1e3:.3f} us, "
+            f"{gen_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+            f"{blk_bound[0] * 1e3:.3f} us, "
             f"{blk_bound[1]}) against "
             f"{sec * 1e3 / (st['blocks'] + 1):.3f} ms of the stream's wall "
             f"time a block: the kernels fill {busy:.2%} of it")
@@ -2212,8 +2230,7 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
 
     def cold_clean(fn):
         # evicted by a 256 MB read: the L2 holds no dirty lines, so the
-        # launch writes back none of the eviction's (a diagnostic beside
-        # the ceilings, which evict by a write)
+        # launch writes back none of the eviction's (as the ceilings evict)
         return _time_ms(torch, fn, iters=1, before=flush.sum)
 
     def max_abs_err(kern, plain, *args):
@@ -2229,6 +2246,8 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
         plain_ms=cold(lambda: probe.copy_plain(xs)), bound_ms=bound[0],
         bound_by=bound[1], library_ms=cold(lambda: ys.copy_(xs)))
     del ys
+    copy_clean_ms = cold_clean(lambda: probe.copy(xs))
+    copy_mb = 2 * 4 * xs.numel() / 1e6  # MB a copy: MB/ms is GB/s
     xe = xs[:8_000_000].view(-1, 128)
     ratio = 4
     exp_notes = []
@@ -2258,7 +2277,10 @@ def phase_runtime_times(mt, torch, x, xc, pp, rs, probe, card):
     c = out["probe_copy"]
     notes.append(
         f"one launch after an L2 eviction: copy of 32 M float32 "
-        f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, copy_ "
+        f"{c['ms']:.4f} ms after a 256 MB write ({copy_mb / c['ms']:.1f} "
+        f"GB/s), {copy_clean_ms:.4f} ms after a 256 MB read "
+        f"({copy_mb / copy_clean_ms:.1f} GB/s), plain "
+        f"{c['plain_ms']:.4f} ms, copy_ "
         f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms (bytes); "
         f"expand 1:4 of 8 M float32: {'; '.join(exp_notes)} (library: cat "
         f"for the float32 store, one casting copy of the broadcast rows for "
@@ -2762,6 +2784,90 @@ def phase_sharded_nccl(mt, torch, dev, pp, x):
           f"8 steady-state blocks of 65,600 through shard_filt_block + "
           f"compact_device under set_sync_debug_mode('error'): no sync, "
           f"{n} launches, max error {err:.3e} of max|y| against filt")
+
+
+BENCH_TIMEOUT_S = 300
+BENCH_HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline",
+                       "chunked_vs_whole_rms", "oracle_rel_rms",
+                       "roofline_pct", "stream_copy_gbps",
+                       "pct_of_copy_ceiling"}
+# bench.py's rows in its order, with the "<entry>/<variant>" each runs
+# (polyphase.plan and resample.plan at the rows' shapes)
+BENCH_VARIANTS = {
+    "rational_147_160": "f32/reg", "rational_147_160_bf16": "bf16/reg",
+    "rational_147_160_int8": "s8/reg", "rational_147_160_c64": "c64/reg",
+    "rational_147_160_f64": "f64/reg", "standard_147taps": "f32/bcast",
+    "decim_1_4": "f32/bcast", "interp_4_1": "f32/slide",
+    "interp_4_1_bf16out": "f32_bf16out/slide",
+    "arbitrary_0.4709": "f32/t10p2", "arbitrary_refrate": "f32/t10p2",
+    "farrow_refrate": "f32/t10p5", "farrow_0.4709": "f32/t10p5",
+    "farrow_64ch_batched": "f32/t10p5", "farrow_64ch_tmajor": "f32_tm/t10p5"}
+
+
+def phase_bench(card):
+    """5k: ``python3 -m multirate_tpu_torch.bench`` in a subprocess."""
+    import os
+    import signal
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    sidecar = root / "build" / "chip_smoke_bench_sidecar.json"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multirate_tpu_torch.bench", "--sidecar",
+         str(sidecar)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"the bench ran past {BENCH_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the bench exited {proc.returncode}: {err[-4000:]}")
+    lines = out.strip().splitlines()
+    head = json.loads(lines[-1])
+    check(set(head) == BENCH_HEADLINE_KEYS, f"headline keys {sorted(head)}")
+    with open(sidecar) as fh:
+        side = json.load(fh)
+    rows = side["configs"]
+    check([r["name"] for r in rows] == list(BENCH_VARIANTS),
+          f"bench rows {[r['name'] for r in rows]}")
+    check("accuracy_failures" not in side,
+          f"over the oracle budget: {side.get('accuracy_failures')}")
+    check(side["chunked_vs_whole_rms"] <= TOL_CHUNKED,
+          f"chunked-vs-whole RMS {side['chunked_vs_whole_rms']:.3e}")
+    check("error" not in side["scaling"], f"scaling: {side['scaling']}")
+    table = []
+    for r in rows:
+        check(r["path"] == "kernel" and r["variant"] == BENCH_VARIANTS[
+            r["name"]], f"{r['name']}: path {r['path']}, variant "
+                        f"{r['variant']}")
+        check(r["roofline_pct"] <= 100
+              and r["pct_of_copy_ceiling"] <= 100 * MAX_CEILING_SHARE,
+              f"{r['name']}: {r['roofline_pct']:.1f}% of the roofline, "
+              f"{r['pct_of_copy_ceiling']:.1f}% of the copy ceiling")
+        check(r["queued_ms"] < r["lead_ms"],
+              f"{r['name']}: queued in {r['queued_ms']:.3f} ms behind a "
+              f"{r['lead_ms']:.3f}-ms lead")
+        table.append(
+            f"{r['name']} {r['variant']} {r['device_us_per_call']:.2f} us "
+            f"a call (host {r['host_us_per_call']:.2f}; on one buffer "
+            f"{r['l2_us_per_call']:.2f}; one launch after a read eviction "
+            f"{r['cold_us']:.2f}), {r['msps_in']:.1f} Msps "
+            f"in, {r['roofline_pct']:.1f}% roofline, "
+            f"{r['pct_of_copy_ceiling']:.1f}% copy ceiling, "
+            f"{r['bytes_per_call'] / 1e6:.1f} MB a call over "
+            f"{r['buffers']} buffers, chain {r['chain_calls']} "
+            f"({r['chains_retried']} retried; queued {r['queued_ms']:.2f} "
+            f"of {r['lead_ms']:.2f} ms), oracle {r['oracle_rel_rms']:.3e}")
+    print(f"[5k bench] python3 -m multirate_tpu_torch.bench: {secs:.1f} s; "
+          f"copy ceiling {side['stream_copy_gbps']:.1f} GB/s; median of 3 "
+          f"headline runs {rows[0]['msps_in_median3']:.1f} Msps in; card: "
+          f"{card}; headline {lines[-1]}")
+    print("[5k bench rows] " + " | ".join(table))
+    return side
 
 
 def phase_scaling(card):
@@ -3920,6 +4026,7 @@ def main() -> int:
         phase_edges(mt, torch, dev, pp, rs, x)
         phase_examples(torch, pp, rs)
         phase_scaling(card)
+        phase_bench(card)
         check("jax" not in sys.modules, "jax was imported")
     except Exception:  # the smoke's boundary: report and fail
         traceback.print_exc()

@@ -644,6 +644,149 @@ def test_stream_expand_counts_bytes_as_jax(odt, ratio, monkeypatch):
     assert tuple(y.shape) == (300, ratio * 128)
 
 
+class _FakeCard:
+    """torch.cuda's timing calls on a model card (sequential device clock,
+    _sleep at 2 GHz) and the host clock of metrics, each call of ``fn``
+    taking ``host_s`` to queue and ``dev_s`` on the card."""
+
+    def __init__(self, host_s, dev_s):
+        self.host, self.dev = 0.0, 0.0
+        self.host_s, self.dev_s = host_s, dev_s
+        self.calls, self.slow_after, self.slow_s = 0, float("inf"), None
+        self.sleeps = []
+        card = self
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                self.at = None
+
+            def record(self):
+                self.at = card.dev
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, end):
+                return (end.at - self.at) * 1e3
+
+        self.Event = Event
+
+    def sleep(self, cycles):
+        self.sleeps.append(cycles)
+        self.dev += cycles / 2e9
+
+    def perf_counter(self):
+        return self.host
+
+    def fn(self):
+        self.calls += 1
+        if self.calls > self.slow_after:
+            self.host_s = self.slow_s
+        self.host += self.host_s
+        self.dev += self.dev_s
+
+    def install(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "Event", self.Event)
+        monkeypatch.setattr(torch.cuda, "_sleep", self.sleep)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+        monkeypatch.setattr(metrics.time, "perf_counter", self.perf_counter)
+
+
+@pytest.mark.parametrize("calls,host_s,want_calls,want_retried", [
+    (30, 1e-4, 30, 0),    # queued inside the first 10 ms sleep
+    (30, 1e-3, 30, 2),    # 30 ms to queue: the sleep doubles twice
+    (400, 1e-3, 50, 6),   # past the longest sleep: the chain halves
+])
+def test_timing_runs_again_where_the_host_fell_behind(
+        calls, host_s, want_calls, want_retried, monkeypatch):
+    card = _FakeCard(host_s, 2e-5)
+    card.install(monkeypatch)
+    t = metrics._timing(card.fn, "cuda", calls, 3)
+    assert (t.calls, t.retried) == (want_calls, want_retried)
+    assert t.seconds == pytest.approx(2e-5)
+    assert t.host_seconds == pytest.approx(host_s)
+    assert t.queued_s == pytest.approx(want_calls * host_s)
+    assert t.queued_s < t.lead_s == pytest.approx(card.sleeps[-1] / 2e9)
+    assert card.sleeps[-1] <= metrics._MAX_SLEEP_CYCLES
+    assert len(card.sleeps) == 3 + want_retried
+
+
+def test_timing_reports_the_tightest_kept_run(monkeypatch):
+    card = _FakeCard(1e-4, 2e-5)
+    card.slow_after, card.slow_s = 31, 5e-4  # slower after warm-up and run 1
+    card.install(monkeypatch)
+    t = metrics._timing(card.fn, "cuda", 30, 3)
+    # run 1: 3 ms inside 10; run 2: 15 ms past 10, again behind 20 ms
+    assert t.retried == 1 and card.sleeps == [20_000_000] * 2 + [
+        40_000_000] * 2
+    assert (t.queued_s, t.lead_s) == (pytest.approx(0.015),
+                                      pytest.approx(0.02))
+
+
+def test_timing_refuses_a_call_longer_than_the_longest_sleep(monkeypatch):
+    card = _FakeCard(0.2, 2e-5)  # 200 ms a call against an 80 ms sleep
+    card.install(monkeypatch)
+    with pytest.raises(RuntimeError, match="past a device sleep"):
+        metrics._timing(card.fn, "cuda", 4, 3)
+
+
+def test_chained_calls_rotate_their_buffers(monkeypatch):
+    import weakref
+
+    x = torch.zeros(1000)
+    seen, outs = [], []
+
+    def fn(xb):
+        seen.append(xb.data_ptr())
+        y = torch.zeros(250)
+        outs.append(weakref.ref(y))
+        return y
+
+    # 5000 bytes a call: three other calls between two touches of a buffer
+    monkeypatch.setattr(metrics, "_clear_bytes", lambda device: 15_000)
+    call, k = metrics._rotating(fn, x, 1000)
+    assert k == 4
+    for _ in range(9):
+        call()
+    assert seen[0] == x.data_ptr() and len(set(seen)) == 4
+    assert seen == seen[:4] * 2 + seen[:1]
+    assert [r() is not None for r in outs] == [False] * 5 + [True] * 4
+    # the CPU needs no rotation; the card moves _CLEAR_BYTES between
+    monkeypatch.undo()
+    assert metrics._rotating(fn, x, 1000)[1] == 1
+    assert metrics._clear_bytes("cuda") == 100 << 20
+
+
+def test_chained_timing_reports_its_buffers(monkeypatch):
+    p = mt.make_kernel(_taps(), ratio=Fraction(21, 20), device="cpu")
+    x = torch.randn(3000)
+    monkeypatch.setattr(metrics, "_clear_bytes", lambda device: 10 ** 5)
+    t = metrics.chained_timing(p, mt.init_state(p), x, repeat=4, iters=2)
+    per_call = 4 * (3000 + mt.outputlength(p, 3000))
+    assert t.buffers == 1 + -(-10 ** 5 // per_call)
+    assert t.calls == 4 and t.lead_s is None and t.seconds > 0
+
+
+def test_probe_evicts_with_a_read(monkeypatch):
+    seen = {}
+    zeros = torch.zeros
+
+    def timing(fn, device, calls, iters, before=None):
+        seen.update(calls=calls, iters=iters, before=before)
+        return metrics.Timing(1e-3, 1e-3, calls, 1e-3, 1.0)
+
+    monkeypatch.setattr(metrics, "_timing", timing)
+    monkeypatch.setattr(metrics, "_EVICT_BYTES", 4096)
+    monkeypatch.setattr(torch, "zeros", lambda n, dtype, device: zeros(
+        n, dtype=dtype))
+    assert metrics._probe_seconds(lambda: None, "cuda", 5) == 1e-3
+    evict = seen["before"].__self__
+    assert (seen["calls"], seen["iters"]) == (1, 5)
+    assert seen["before"].__name__ == "sum" and evict.numel() == 1024
+    seen["before"]()
+    assert not evict.any()  # read, never written
+
+
 # JAX names the port leaves out on purpose: none (filt_block_inplace, the
 # last one, carries the history in place)
 LEFT_OUT = set()
