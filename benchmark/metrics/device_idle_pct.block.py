@@ -1,0 +1,8 @@
+"""``device_idle_pct.block``: the share of the traced window in which no
+kernel, copy or fill ran on the device, in %, in the block cells."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
