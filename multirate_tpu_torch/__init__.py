@@ -42,6 +42,9 @@ Entry points run on the card unless the caller names the CPU
 This package imports torch and numpy only, never JAX.
 """
 
+# ``utils`` before ``ops``: its tracer loads before the ops' span sites
+# import it (``utils/__init__.py``)
+from . import utils  # noqa: F401  (isort: skip)
 from .design import (
     FIRResponse,
     LOWPASS,

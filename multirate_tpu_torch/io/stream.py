@@ -15,6 +15,13 @@ that the next pop overwrites), is staged through pinned memory and goes to
 the card with a non-blocking copy, so the loop makes no synchronizing
 call; ``pull`` is the one place where output moves to the host.
 
+Under a profiler the stream records the tracer's spans
+(``utils.profiling``): ``mr.stream.push`` and ``mr.stream.pull`` around
+the public calls that do work, ``mr.stream.ring_push`` and
+``mr.stream.ring_pop`` in the ring, ``mr.stream.block`` around a block's
+staging and filtering, ``mr.stream.stage`` around its staging and
+``mr.stream.to_host`` around the pull's copy to host memory.
+
 The reference has no streaming runtime (its user loops over filt calls,
 e.g. examples/Interactive Farrow Example.jl); this is the production-shaped
 equivalent for a device-accelerated pipeline.
@@ -35,6 +42,7 @@ from ..ops.api import FIRFilter
 from ..ops.cuda.build import build
 from ..ops.params import default_device
 from ..utils.checkpoint import state_from_host, state_to_host
+from ..utils.profiling import recording, span
 
 __all__ = ["RingBuffer", "StreamingResampler", "build_native"]
 
@@ -101,7 +109,13 @@ class RingBuffer:
 
     def push(self, chunk) -> int:
         """Append samples (float32 or int16 array); returns samples queued
-        (0 if the ring is full)."""
+        (0 if the ring is full). Traced as ``mr.stream.ring_push``."""
+        return self._push(chunk, recording())
+
+    def _push(self, chunk, on: bool) -> int:
+        if on:
+            with span("mr.stream.ring_push", True):
+                return self._push(chunk, False)
         a = np.ascontiguousarray(chunk)
         if a.dtype == np.int16:
             return self._lib.mr_ring_push_i16(
@@ -112,7 +126,14 @@ class RingBuffer:
 
     def pop_block(self, block: int):
         """Pop exactly ``block`` samples as a numpy copy, or None. (The
-        native pop returns a scratch buffer that the next pop overwrites.)"""
+        native pop returns a scratch buffer that the next pop overwrites.)
+        Traced as ``mr.stream.ring_pop``."""
+        return self._pop_block(block, recording())
+
+    def _pop_block(self, block: int, on: bool):
+        if on:
+            with span("mr.stream.ring_pop", True):
+                return self._pop_block(block, False)
         p = self._lib.mr_ring_pop_block(self._ptr, block)
         if not p:
             return None
@@ -183,7 +204,10 @@ class StreamingResampler:
     def state(self):
         return self._filter.state
 
-    def _to_device(self, blk: np.ndarray) -> torch.Tensor:
+    def _to_device(self, blk: np.ndarray, on: bool) -> torch.Tensor:
+        if on:
+            with span("mr.stream.stage", True):
+                return self._to_device(blk, False)
         x = torch.from_numpy(blk)
         if self.device.type == "cpu":
             return x
@@ -192,12 +216,18 @@ class StreamingResampler:
         # its copy has ended.
         return x.pin_memory().to(self.device, non_blocking=True)
 
-    def _run_block(self, blk: np.ndarray):
-        t0 = time.perf_counter()
+    def _run_block(self, blk: np.ndarray, on: bool):
         # y stays on the device (host transfer deferred to pull()): the
-        # count is closed-form on the host, so nothing waits for the card
-        y = self._filter.filt(self._to_device(blk))
-        dt = time.perf_counter() - t0
+        # count is closed-form on the host, so nothing waits for the card.
+        # The block's time is the span's, from the same two clock reads.
+        if on:
+            with span("mr.stream.block", True) as sp:
+                y = self._filter.filt(self._to_device(blk, True))
+            dt = (sp.end_ns - sp.start_ns) * 1e-9
+        else:
+            t0 = time.perf_counter_ns()
+            y = self._filter.filt(self._to_device(blk, False))
+            dt = (time.perf_counter_ns() - t0) * 1e-9
         self._out.append(y)
         self._blocks += 1
         self._consumed += blk.size
@@ -213,9 +243,11 @@ class StreamingResampler:
     def stats(self) -> dict:
         """Per-block observability: counters and block times.
 
-        The block times are host wall time to dispatch a block (ring pop,
-        staging, the filter's host work and the kernel launch); the card
-        runs asynchronously, so they are not kernel time.
+        The block times are host wall time to dispatch a block once the
+        ring has given it up (staging, the filter's host work and the
+        kernel launch; not the ring's pop), the interval of the span
+        ``mr.stream.block``; the card runs asynchronously, so they are not
+        kernel time.
         """
         return {
             "blocks": self._blocks,
@@ -252,32 +284,52 @@ class StreamingResampler:
         return self._consumed
 
     def push(self, chunk) -> int:
-        """Queue samples; runs the filter for every complete block."""
+        """Queue samples; runs the filter for every complete block.
+        Traced as ``mr.stream.push``."""
         if self._ended:
             raise RuntimeError("stream was flushed; call reset() to reuse")
-        queued = self.ring.push(chunk)
+        if not recording():
+            return self._push(chunk, False)
+        with span("mr.stream.push", True):
+            return self._push(chunk, True)
+
+    def _push(self, chunk, on: bool) -> int:
+        # the ring's private entries take the answer: one check a push
+        queued = self.ring._push(chunk, on)
         while True:
-            blk = self.ring.pop_block(self.block_size)
+            blk = self.ring._pop_block(self.block_size, on)
             if blk is None:
                 break
-            self._run_block(blk)
+            self._run_block(blk, on)
         return queued
 
     def pull(self) -> np.ndarray:
         """All output produced so far (concatenated); empties the queue.
-        This is where the deferred device->host transfer happens."""
+        This is where the deferred device->host transfer happens. A pull
+        that moves output is traced as ``mr.stream.pull``."""
         if not self._out:
             return np.empty(0, np.float32)
-        out = torch.cat(self._out, dim=-1).cpu().numpy()
+        if not recording():
+            return self._pull(False)
+        with span("mr.stream.pull", True):
+            return self._pull(True)
+
+    def _pull(self, on: bool) -> np.ndarray:
+        y = torch.cat(self._out, dim=-1)
+        if on:
+            with span("mr.stream.to_host", True):
+                y = y.cpu()
+        else:
+            y = y.cpu()
         self._out.clear()
-        return out
+        return y.numpy()
 
     def flush(self) -> np.ndarray:
         """Run the remaining sub-block tail and return all output; the
         stream is then ended."""
         tail = self.ring.drain()
         if tail.size:
-            y = self._filter.filt(self._to_device(tail))
+            y = self._filter.filt(self._to_device(tail, recording()))
             self._out.append(y)
             self._consumed += tail.size
             self._produced += y.shape[-1]

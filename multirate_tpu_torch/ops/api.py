@@ -29,6 +29,7 @@ from fractions import Fraction
 
 import torch
 
+from ..utils.profiling import recording, span
 from . import indexing as _idx
 from .compute import (check_path, filt_block_inplace, filt_block_raw,
                       filt_block_tm_raw)
@@ -197,7 +198,14 @@ class FIRFilter:
                 f"call reset() before a stream with a new batch shape")
 
     def filt(self, x):
-        """Filter a chunk, carrying streaming state across calls."""
+        """Filter a chunk, carrying streaming state across calls. Traced
+        as the span ``mr.api.filt``."""
+        if not recording():
+            return self._filt(x)
+        with span("mr.api.filt", True):
+            return self._filt(x)
+
+    def _filt(self, x):
         x = _as_signal(x, self.device)
         self._ensure_state(x)
         step = filt_block_inplace if x.is_cuda else filt_block

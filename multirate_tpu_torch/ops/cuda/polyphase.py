@@ -61,6 +61,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import recording, span
 from ..dtypes import NARROW, NARROW_COMPLEX, NARROW_OUT
 from ..indexing import rational_indices
 from ..precision import fp32
@@ -404,6 +405,18 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
                                out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no polyphase kernel for device {x.device}")
+    if not recording():
+        return _launch(x, hist, bank, L, M, phi0, d0, n_out, out_dtype,
+                       variant, shape)
+    with span("mr.kernel.launch", True):
+        return _launch(x, hist, bank, L, M, phi0, d0, n_out, out_dtype,
+                       variant, shape)
+
+
+def _launch(x, hist, bank, L, M, phi0, d0, n_out, out_dtype, variant,
+            shape):
+    """y, after one launch of the planned variant, counted by entry point
+    and variant; nothing runs for no output."""
     check_aligned(x=x, hist=hist, bank=bank)
     p = plan(*shape, variant)
     y = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)

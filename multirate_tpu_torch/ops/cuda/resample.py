@@ -58,6 +58,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import recording, span
 from ..dtypes import NARROW, NARROW_COMPLEX, NARROW_OUT
 from ..indexing import ACCUM_OPERAND_BITS, _muladd_divmod, accum_indices
 from ..params import PHASE_FRAC_BITS, FIRArbitrary, FIRFarrow
@@ -456,8 +457,12 @@ def _run(x, hist, params, u0, d0, n_out, out_dtype, time_major, variant):
         return plain(x, hist, params, u0, d0, n_out, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {x.device}")
-    return _launch(x, hist, params, u0, d0, n_out, out_dtype, time_major,
-                   variant)
+    if not recording():
+        return _launch(x, hist, params, u0, d0, n_out, out_dtype,
+                       time_major, variant)
+    with span("mr.kernel.launch", True):
+        return _launch(x, hist, params, u0, d0, n_out, out_dtype,
+                       time_major, variant)
 
 
 def resample(x, hist, params, u0: int, d0: int, n_out: int,
