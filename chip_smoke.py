@@ -1052,9 +1052,10 @@ def phase_resample_slice(mt, torch, dev, rs):
           f"resample launches {rs.launches}; want f32 {want[0]}, "
           f"f32_tm {want[1]}")
     # every row through its compiled variant: T = 10, P+1 = 2 (arbitrary)
-    # or 5 (Farrow)
-    want_v = {"f32/t10p2": 1 + n_chunks, "f32/t10p5": 2 + n_chunks,
-              "f32_tm/t10p5": 1}
+    # or 5 (Farrow); the whole block at 1/2.123456789 through its grouped
+    # path (243 outputs keep a phase), its chunks through the run path
+    want_v = {"f32/t10p2.grouped": 1, "f32/t10p2": n_chunks,
+              "f32/t10p5": 2 + n_chunks, "f32_tm/t10p5": 1}
     check(by_variant == want_v,
           f"variants launched {by_variant}, want {want_v}")
     notes = []
@@ -2799,8 +2800,9 @@ BENCH_VARIANTS = {
     "rational_147_160_f64": "f64/reg", "standard_147taps": "f32/bcast",
     "decim_1_4": "f32/bcast", "interp_4_1": "f32/slide",
     "interp_4_1_bf16out": "f32_bf16out/slide",
-    "arbitrary_0.4709": "f32/t10p2", "arbitrary_refrate": "f32/t10p2",
-    "farrow_refrate": "f32/t10p5", "farrow_0.4709": "f32/t10p5",
+    "arbitrary_0.4709": "f32/t10p2",
+    "arbitrary_refrate": "f32/t10p2.grouped",
+    "farrow_refrate": "f32/t10p5.grouped", "farrow_0.4709": "f32/t10p5",
     "farrow_64ch_batched": "f32/t10p5", "farrow_64ch_tmajor": "f32_tm/t10p5"}
 
 
@@ -3110,10 +3112,14 @@ def phase_narrow_slice(mt, torch, dev, pp, rs, x, card):
             "resample_s8": 2 * n_rate}
     check(launches == want,
           f"4g launches {launches}, want {want} (no float32 entry)")
-    check(by_variant == {"s16/reg": 2 + n_chunks, "u8/t10p2": 1 + n_iq_chunks,
-                         "u8_tm/t10p2": 1, "bf16/t10p2": n_rate,
-                         "bf16/t10p5": n_rate, "s8/t10p2": n_rate,
-                         "s8/t10p5": n_rate}, f"4g variants {by_variant}")
+    # the whole blocks at 1/2.123456789 through the grouped path, their
+    # chunks and the 0.4709 rows through the run path
+    check(by_variant == {"s16/reg": 2 + n_chunks, "u8/t10p2.grouped": 1,
+                         "u8/t10p2": n_iq_chunks, "u8_tm/t10p2": 1,
+                         "bf16/t10p2.grouped": 1, "bf16/t10p2": n_rate - 1,
+                         "bf16/t10p5": n_rate, "s8/t10p2.grouped": 1,
+                         "s8/t10p2": n_rate - 1, "s8/t10p5": n_rate},
+          f"4g variants {by_variant}")
     notes = []
     # the int16 headline: one launch, no cast pass (no block of float32
     # samples: the peak allocation is the output)

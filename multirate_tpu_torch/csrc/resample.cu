@@ -108,6 +108,20 @@
 //   samples apart, else 1 (plan(); tools/resample_runs.py times every
 //   run on the card, PERF.md); a warp gathers its outputs in shared
 //   memory and stores them coalesced.
+// - Grouped (one channel, float32 table, compiled T = 10, at a rate with a
+//   phase-preserving stride; resample_grouped_kernel). Runs still read
+//   T*(P+1) = 50 table words an output at P+1 = 5: 5/6 of the dot's
+//   shared-memory wavefronts re-read one small table. Outputs a stride of
+//   K apart whose step K*delta lies within 2^20 of a multiple of D share
+//   their phase (K = 243 at 1/2.123456789: 516.0000087 samples), so a
+//   thread runs one progression of them, holds its phase's table words in
+//   registers and reads only T window words an output. The host picks the
+//   path (plan()): where no stride up to 256 keeps the phase, or the call
+//   gives a thread fewer than 8 outputs a tile, the runs above serve it.
+//   What bounds it now is issue: ~70 instructions an output (the same
+//   T*(P+1) Horner FMAs and T multiply-adds as every variant, the digit
+//   walk, the window loads) at about half the SM's issue rate, with two
+//   blocks of 8 warps an SM (PERF.md); device memory comes next.
 // - Tiles sized by the host so the grid fills the card (2 x 132 work items
 //   where there are outputs enough) and a block's shared memory stays near
 //   64 KB; blocks persist, at most as many as the card holds at once, and
@@ -127,7 +141,8 @@
 // Bound: device memory moves sizeof(X) bytes per input and per output; per
 // output and channel the kernel reads T window words from shared memory
 // and issues T multiply-adds in X, and per output (not per channel) T*(P+1)
-// table words and Horner steps. Measured times live in PERF.md.
+// table words (none on the grouped path) and Horner steps. Measured times
+// live in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,6 +176,8 @@ constexpr int kLanes = 32;        // time-major: channels a block
 constexpr int kGroupCM = 8;       // channel-major: channels a block, C >= 8
 constexpr int kMaxTileCM = 1024;  // outputs a tile, at most
 constexpr int kMaxTileTM = 256;
+constexpr int kThreadsG = 256;     // grouped: threads a block, at most
+constexpr int kMaxTileG = 8192;    // grouped: outputs a tile, at most
 constexpr int64_t kMaxGridX = 65535;
 constexpr size_t kSmemLimit = 226 * 1024;  // dynamic, beside the static
 constexpr size_t kTableSmemLimit = 96 * 1024;
@@ -170,7 +187,9 @@ constexpr float kTwoPowMinus32 = 2.3283064365386963e-10f;  // exactly 2^-32
 
 // Variants by the number the entry points take (ops/cuda/resample.py
 // VARIANTS), and the (T, P+1) each compiled one is built for.
-enum Variant { kGeneral = 0, kT10P2 = 1, kT10P5 = 2, kT73P2 = 3 };
+enum Variant {
+  kGeneral = 0, kT10P2 = 1, kT10P5 = 2, kT73P2 = 3, kT10P2G = 4, kT10P5G = 5
+};
 
 // (q, r) = divmod(u0 + n0*delta, nphi << 32), exact for a sum below 2^96.
 __device__ __forceinline__ void tile_base(uint64_t n0, uint64_t delta,
@@ -603,6 +622,176 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
   }
 }
 
+// Words of one phase's row of a grouped block's table: T*(P+1), rounded up
+// to whole 16-byte loads.
+__host__ __device__ constexpr int table_row(int T, int P1) {
+  return (T * P1 + 3) / 4 * 4;
+}
+
+// Shared bytes of one grouped block: the table by phase, a double buffer of
+// spans as stored (xsz bytes a sample) and, for a narrow read, one widened
+// (csz), and the tile's outputs (float, a word of padding every 32).
+size_t grouped_smem_bytes(int tile, int T, int P1, uint32_t nphi,
+                          uint64_t delta, size_t xsz, size_t csz) {
+  const size_t rows =
+      (size_t)row_samples((int)span_of(tile, T, nphi, delta), xsz);
+  size_t b = round16((size_t)nphi * table_row(T, P1) * sizeof(float));
+  b += 2 * round16(rows * xsz);
+  if (csz != xsz) b += round16(rows * csz);
+  b += round16(((size_t)tile + tile / 32) * sizeof(float));
+  return b;
+}
+
+// The grouped one-channel path (variants t10p2.grouped, t10p5.grouped):
+// float32 tables and float32 or narrow-read samples, channel-major blocks
+// of one channel, at a rate with a phase-preserving stride: K outputs whose
+// step K*delta lies within a sliver (2^20) of a multiple of D, a whole
+// number of samples, so that outputs K apart share their phase (the host
+// takes the least such k and K = k * (256 / k) threads: at 1/2.123456789,
+// k = 81 outputs step 172.0000029 samples, K = 243). A tile of K*R outputs
+// is K progressions j = s + K*r (s < K, r < R); thread i takes the one that
+// starts at s = i*m mod K, so that the lanes of a warp sit m outputs apart
+// (m*delta/D within 1/32 of an odd number of samples: their window words
+// fall on 32 banks). A thread holds its
+// phase's T*(P+1) table words in registers and reloads them only where its
+// phase changes: once in a block's life, and where the sliver carries a
+// fraction past a phase. A block walks a contiguous run of tiles, so each
+// tile's progressions continue the last's. Per tile the dot reads T window
+// words an output from shared memory (and no table word); the outputs go
+// to shared memory (padded a word every 32) and out coalesced, while the
+// next tile's span loads into the other buffer.
+// Every output is the run path's bits: the same (offset, phase, fraction),
+// by the same digit walk, eval_tap's Horner over alpha from the same table
+// words, then mac over t = 0..T-1 into one float.
+template <typename XR, typename Out, int kT, int kP1>
+__global__ void __launch_bounds__(kThreadsG, 2)
+resample_grouped_kernel(const XR* __restrict__ x,
+                        const XR* __restrict__ hist,
+                        const float* __restrict__ table, Out* __restrict__ y,
+                        int64_t C, int64_t xlen, int nphi_, uint64_t delta,
+                        uint64_t u0, int64_t d0, int64_t n_out, int tile,
+                        int span, int64_t n_tiles, int stride, int mult) {
+  using X = typename Staged<XR>::type;  // float
+  constexpr bool kNarrow = !std::is_same<X, XR>::value;
+  constexpr int kRow = table_row(kT, kP1);
+  const uint32_t nphi = (uint32_t)nphi_;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t s_base[2][2];  // (q0, r0) of this item and the next
+  const int rs = row_samples(span, sizeof(XR));
+  size_t at = 0;
+  auto carve = [&](size_t bytes) {
+    unsigned char* p = smem_raw + at;
+    at += round16(bytes);
+    return p;
+  };
+  float* const s_tab =
+      reinterpret_cast<float*>(carve((size_t)nphi * kRow * sizeof(float)));
+  XR* const buf0 = reinterpret_cast<XR*>(carve(rs * sizeof(XR)));
+  const size_t buf_stride = round16(rs * sizeof(XR)) / sizeof(XR);
+  carve(rs * sizeof(XR));
+  X* const s_wide =
+      kNarrow ? reinterpret_cast<X*>(carve(rs * sizeof(X))) : nullptr;
+  float* const s_y = reinterpret_cast<float*>(carve(0));
+  // this block's items: a contiguous run
+  const int64_t total = n_tiles * C;
+  const int64_t per = total / gridDim.x, extra = total % gridDim.x;
+  int64_t w = blockIdx.x * per + min((int64_t)blockIdx.x, extra);
+  const int64_t w_end = w + per + (blockIdx.x < extra);
+  if (w >= w_end) return;
+  const int tid = (int)threadIdx.x;
+  // the table by phase: row phi holds table[p, t, phi] at p*kT + t
+  for (int i = tid; i < kP1 * kT * nphi_; i += blockDim.x) {
+    const int pt = i / nphi_;
+    s_tab[(i - pt * nphi_) * kRow + pt] = table[i];
+  }
+  const int H = kT - 1;
+  const int shift = (nphi & (nphi - 1)) == 0 ? __ffs(nphi_) - 1 : -1;
+  const bool runs = tid < stride;  // threads past the stride only stage
+  const int j0 = (int)((int64_t)tid * mult % stride);  // its first output
+  const int rows = tile / stride;
+  const Digits d_first = split((uint64_t)j0 * delta, nphi, shift);
+  const Digits d_step = split((uint64_t)stride * delta, nphi, shift);
+
+  auto base_of = [&](int64_t item, int slot) {
+    uint64_t q, r;
+    tile_base((uint64_t)(item % n_tiles) * tile, delta, u0, nphi, &q, &r);
+    s_base[slot][0] = q;
+    s_base[slot][1] = r;
+  };
+  if (tid == 0) base_of(w, 0);
+  __syncthreads();
+  int lead_cur, lead_next;
+  stage<XR, false, 1>(buf0, rs, &lead_cur, x, hist, C, xlen, H, w / n_tiles,
+                      d0 - 1 + (int64_t)s_base[0][0], span);
+  cp_async_commit();
+  uint32_t cur_phi = 0xffffffffu;
+  float tab[kRow];
+  for (int cur = 0; w < w_end; ++w, cur ^= 1) {
+    if (tid == 0 && w + 1 < w_end) base_of(w + 1, cur ^ 1);
+    // the other buffer's and the outputs' last readers are done; the next
+    // base is written (and, once, the table)
+    __syncthreads();
+    if (w + 1 < w_end)
+      stage<XR, false, 1>(buf0 + (cur ^ 1) * buf_stride, rs, &lead_next, x,
+                          hist, C, xlen, H, (w + 1) / n_tiles,
+                          d0 - 1 + (int64_t)s_base[cur ^ 1][0], span);
+    cp_async_commit();
+    const int64_t g = w / n_tiles;
+    const int64_t n0 = (w - g * n_tiles) * tile;
+    const int nt = (int)(n_out - n0 < tile ? n_out - n0 : tile);
+    const uint64_t r0 = s_base[cur][1];
+    cp_async_wait_one();  // this item's span has landed (the next may not)
+    __syncthreads();
+    const X* xw;
+    if constexpr (kNarrow) {  // widened once, read T times an output
+      for (int i = tid; i < rs; i += blockDim.x)
+        s_wide[i] = mr::widen<X>(buf0[cur * buf_stride + i]);
+      __syncthreads();
+      xw = s_wide + lead_cur;
+    } else {
+      xw = buf0 + cur * buf_stride + lead_cur;
+    }
+    if (runs) {
+      Pos p = add(Pos{0, (uint32_t)(r0 >> 32), (uint32_t)r0}, d_first, nphi);
+      for (int r = 0, j = j0; r < rows && j < nt; ++r, j += stride) {
+        if (p.phi != cur_phi) {  // once a block, and where the sliver carries
+          cur_phi = p.phi;
+          const float4* row =
+              reinterpret_cast<const float4*>(s_tab + cur_phi * kRow);
+#pragma unroll
+          for (int i = 0; i < kRow / 4; ++i) {
+            const float4 v = row[i];
+            tab[4 * i] = v.x;
+            tab[4 * i + 1] = v.y;
+            tab[4 * i + 2] = v.z;
+            tab[4 * i + 3] = v.w;
+          }
+        }
+        float alpha;
+        to_alpha(p.fr, &alpha);
+        const X* const wx = xw + p.off;
+        float acc = mr::zero<float>();
+#pragma unroll
+        for (int t = 0; t < kT; ++t) {
+          float tap = tab[(kP1 - 1) * kT + t];
+#pragma unroll
+          for (int q = kP1 - 2; q >= 0; --q)
+            tap = horner(tap, alpha, tab[q * kT + t]);
+          acc = mac(acc, wx[t], tap);
+        }
+        s_y[j + (j >> 5)] = acc;
+        p = add(p, d_step, nphi);
+      }
+    }
+    __syncthreads();  // every output of the tile is written
+    Out* const yt = y + g * n_out + n0;
+#pragma unroll 4
+    for (int i = tid; i < nt; i += blockDim.x)
+      yt[i] = mr::narrow<Out>(s_y[i + (i >> 5)]);
+    lead_cur = lead_next;
+  }
+}
+
 // At most as many blocks of ``kern`` as the card holds at once: the plan's
 // grid is an upper bound, and a persistent block stages its table once.
 template <typename K>
@@ -683,13 +872,55 @@ int launch_variant(const void* x, const void* hist, const void* table,
   return kErrBadPlan;
 }
 
+// A grouped launch (t10p2.grouped, t10p5.grouped) on the plan (tile, cb,
+// run, grid, stride, mult): one-channel blocks (cb 1, run 1) of the stride's
+// threads in whole warps (at most kThreadsG), tiles of whole progressions up
+// to kMaxTileG, a multiplier prime to the stride.
+template <typename XR, typename Out, int kT, int kP1>
+int launch_grouped(const void* x, const void* hist, const void* table,
+                   void* y, int64_t C, int64_t xlen, int T, int nphi, int P1,
+                   uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
+                   int tile, int cb, int run, int64_t grid, int stride,
+                   int mult, cudaStream_t stream) {
+  if (T != kT || P1 != kP1 || cb != 1 || run != 1) return kErrBadPlan;
+  if (stride < 1 || stride > kThreadsG || mult < 1 || tile < stride ||
+      tile > kMaxTileG || tile % stride)
+    return kErrBadPlan;
+  int a = stride, b = mult % stride;  // gcd(stride, mult) == 1
+  while (b) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  if (a != 1) return kErrBadPlan;
+  if ((size_t)P1 * T * nphi * sizeof(float) > kTableSmemLimit)
+    return kErrBadPlan;
+  const int64_t n_tiles = (n_out + tile - 1) / tile;
+  if (grid < 1 || grid > kMaxGridX || grid > n_tiles * C) return kErrBadPlan;
+  const int64_t span = span_of(tile, T, (uint32_t)nphi, delta);
+  const size_t smem = grouped_smem_bytes(tile, T, P1, (uint32_t)nphi, delta,
+                                         sizeof(XR), sizeof(float));
+  if (smem > kSmemLimit) return kErrTooLarge;
+  const int threads = (stride + 31) / 32 * 32;
+  auto kern = resample_grouped_kernel<XR, Out, kT, kP1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  grid = resident_grid(kern, threads, smem, grid);
+  kern<<<(unsigned)grid, threads, smem, stream>>>(
+      (const XR*)x, (const XR*)hist, (const float*)table, (Out*)y, C, xlen,
+      nphi, delta, u0, d0, n_out, tile, (int)span, n_tiles, stride, mult);
+  return cudaGetLastError();
+}
+
 // Launch on x (C, xlen) -> y (C, n_out), or time-major x (xlen, C) ->
 // y (n_out, C), by the plan's variant; see the extern "C" entries.
 template <typename XR, typename W, typename Out, bool kTM>
 int launch(const void* x, const void* hist, const void* table, void* y,
            int64_t C, int64_t xlen, int T, int nphi, int P1, uint64_t delta,
            uint64_t u0, int64_t d0, int64_t n_out, int variant, int tile,
-           int cb, int run, int64_t grid, void* stream) {
+           int cb, int run, int64_t grid, int stride, int mult,
+           void* stream) {
   if (C <= 0 || n_out <= 0) return cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
 #define MR_VARIANT(KT, KP1)                                                  \
@@ -706,6 +937,20 @@ int launch(const void* x, const void* hist, const void* table, void* y,
     case kT73P2:
       return MR_VARIANT(73, 2);
 #undef MR_VARIANT
+    case kT10P2G:
+    case kT10P5G:
+      // float32 tables against float32 or narrow samples, channel-major
+      if constexpr (!kTM && std::is_same<W, float>::value &&
+                    std::is_same<typename Staged<XR>::type, float>::value) {
+        return variant == kT10P2G
+                   ? launch_grouped<XR, Out, 10, 2>(
+                         x, hist, table, y, C, xlen, T, nphi, P1, delta, u0,
+                         d0, n_out, tile, cb, run, grid, stride, mult, s)
+                   : launch_grouped<XR, Out, 10, 5>(
+                         x, hist, table, y, C, xlen, T, nphi, P1, delta, u0,
+                         d0, n_out, tile, cb, run, grid, stride, mult, s);
+      }
+      return kErrBadPlan;
     default:
       return kErrBadPlan;
   }
@@ -721,12 +966,14 @@ extern "C" {
 // on the current device. The caller guarantees 0 < nphi << 32 < 2^44,
 // 0 < delta < 2^44, u0 + n_out*delta < 2^96, d0 >= 1, and that every
 // window lies inside [history ++ x]: d0 + (u0 + (n_out-1)*delta) / D <=
-// xlen. (variant, tile, cb, run, grid) is the launch's plan
+// xlen. (variant, tile, cb, run, grid, stride, mult) is the launch's plan
 // (ops/cuda/resample.py plan()): the variant (0 general, 1 T = 10 with
-// P+1 = 2, 2 T = 10 with P+1 = 5, 3 T = 73 with P+1 = 2), outputs a tile,
-// channels a block (1 or 8 channel-major, 32 time-major), neighbouring
-// outputs a thread runs (1, 2, 4, 8 or 16; 1 unless cb == 1) and blocks, at
-// most. Returns a cudaError_t code, kErrTooLarge when the plan's shared
+// P+1 = 2, 2 T = 10 with P+1 = 5, 3 T = 73 with P+1 = 2, 4 and 5 the
+// grouped paths of 1 and 2), outputs a tile, channels a block (1 or 8
+// channel-major, 32 time-major), neighbouring outputs a thread runs (1, 2,
+// 4, 8 or 16; 1 unless cb == 1), blocks, at most, and for a grouped path
+// its phase-preserving stride and lane multiplier (else ignored). Returns
+// a cudaError_t code, kErrTooLarge when the plan's shared
 // memory exceeds the limit, or kErrBadPlan when the variant does not take
 // the plan. The narrow reads (MR_RESAMPLE_NARROW) take the same arguments,
 // with x and hist of their stored type and y of their output type.
@@ -736,11 +983,11 @@ extern "C" {
                          int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
                          int64_t n_out, int time_major, int variant,         \
                          int tile, int cb, int run, int64_t grid,            \
-                         void* stream) {                                     \
+                         int stride, int mult, void* stream) {               \
     auto go = time_major ? launch<XR, float, Out, true>                      \
                          : launch<XR, float, Out, false>;                    \
     return go(x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out, \
-              variant, tile, cb, run, grid, stream);                         \
+              variant, tile, cb, run, grid, stride, mult, stream);           \
   }
 
 // Channel-major only, as mr_resample_f32 with time_major = 0: x and hist
@@ -752,10 +999,11 @@ extern "C" {
                          void* y, int64_t C, int64_t xlen, int T, int nphi,  \
                          int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
                          int64_t n_out, int variant, int tile, int cb,      \
-                         int run, int64_t grid, void* stream) {              \
+                         int run, int64_t grid, int stride, int mult,       \
+                         void* stream) {                                     \
     return launch<X, W, Out, false>(x, hist, table, y, C, xlen, T, nphi, P1,\
                                   delta, u0, d0, n_out, variant, tile, cb,  \
-                                  run, grid, stream);                        \
+                                  run, grid, stride, mult, stream);          \
   }
 
 MR_RESAMPLE_LAYOUT(f32, float, float)

@@ -122,7 +122,8 @@ def load_resample() -> ctypes.CDLL:
     p, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
                         ctypes.c_int)
     args = [p, p, p, p, i64, i64, i32, i32, i32, u64, u64, i64, i64]
-    plan = [i32, i32, i32, i32, i64]  # variant, tile, channels, run, grid
+    # variant, tile, channels, run, grid, stride, mult
+    plan = [i32, i32, i32, i32, i64, i32, i32]
     for key, name in ENTRIES.items():
         fn = getattr(lib, f"mr_resample_{name}")
         layout = [i32] if key in TM_ENTRIES else []

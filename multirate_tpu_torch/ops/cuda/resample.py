@@ -43,17 +43,21 @@ The kernel has variants (``VARIANTS``), chosen by ``plan`` from the shape
 alone, never after a failure: one compiled for each (T, P+1) pair in use
 (``COMPILED``: bench.py's bank at T = 10 with P+1 = 2 or 5, and
 ``models.Resampler``'s own design at T = 73, P+1 = 2), with both loops
-unrolled, and ``general``, which runs both loops to run-time bounds. Every
-variant gives the same bits. ``plan`` also sizes the tile, the channels
-a block shares its taps across and the grid, so that the grid fills the
-card. ``resample(..., variant="general")`` forces the general variant, for
-timing against it. ``walk_positions`` transcribes the kernel's
+unrolled, and ``general``, which runs both loops to run-time bounds; and
+the grouped one-channel path of bench.py's pairs (``GROUPED``), where a
+thread runs outputs a phase-preserving stride apart with its phase's table
+words in registers. Every variant gives the same bits. ``plan`` also sizes
+the tile, the channels a block shares its taps across and the grid, so
+that the grid fills the card. ``resample(..., variant="general")`` forces
+the general variant, and a compiled variant's name its run path, for
+timing against them. ``walk_positions`` transcribes the kernel's
 division-free index walk, for the CPU tests.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -67,7 +71,7 @@ from ..precision import fp32
 __all__ = ["resample", "resample_tm", "resample_plain", "resample_tm_plain",
            "plan", "Plan", "walk_positions", "launches",
            "launches_by_variant", "ENTRIES", "TM_ENTRIES", "VARIANTS",
-           "COMPILED"]
+           "COMPILED", "GROUPED"]
 
 _F32, _F16 = torch.float32, torch.float16
 # The kernel's channel-major entry point (``mr_resample_<name>``, one
@@ -100,9 +104,12 @@ TM_ENTRIES = {k: f"{n}_tm" for k, n in ENTRIES.items()
               if k[0] in (_F32, *NARROW) and k[1] == _F32}
 
 # The kernel's variants, by the number its entry points take, and the
-# (T, P+1) pair each compiled one is built for.
-VARIANTS = ("general", "t10p2", "t10p5", "t73p2")
+# (T, P+1) pair each compiled one is built for; the grouped one-channel
+# path of a compiled pair whose table words a thread holds in registers.
+VARIANTS = ("general", "t10p2", "t10p5", "t73p2", "t10p2.grouped",
+            "t10p5.grouped")
 COMPILED = {(10, 2): "t10p2", (10, 5): "t10p5", (73, 2): "t73p2"}
+GROUPED = {"t10p2": "t10p2.grouped", "t10p5": "t10p5.grouped"}
 
 # Kernel launches made by ``resample`` and ``resample_tm`` in this
 # process, by entry point (time-major ``"<entry>_tm"``: ``"f32_tm"``,
@@ -127,6 +134,15 @@ _SMEM_TARGET = 64 * 1024  # per block, so that several blocks share an SM
 _FILL = 2 * 132           # blocks that fill the H100's SMs twice
 _MAX_GRID = 65535         # grid.x, at most (blocks loop over tiles)
 _RUNS = (1, 2, 4, 8, 16)  # neighbouring outputs a thread may run
+# the grouped path: threads a block at most (a stride's, in whole warps),
+# outputs a tile at most, shared bytes a block (two blocks an SM), the
+# largest sliver of a stride (|stride*delta_fx mod D|, a phase change in a
+# thread's outputs at most once every 4,096), and outputs a thread a tile
+# at least, for the planner to take it
+_THREADS_G, _MAX_TILE_G = 256, 8192
+_SMEM_TARGET_G = 110 * 1024
+_SLIVER_G = 1 << 20
+_MIN_ROWS_G = 8
 
 
 def _sum_type(x_dtype, table_dtype):
@@ -149,8 +165,9 @@ class Plan(NamedTuple):
     """One launch: the variant, outputs a tile, channels a block (1 or 8
     channel-major, 32 time-major), neighbouring outputs a thread runs (one-
     channel blocks; else 1), blocks on grid.x (at most: the launcher keeps
-    no more than the card holds at once), threads a block and shared bytes
-    a block."""
+    no more than the card holds at once), threads a block, shared bytes
+    a block, and a grouped path's phase-preserving stride and lane
+    multiplier (else 0)."""
     variant: str
     tile: int
     channels: int
@@ -158,6 +175,8 @@ class Plan(NamedTuple):
     grid: int
     threads: int
     smem: int
+    stride: int = 0
+    mult: int = 0
 
 
 def _threads(tile: int, run: int, tm: bool) -> int:
@@ -219,15 +238,96 @@ def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, csz, asz, wsz,
     return b
 
 
+def _table_row(T: int, P1: int) -> int:
+    """csrc/resample.cu ``table_row``: a phase's T*(P+1) table words in
+    whole 16-byte loads."""
+    return _ceil(T * P1, 4) * 4
+
+
+def _smem_grouped(tile, T, P1, nphi, delta_fx, xsz, csz):
+    """csrc/resample.cu ``grouped_smem_bytes``: the table by phase, a
+    double buffer of spans as stored (and one widened, for a narrow read)
+    and the tile's outputs, a word of padding every 32."""
+    rows = _row_samples(_span(tile, nphi, delta_fx, T), xsz)
+    b = _up16(nphi * _table_row(T, P1) * 4) + 2 * _up16(rows * xsz)
+    if csz != xsz:
+        b += _up16(rows * csz)
+    return b + _up16((tile + tile // 32) * 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _stride_of(nphi: int, delta_fx: int) -> int | None:
+    """The grouped path's stride: k * (256 // k) for the least k whose
+    multiple keeps a thread's phase (|stride*delta_fx mod D| at most
+    ``_SLIVER_G``), or None at a rate that has none."""
+    D = nphi << PHASE_FRAC_BITS
+    for k in range(1, _THREADS_G + 1):
+        stride = k * (_THREADS_G // k)
+        d = stride * delta_fx % D
+        if min(d, D - d) <= _SLIVER_G:
+            return stride
+    return None
+
+
+def _mult_of(stride: int, nphi: int, delta_fx: int) -> int:
+    """Outputs between neighbouring lanes' progressions: the least m prime
+    to the stride whose windows lie within 1/32 sample of an odd number of
+    samples apart (32 banks), else 1."""
+    D = nphi << PHASE_FRAC_BITS
+    for m in range(1, stride):
+        k = (2 * m * delta_fx + D) // (2 * D)  # nearest whole samples
+        if (math.gcd(m, stride) == 1 and k % 2
+                and 32 * abs(m * delta_fx - k * D) < D):
+            return m
+    return 1
+
+
+def _grouped_plan(variant, n_out, groups, T, P1, nphi, delta_fx, xsz, csz,
+                  forced):
+    """The grouped path's plan: its stride, multiplier and the largest tile
+    of whole progressions that gives the card 2 x 132 work items within
+    two blocks' shared memory an SM; None where the rate has no stride or
+    a thread would run fewer than ``_MIN_ROWS_G`` outputs a tile (unless
+    ``forced``: then any stride, one output a thread at least)."""
+    stride = _stride_of(nphi, delta_fx)
+    if stride is None and not forced:
+        return None
+    stride = stride or _THREADS_G
+    # the most outputs a thread whose tiles still give the card _FILL items
+    need = _ceil(_FILL, groups)
+    rows = _MAX_TILE_G // stride
+    if need > 1:
+        rows = max(min(rows, (n_out - 1) // (need - 1) // stride), 1)
+    if not (forced or rows >= _MIN_ROWS_G):
+        return None
+    while True:
+        tile = stride * rows
+        smem = _smem_grouped(tile, T, P1, nphi, delta_fx, xsz, csz)
+        if smem <= _SMEM_TARGET_G or rows == 1:
+            break
+        rows -= 1
+    if smem > (_SMEM_LIMIT if forced else _SMEM_TARGET_G) or not (
+            forced or rows >= _MIN_ROWS_G):
+        return None
+    return Plan(variant, tile, 1, 1, min(_ceil(n_out, tile) * groups,
+                                         _MAX_GRID),
+                _ceil(stride, 32) * 32, smem, stride,
+                _mult_of(stride, nphi, delta_fx))
+
+
 @functools.lru_cache(maxsize=1024)
 def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
          x_dtype, table_dtype, time_major: bool = False,
          variant: str | None = None) -> Plan:
     """The launch of one resample call: the variant (by default the
     compiled one for (T, P1) if its table fits in shared memory, else
-    ``general``), the tile, the channels a block and the grid. Pure Python
-    on the shape: the CPU tests check it. Raises ValueError if ``variant``
-    is named and cannot take the call, or if one tile's span cannot fit in
+    ``general``; its grouped path where that compiled pair has one, the
+    table is float32, the signal float32 or a narrow read, the blocks
+    channel-major with one channel, the rate has a phase-preserving stride
+    and the card's share of the call gives each thread 8 outputs a tile at
+    least), the tile, the channels a block and the grid. Pure Python on
+    the shape: the CPU tests check it. Raises ValueError if ``variant`` is
+    named and cannot take the call, or if one tile's span cannot fit in
     shared memory. Cached: a stream plans the same few shapes again."""
     xsz, wsz = x_dtype.itemsize, table_dtype.itemsize
     csz = 4 if x_dtype in NARROW else xsz  # staged widened to float32
@@ -235,16 +335,27 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
     t_bytes = P1 * T * nphi * wsz
     table_smem = t_bytes <= _TABLE_SMEM_LIMIT
     auto = COMPILED.get((T, P1)) if table_smem else None
-    if variant is None:
-        variant = auto or "general"
-    elif variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    elif variant != "general" and variant != auto:
-        raise ValueError(f"the {variant} variant cannot take T={T} "
-                         f"P+1={P1} with a {t_bytes}-byte table")
     cb = _LANES if time_major else (_GROUP_CM if C >= _GROUP_CM else 1)
     groups = _ceil(C, cb)
     n_out = max(int(n_out), 1)
+    grouped = (GROUPED.get(auto) if cb == 1 and table_dtype == _F32
+               and x_dtype in (_F32, *NARROW) else None)
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    if variant is not None and variant not in ("general", auto, grouped):
+        raise ValueError(f"the {variant} variant cannot take T={T} "
+                         f"P+1={P1} with a {t_bytes}-byte {table_dtype} "
+                         f"table, {C} channel(s) of {x_dtype}"
+                         f"{', time-major' if time_major else ''}")
+    if grouped and variant in (None, grouped):
+        p = _grouped_plan(grouped, n_out, groups, T, P1, nphi, delta_fx, xsz,
+                          csz, variant is not None)
+        if p:
+            return p
+        if variant:
+            raise ValueError(f"no {grouped} tile fits a span at "
+                             f"delta_fx={delta_fx}")
+    variant = variant or auto or "general"
 
     def smem(tile):
         return _smem(tile, cb, _run_of(tile, cb, nphi, delta_fx), T, P1, nphi,
@@ -265,11 +376,63 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
                 _threads(tile, run, time_major), smem(tile))
 
 
+def _digits(v: int, nphi: int):
+    """A step v in digits: (quotient by D, phase, 32-bit fraction)."""
+    D = nphi << PHASE_FRAC_BITS
+    return v // D, (v % D) >> PHASE_FRAC_BITS, v & ((1 << PHASE_FRAC_BITS) - 1)
+
+
+def _add(a, d, nphi: int):
+    """csrc/resample.cu ``add``: (off, phi, fr) + digits, with carries."""
+    one = 1 << PHASE_FRAC_BITS
+    fr = a[2] + d[2]
+    c1 = (fr >= one).long()
+    phi = a[1] + d[1] + c1
+    c2 = (phi >= nphi).long()
+    return a[0] + d[0] + c2, phi - c2 * nphi, fr - c1 * one
+
+
+def _tile_bases(p: Plan, nphi: int, delta_fx: int, u0: int, n_out: int):
+    """(q0, r0) = divmod(u0 + n0*delta_fx, D) of every tile, exact (the
+    kernel's 128-bit product and division)."""
+    D = nphi << PHASE_FRAC_BITS
+    bases = [divmod(u0 + n0 * delta_fx, D)
+             for n0 in range(0, _ceil(n_out, p.tile) * p.tile, p.tile)]
+    return (torch.tensor([b[0] for b in bases], dtype=torch.int64),
+            torch.tensor([b[1] for b in bases], dtype=torch.int64))
+
+
+def _grouped_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
+                       n_out: int):
+    """``walk_positions`` of a grouped plan: thread i < stride runs the
+    outputs j = (i*mult mod stride) + stride*r (r < tile / stride) of each
+    tile, from its first output's digits, by adding the stride's digits."""
+    n_tiles = _ceil(n_out, p.tile)
+    q0, r0 = _tile_bases(p, nphi, delta_fx, u0, n_out)
+    start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS,
+             r0 & ((1 << PHASE_FRAC_BITS) - 1))
+    j0 = torch.arange(p.stride) * p.mult % p.stride
+    first = [torch.tensor(d) for d in zip(*(_digits(int(j) * delta_fx, nphi)
+                                            for j in j0.tolist()))]
+    pos = _add(tuple(a[:, None] for a in start), first, nphi)
+    step = _digits(p.stride * delta_fx, nphi)
+    q = torch.empty(n_tiles, p.tile, dtype=torch.int64)
+    phi, fr = torch.empty_like(q), torch.empty_like(q)
+    for r in range(p.tile // p.stride):
+        j = j0 + p.stride * r
+        q[:, j] = q0[:, None] + pos[0]
+        phi[:, j], fr[:, j] = pos[1], pos[2]
+        pos = _add(pos, step, nphi)
+    return (q.reshape(-1)[:n_out], phi.reshape(-1)[:n_out],
+            fr.reshape(-1)[:n_out])
+
+
 def walk_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
                    n_out: int):
     """The kernel's index walk, transcribed: (q, phi, frac) of every
     output n < n_out, with (q, phi) = divmod((u0 + n*delta_fx) div 2^32,
-    nphi) and frac the low 32 bits, as int64 tensors.
+    nphi) and frac the low 32 bits, as int64 tensors. A grouped plan's
+    threads walk their progressions (``_grouped_positions``).
 
     A tile's base (q0, r0) = divmod(u0 + n0*delta_fx, D) is formed once, in
     128 bits. Thread t of a block runs outputs t*run + s (s < run) in each
@@ -279,42 +442,26 @@ def walk_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
     (threads - 1)*run*delta_fx, into digits (quotient by D, phase, 32-bit
     fraction), then walks its outputs by adding digits with carries: no
     division per output. (A time-major block's taps take run 1.)"""
-    D = nphi << PHASE_FRAC_BITS
-    one = 1 << PHASE_FRAC_BITS
-    mask = one - 1
-
-    def digits(v):
-        return v // D, (v % D) >> PHASE_FRAC_BITS, v & mask
-
-    def add(a, d):  # (off, phi, fr) + digits, with carries
-        fr = a[2] + d[2]
-        c1 = (fr >= one).long()
-        phi = a[1] + d[1] + c1
-        c2 = (phi >= nphi).long()
-        return a[0] + d[0] + c2, phi - c2 * nphi, fr - c1 * one
-
+    if p.variant in GROUPED.values():
+        return _grouped_positions(p, nphi, delta_fx, u0, n_out)
     n_tiles = _ceil(n_out, p.tile)
-    tiles = torch.arange(n_tiles, dtype=torch.int64)
-    # the tile bases, exact (the kernel's 128-bit product and division)
-    bases = [divmod(u0 + int(n0) * delta_fx, D)
-             for n0 in (tiles * p.tile).tolist()]
-    q0 = torch.tensor([b[0] for b in bases], dtype=torch.int64)
-    r0 = torch.tensor([b[1] for b in bases], dtype=torch.int64)
-    start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS, r0 & mask)
+    q0, r0 = _tile_bases(p, nphi, delta_fx, u0, n_out)
+    start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS,
+             r0 & ((1 << PHASE_FRAC_BITS) - 1))
     q = torch.empty(n_tiles, p.tile, dtype=torch.int64)
     phi, fr = torch.empty_like(q), torch.empty_like(q)
     run = 1 if p.channels == _LANES else p.run
-    step, next_round = digits(delta_fx), digits(
-        (p.threads - 1) * run * delta_fx)
+    step = _digits(delta_fx, nphi)
+    next_round = _digits((p.threads - 1) * run * delta_fx, nphi)
     for t in range(p.threads):
-        pos = add(start, digits(t * run * delta_fx))
+        pos = _add(start, _digits(t * run * delta_fx, nphi), nphi)
         for j0 in range(t * run, p.tile, p.threads * run):
             for j in range(j0, j0 + run):
                 if j < p.tile:
                     q[:, j] = q0 + pos[0]
                     phi[:, j], fr[:, j] = pos[1], pos[2]
-                pos = add(pos, step)
-            pos = add(pos, next_round)
+                pos = _add(pos, step, nphi)
+            pos = _add(pos, next_round, nphi)
     return (q.reshape(-1)[:n_out], phi.reshape(-1)[:n_out],
             fr.reshape(-1)[:n_out])
 
@@ -434,7 +581,7 @@ def _launch(x, hist, params, u0, d0, n_out, out_dtype, time_major,
             y.data_ptr(), C, xlen, params.taps_per_phi, params.nphi,
             params.table.shape[0], params.delta_fx, u0, d0, n_out,
             *layout, VARIANTS.index(p.variant), p.tile, p.channels, p.run,
-            p.grid, stream)
+            p.grid, p.stride, p.mult, stream)
     if err != 0:
         raise RuntimeError("resample kernel launch failed: "
                            + lib.mr_error_string(err).decode())

@@ -2,7 +2,8 @@
 (rational family, in float32, the quantized modes, float64 and complex),
 resample (arbitrary rate and Farrow, channel-major and time-major in
 float32, channel-major in float64 and complex; each compiled variant and
-the general one, equal bit for bit) and the copy and expand
+the general one, equal bit for bit; the grouped one-channel path equal to
+the run path bit for bit, chunked == whole) and the copy and expand
 probes; the runtime on the card: StreamingResampler's block loop
 with no synchronizing call, and a profiler trace holding the kernel;
 the parallel layer on four gloo ranks sharing the card (halo through the
@@ -381,6 +382,77 @@ def test_resample_variants_match_plain_on_gpu(entry, kind, layout):
         assert got[variant].shape == want.shape
         assert rel_max_err(got[variant], want) <= _tol(xt)
     assert torch.equal(got[None], got["general"])
+
+
+# the grouped one-channel path (``t10p2.grouped``, ``t10p5.grouped``):
+# forced through ``variant=`` against the run path, bit for bit, at the
+# harness rate (243 outputs keep a phase) and at 0.9173 (no stride keeps
+# one: a thread's phase changes at every output), float32 and int16 reads
+GROUPED_KINDS = {"t10p2": None, "t10p5": 4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [1 / 2.123456789, 0.9173],
+                         ids=["refrate", "0.9173"])
+@pytest.mark.parametrize("x_dt", [torch.float32, torch.int16],
+                         ids=["f32", "s16"])
+@pytest.mark.parametrize("kind", list(GROUPED_KINDS))
+def test_grouped_path_equals_run_path_on_gpu(kind, x_dt, rate):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(24)
+    p = mt.make_kernel(rng.standard_normal(320).astype(np.float32),
+                       rate=rate, nphi=32, polyorder=GROUPED_KINDS[kind],
+                       device="cuda")
+    x = _wide(rng, (1, 700_001), torch.float32)
+    x = (x * 3000).to(x_dt) if x_dt == torch.int16 else x
+    x = x.cuda()
+    st = mt.setphase(p, mt.init_state(p, (1,), x_dt), 0.37)
+    _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
+    n, _, _ = mt.ops.indexing.host_carry(p, st.phase, st.deficit,
+                                         x.shape[-1])
+    args = (x, st.history.contiguous(), p, st.phase, st.deficit, n)
+    entry = rs.ENTRIES[x_dt, torch.float32, torch.float32]
+    got = {}
+    for variant in (kind, rs.GROUPED[kind]):
+        before = dict(rs.launches_by_variant)
+        got[variant] = rs.resample(*args, variant=variant)
+        torch.cuda.synchronize()
+        after = dict(rs.launches_by_variant)
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {f"{entry}/{variant}": 1}
+    assert torch.equal(got[kind], got[rs.GROUPED[kind]])
+    assert rel_max_err(got[kind], rs.resample_plain(*args)) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(GROUPED_KINDS))
+def test_grouped_path_chunked_equals_whole_on_gpu(kind):
+    # chunks large enough that each plans the grouped path, cut inside
+    # tiles, through filt_block's kernel path: chunked == whole bit for bit,
+    # one grouped launch a call
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(25)
+    h = (mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=5.65326) * 32
+         ).astype(np.float32)
+    p = mt.make_kernel(h, rate=1 / 2.123456789, nphi=32,
+                       polyorder=GROUPED_KINDS[kind], device="cuda")
+    x = _wide(rng, (1, 9_000_017), torch.float32).cuda()
+    st = mt.init_state(p, (1,))
+    key = f"f32/{rs.GROUPED[kind]}"
+    before = rs.launches_by_variant[key]
+    yw, cw, sw = mt.filt_block(p, st, x, path="kernel")
+    parts, s = [], st
+    for a, b in ((0, 3_000_001), (3_000_001, 5_999_999),
+                 (5_999_999, 9_000_017)):
+        yc, _, s = mt.filt_block(p, s, x[:, a:b], path="kernel")
+        parts.append(yc)
+    torch.cuda.synchronize()
+    assert rs.launches_by_variant[key] == before + 4
+    assert torch.equal(torch.cat(parts, dim=-1), yw)
+    assert (s.phase, s.deficit) == (sw.phase, sw.deficit)
+    assert torch.equal(s.history, sw.history)
 
 
 @pytest.mark.gpu

@@ -11,6 +11,8 @@ give exactly the (window, phase, fraction) of ``indexing.accum_indices``
 for every output. Exact: plans and indices are integers.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -69,7 +71,11 @@ def test_main_path_rows_take_a_compiled_variant(taps, row):
     p = _params(taps, rate, po)
     n = mt.outputlength(p, xlen)
     plan = _plan(p, n, C, x_dt, t_dt, tm)
-    assert plan.variant == ("t10p2" if po is None else "t10p5")
+    base = "t10p2" if po is None else "t10p5"
+    # one float32 channel at 1/2.123456789 groups its outputs by phase
+    # (243 outputs keep a phase); the rest run (0.4709 has no such stride)
+    grouped = C == 1 and x_dt == t_dt == F32 and rate == R_REF
+    assert plan.variant == (f"{base}.grouped" if grouped else base)
     assert plan.grid >= 2 * 132
     assert plan.channels == (32 if tm else (8 if C >= 8 else 1))
     assert 0 < plan.smem <= 226 * 1024
@@ -94,9 +100,11 @@ def test_one_channel_rows_run_8_outputs_a_thread_only_near_an_odd_step(
     # at 1/2.123456789 eight outputs step 16.99 samples: lanes 8 outputs
     # apart load window words on 32 banks; the other rates have no run
     # whose step lies within 1/32 of an odd number of samples
+    # (float32 rows group by phase unless the run path is named: the run
+    # path's runs are what is checked here)
     p = _params(taps, rate)
     n = mt.outputlength(p, N_HEAD)
-    plan = _plan(p, n, 1, *dtypes)
+    plan = _plan(p, n, 1, *dtypes, variant="t10p2")
     assert plan.tile >= 512 and plan.run == run
     assert plan.threads * plan.run <= plan.tile
     # 8 channels a block, time-major blocks and small tiles run 1
@@ -158,10 +166,15 @@ def test_launch_counts_cover_every_entry_and_variant():
     assert set(rs.COMPILED.values()) == COMPILED <= set(rs.VARIANTS)
 
 
-@pytest.mark.parametrize("variant", [None, "general"])
+@pytest.mark.parametrize("variant", [None, "general", "t10p5.grouped"])
 @pytest.mark.parametrize("time_major", [False, True])
 def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(
         taps, variant, time_major):
+    if time_major and variant == "t10p5.grouped":
+        with pytest.raises(ValueError, match="t10p5.grouped"):
+            _plan(_params(taps, 0.4709, 4), 2000, 3, F32, F32, True,
+                  variant)
+        return
     p = _params(taps, 0.4709, 4)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(3, 5000, generator=g)
@@ -190,8 +203,15 @@ def _walk_equals_accum(plan, nphi, delta_fx, u0, d0, n):
     assert int(fr.max()) < 1 << PHASE_FRAC_BITS and int(phi.max()) < nphi
 
 
-@pytest.mark.parametrize("entry", ["fresh", "mid"])
-@pytest.mark.parametrize("case", [
+def _grouped(plan, rows, stride=243, mult=8):
+    """A grouped plan of ``rows`` outputs a thread (the walk reads only the
+    variant, the tile, the stride and the multiplier)."""
+    return plan._replace(variant="t10p5.grouped", tile=stride * rows, run=1,
+                         threads=-(-stride // 32) * 32, stride=stride,
+                         mult=mult)
+
+
+WALK_CASES = [
     # (nphi, rate, polyorder, channels, time-major, outputs)
     (32, 0.4709, None, 1, False, 300_000),   # runs of 8 outputs a thread
     (32, R_REF, 4, 1, False, 70_000),
@@ -200,8 +220,19 @@ def _walk_equals_accum(plan, nphi, delta_fx, u0, d0, n):
     (7, 0.9173, None, 1, False, 120_000),    # nphi not a power of two
     (7, 2.5, 4, 3, True, 20_000),
     (32, 0.01, None, 1, False, 5_000),       # tiles shrunk to their spans
-])
-def test_walk_equals_accum_indices(taps, entry, case):
+]
+
+
+@pytest.mark.parametrize("entry", ["fresh", "mid"])
+@pytest.mark.parametrize("case,grouped", [
+    *((c, False) for c in WALK_CASES),
+    # the grouped path: every one-channel case, forced at the planner's
+    # stride (or 256 where the rate has none) for a compiled pair (nphi 7
+    # has T = 11: 20 outputs a thread, stride 243), and rate 1 (one phase)
+    *((c, True) for c in WALK_CASES if c[3] < 8 and not c[4]),
+    ((32, 1.0, 4, 1, False, 40_000), True),
+], ids=lambda v: str(v) if isinstance(v, bool) else "-".join(map(str, v)))
+def test_walk_equals_accum_indices(taps, entry, case, grouped):
     nphi, rate, po, C, tm, n = case
     h = taps if nphi == 32 else np.random.default_rng(1).standard_normal(
         10 * nphi + 3).astype(np.float32)
@@ -212,45 +243,88 @@ def test_walk_equals_accum_indices(taps, entry, case):
         st = mt.setphase(p, mt.init_state(p, (C,)), 0.37)
         _, u0, d0 = idx.host_carry(p, st.phase, st.deficit, 12_345)
     plan = _plan(p, n, C, F32, F32, tm)
+    if grouped and nphi == 32:
+        plan = _plan(p, n, C, F32, F32, tm, rs.GROUPED[plan.variant])
+    elif grouped:
+        plan = _grouped(plan, 20)
+    assert plan.variant.endswith(".grouped") == grouped
     assert n > 2 * plan.tile  # every tile boundary inside the run
     _walk_equals_accum(plan, nphi, p.delta_fx, u0, d0, n)
 
 
+@pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("u0", [0, 3 << 40])
-def test_walk_past_2_20_outputs_at_nphi_1024(u0):
+def test_walk_past_2_20_outputs_at_nphi_1024(u0, grouped):
     # delta_fx near 2^43.7: u0 + n*delta_fx passes 2^63 near n = 2^19.3,
-    # so the tile bases need 128 bits
+    # so the tile bases need 128 bits; grouped, at a stride that keeps no
+    # phase (every output a phase of its own)
     rng = np.random.default_rng(2)
     p = _params(rng.standard_normal(2048).astype(np.float32), 0.3, 3,
                 nphi=1024)
     n = 1_080_000
     assert n > 1 << 20 and u0 + (n - 1) * p.delta_fx > 1 << 63
     plan = _plan(p, n, 1, F32, F32)
+    if grouped:
+        plan = _grouped(plan, 31, stride=229, mult=100)
     _walk_equals_accum(plan, 1024, p.delta_fx, u0 % (1024 << 32), 1, n)
 
 
-@pytest.mark.parametrize("run", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("run", [1, 2, 4, 8, 16, "grouped-243-8-20",
+                                 "grouped-256-1-32", "grouped-255-1-14",
+                                 "grouped-200-7-40", "grouped-129-2-1"])
 def test_walk_is_exact_for_every_run(taps, run):
-    # a plan is a NamedTuple: the walk for each run the kernel takes
+    # a plan is a NamedTuple: the walk for each run the kernel takes, and
+    # the grouped path's progressions at strides, multipliers and outputs a
+    # thread it takes (the last tile partial)
     p = _params(taps, R_REF)
-    n = 9_000
-    plan = _plan(p, n, 1, F32, F32)._replace(tile=2048, run=run,
-                                             threads=128)
+    n = 9_000 if isinstance(run, int) else 40_123
+    plan = _plan(p, n, 1, F32, F32)
+    if isinstance(run, int):
+        plan = plan._replace(tile=2048, run=run, threads=128)
+    else:
+        stride, mult, rows = map(int, run.split("-")[1:])
+        plan = _grouped(plan, rows, stride, mult)
+    assert n % plan.tile
     _walk_equals_accum(plan, 32, p.delta_fx, 987_654_321, 4, n)
 
 
 @pytest.mark.parametrize("rate", [0.3, R_REF, 0.9173, 1.0, 2.5, 17.0])
-@pytest.mark.parametrize("dtypes", [(F32, F32), (F64, F64), (C128, C128)])
+@pytest.mark.parametrize("dtypes", [(F32, F32), (F64, F64), (C128, C128),
+                                    (torch.int16, F32)])
 def test_plans_stay_inside_the_kernel_limits(taps, rate, dtypes):
     for C, tm in ((1, False), (2, False), (N_CH, False), (N_CH, True)):
-        if tm and dtypes != (F32, F32):
+        if tm and dtypes[1] != F32:
             continue
         p = _params(taps, rate, 4)
+        grouped = C < 8 and not tm and dtypes[1] == F32
         for n in (1, 33, 10_000, 10_000_000):
-            for variant in (None, "general"):
+            for variant in (None, "general", "t10p5.grouped"):
+                if variant == "t10p5.grouped" and not grouped:
+                    with pytest.raises(ValueError, match="grouped"):
+                        _plan(p, n, C, *dtypes, tm, variant)
+                    continue
                 plan = _plan(p, n, C, *dtypes, tm, variant)
-                assert 0 < plan.tile <= (256 if tm else 1024)
+                span = rs._span(plan.tile, p.nphi, p.delta_fx,
+                                p.taps_per_phi)
+                if plan.variant.endswith(".grouped"):
+                    # whole progressions of the stride, its threads in whole
+                    # warps, a multiplier prime to it, one channel a block,
+                    # two blocks' shared memory an SM
+                    assert plan.tile % plan.stride == 0
+                    assert plan.tile <= 8192 and plan.stride <= 256
+                    assert plan.threads == -(-plan.stride // 32) * 32
+                    assert math.gcd(plan.mult, plan.stride) == 1
+                    assert plan.run == 1 and plan.channels == 1
+                    assert plan.smem == rs._smem_grouped(
+                        plan.tile, 10, 5, p.nphi, p.delta_fx,
+                        dtypes[0].itemsize, 4) <= 110 * 1024
+                    assert variant or plan.tile >= 8 * plan.stride
+                else:
+                    assert plan.stride == plan.mult == 0
+                    assert 0 < plan.tile <= (256 if tm else 1024)
                 assert 0 < plan.grid <= 65535
+                assert plan.grid <= rs._ceil(n, plan.tile) * rs._ceil(
+                    C, plan.channels)
                 assert 0 < plan.smem <= 226 * 1024
                 assert plan.run in (1, 2, 4, 8, 16)
                 assert plan.run == 1 or (plan.channels == 1
@@ -258,8 +332,7 @@ def test_plans_stay_inside_the_kernel_limits(taps, rate, dtypes):
                                          <= plan.tile)
                 assert plan.threads % 32 == 0 and plan.threads <= 256
                 # the last window of a tile stays inside int32 offsets
-                assert rs._span(plan.tile, p.nphi, p.delta_fx,
-                                p.taps_per_phi) < 2**31
+                assert span < 2**31
 
 
 def test_stream_blocks_and_chunks_take_a_compiled_variant(taps):
@@ -269,3 +342,59 @@ def test_stream_blocks_and_chunks_take_a_compiled_variant(taps):
     for xlen in (1 << 16, 250_000):
         n = mt.outputlength(p, xlen)
         assert _plan(p, n, 1, F32, F32).variant == "t10p2"
+
+
+CAPTURE_N = 67_108_864  # arb_farrow.capture_block: 1 x 2^26 float32 a call
+
+
+@pytest.mark.parametrize("row", [
+    # (polyorder, samples, signal): capture_block's call (t10p5), a large
+    # one-channel arbitrary row (t10p2), and narrow reads against them
+    (4, CAPTURE_N, F32), (None, N_HEAD, F32), (4, N_HEAD, torch.int16),
+    (None, CAPTURE_N, torch.uint8)])
+def test_one_channel_float32_tables_take_the_grouped_path(taps, row):
+    po, xlen, x_dt = row
+    p = _params(taps, R_REF, po)
+    n = mt.outputlength(p, xlen)
+    plan = _plan(p, n, 1, x_dt, F32)
+    base = "t10p2" if po is None else "t10p5"
+    assert plan.variant == f"{base}.grouped" == rs.GROUPED[base]
+    # outputs 243 apart step 516.0000087 samples: their phase holds; lanes
+    # 8 outputs apart, 16.99 samples
+    assert (plan.stride, plan.mult) == (243, 8)
+    assert plan.tile >= 8 * plan.stride and plan.grid >= 2 * 132
+    assert (plan.channels, plan.run, plan.threads) == (1, 1, 256)
+    # two blocks an SM
+    assert 2 * (plan.smem + 1024) <= 228 * 1024
+    if (po, xlen, x_dt) == (4, CAPTURE_N, F32):
+        assert plan.tile == 243 * 20
+    # the run path is still there by name
+    run = _plan(p, n, 1, x_dt, F32, variant=base)
+    assert run.variant == base and run.run == 8
+
+
+@pytest.mark.parametrize("why", ["sdr_stream", "t73p2", "complex table",
+                                 "float64", "time-major", "8 channels",
+                                 "general"])
+def test_other_calls_keep_the_run_path(taps, why):
+    p = _params(taps, R_REF, 4)
+    n = mt.outputlength(p, CAPTURE_N)
+    if why == "sdr_stream":
+        # 65,536-sample blocks: tiles of 64, as before the grouped path
+        plan = _plan(p, mt.outputlength(p, 1 << 16), 1, F32, F32)
+        assert plan == rs.Plan("t10p5", 64, 1, 1, 483, 64, plan.smem, 0, 0)
+        return
+    if why == "t73p2":
+        k = mt.models.Resampler(R_REF, device="cpu").kernel
+        plan = _plan(k, mt.outputlength(k, CAPTURE_N), 1, F32, F32)
+        assert plan.variant == "t73p2"
+        return
+    args = {"complex table": (1, C64, C64), "float64": (1, F64, F64),
+            "time-major": (N_CH, F32, F32, True),
+            "8 channels": (8, F32, F32), "general": (1, F32, F32)}[why]
+    if why == "general":
+        assert _plan(p, n, *args, variant="general").variant == "general"
+        return
+    assert _plan(p, n, *args).variant == "t10p5"
+    with pytest.raises(ValueError, match="t10p5.grouped"):
+        _plan(p, n, *args, variant="t10p5.grouped")
