@@ -11,7 +11,9 @@ ranks on one card. Gloo's point-to-point operations take CPU tensors, so
 over gloo the halo (``h_min`` samples a channel per block boundary) is
 staged through the host (``sharded.py``); every kernel still runs on the
 rank's own device. ``spawn_world`` starts such a world of processes on
-this host, for the tests, the scaling benchmark and the smoke test.
+this host, for the tests, the scaling benchmark and the smoke test, or a
+world of ``nccl`` ranks with a card each, for the benchmark's sharded
+cell.
 """
 
 from __future__ import annotations
@@ -138,14 +140,19 @@ def world_device(device=None) -> str:
     return str(dev)
 
 
-def _rank_main(rank, world, store, fn, args, results, device, timeout_s):
+def _rank_main(rank, world, store, fn, args, results, device, timeout_s,
+               backend):
     torch.set_num_threads(1)
     try:
-        dist.init_process_group(
-            "gloo", init_method=f"file://{store}", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        kw = {}
         if device.startswith("cuda"):
             torch.cuda.set_device(torch.device(device))
+            if backend == "nccl":  # NCCL's communicator, made at once
+                kw["device_id"] = torch.device(device)
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s),
+            **kw)
         out = fn(rank, device, *args)
         dist.barrier()
         results.put((rank, out, None))
@@ -157,28 +164,51 @@ def _rank_main(rank, world, store, fn, args, results, device, timeout_s):
             dist.destroy_process_group()
 
 
+def _world_devices(world: int, device, backend: str) -> list:
+    """The device of each rank: under ``gloo`` ``world_device(device)``
+    for all; under ``nccl`` card r for rank r (raises without ``world``
+    cards)."""
+    if backend == "gloo":
+        return [world_device(device)] * world
+    if backend != "nccl":
+        raise ValueError(f"backend must be 'gloo' or 'nccl', not "
+                         f"{backend!r}")
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if found < world or not dist.is_nccl_available():
+        raise RuntimeError(f"an nccl world of {world} needs {world} CUDA "
+                           f"devices and NCCL; found {found} devices")
+    return [f"cuda:{r}" for r in range(world)]
+
+
 def spawn_world(fn, world: int, args=(), device=None,
-                timeout_s: float = 300.0, store_dir=None):
-    """Run ``fn(rank, device, *args)`` on every rank of a gloo world of
+                timeout_s: float = 300.0, store_dir=None,
+                backend: str = "gloo"):
+    """Run ``fn(rank, device, *args)`` on every rank of a world of
     ``world`` spawned processes and return the ranks' results, in rank
-    order. ``device`` is the card by default (``world_device``), every
-    rank on it; the CPU only where the caller names ``cpu``.
+    order. Under ``gloo`` (the default) ``device`` is the card by default
+    (``world_device``), every rank on it; the CPU only where the caller
+    names ``cpu``. Under ``nccl`` rank r takes card r (``device`` is not
+    read), and the call raises before it spawns anything where the host
+    has fewer than ``world`` cards.
 
     The ranks meet at a ``file://`` store in ``store_dir`` (a fresh
     temporary directory by default), so concurrent worlds never collide on
-    a port. ``fn`` must be importable (it is pickled by name). Every join
-    has a timeout: a rank that fails, hangs or dies raises here with its
-    traceback, and the ranks still running are terminated.
+    a port. ``fn`` must be importable (it is pickled by name), and what
+    it returns picklable (the rank functions here return numpy arrays,
+    not tensors). Every join has a timeout, and
+    so has every collective (``timeout_s``): a rank that fails, hangs or
+    dies raises here with its traceback, and the ranks still running are
+    terminated.
     """
     import torch.multiprocessing as mp
 
-    device = world_device(device)
+    devices = _world_devices(world, device, backend)
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
         ctx = mp.get_context("spawn")
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, args=(
             r, world, os.path.join(tmp, "store"), fn, args, results,
-            device, timeout_s)) for r in range(world)]
+            devices[r], timeout_s, backend)) for r in range(world)]
         for p in procs:
             p.start()
         got, errors = {}, []

@@ -18,6 +18,17 @@ own slice, and the mesh is a ``DeviceMesh`` with dims ``("ch", "t")``.
   broadcast history and the gathered outputs cross as CPU tensors; over
   ``nccl`` they stay on the device. The filtering itself runs on the
   signal's device either way, through the same kernels as ``filt_block``.
+- Over ``nccl`` a step waits for nothing on the host: the halo's and the
+  history's ``Work.wait()`` only order the rank's stream after NCCL's,
+  the counts and the entry state are host integers, and each rank keeps
+  its outputs (``compact`` gathers them when a caller wants them
+  whole). So a rank's host runs ahead of its card, and the cards pace
+  the stream.
+
+Traced (``utils.profiling``): the span ``mr.parallel.step`` is the whole
+``shard_filt_block``; under it ``mr.parallel.halo`` (``exchange_halo``:
+the tail's copy, the point-to-point operations built and enqueued) and
+``mr.parallel.history`` (``broadcast_tail``).
 
 The chunked==whole invariant across ranks is the same invariant the
 reference tests for single-core chunking (runtests.jl:72-96): each rank's
@@ -42,6 +53,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..ops import indexing as idx
 from ..ops.compute import filt_block_raw
 from ..ops.params import FIRDecimator, FIRRational, FilterState, init_state
+from ..utils.profiling import recording, span
 from . import multihost
 
 __all__ = ["make_mesh", "shard_filt_block", "shard_filt", "sharded_resample",
@@ -133,29 +145,32 @@ def _peer(mesh: DeviceMesh, ci: int, k: int) -> int:
     return int(mesh.mesh[ci, k])
 
 
-def exchange_halo(history, x_local, mesh: DeviceMesh):
+def exchange_halo(history, x_local, mesh: DeviceMesh, on=None):
     """The ``h_min`` samples left of this rank's block: the left
     neighbour's tail, sent over ``"t"`` with ``batch_isend_irecv``, or the
-    stream's ``history`` on t-rank 0. On ``x_local``'s device."""
-    ci, k, n_t = _coordinate(mesh)
-    H = history.shape[-1]
-    if n_t == 1 or H == 0:
-        return history
-    group = mesh.get_group("t")
-    ops, recv = [], None
-    if k + 1 < n_t:
-        tail = _wire(x_local[:, x_local.shape[-1] - H:], group)
-        ops.append(dist.P2POp(dist.isend, tail, _peer(mesh, ci, k + 1),
-                              group))
-    if k > 0:
-        recv = torch.empty((x_local.shape[0], H), dtype=x_local.dtype,
-                           device="cpu" if _over_host(group)
-                           else x_local.device)
-        ops.append(dist.P2POp(dist.irecv, recv, _peer(mesh, ci, k - 1),
-                              group))
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return history if k == 0 else recv.to(x_local.device)
+    stream's ``history`` on t-rank 0. On ``x_local``'s device. Traced as
+    ``mr.parallel.halo`` (``on`` as ``utils.profiling.span``'s)."""
+    with span("mr.parallel.halo", on):
+        ci, k, n_t = _coordinate(mesh)
+        H = history.shape[-1]
+        if n_t == 1 or H == 0:
+            return history
+        group = mesh.get_group("t")
+        ops, recv = [], None
+        if k + 1 < n_t:
+            tail = _wire(x_local[:, x_local.shape[-1] - H:], group)
+            ops.append(dist.P2POp(dist.isend, tail, _peer(mesh, ci, k + 1),
+                                  group))
+        if k > 0:
+            recv = torch.empty((x_local.shape[0], H), dtype=x_local.dtype,
+                               device="cpu" if _over_host(group)
+                               else x_local.device)
+            ops.append(dist.P2POp(dist.irecv, recv, _peer(mesh, ci, k - 1),
+                                  group))
+        # over nccl a wait orders this rank's stream after the transfer
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return history if k == 0 else recv.to(x_local.device)
 
 
 def shard_step(params, state: FilterState, halo, x_local, k: int,
@@ -210,34 +225,41 @@ def shard_filt_block(params, state: FilterState, x_local, mesh: DeviceMesh,
     closed-form entry state at N.
 
     Requires per-shard block length >= h_min (one-hop halo): a shorter
-    block raises ``ValueError``, as in the JAX package.
+    block raises ``ValueError``, as in the JAX package. Over ``nccl``
+    nothing in the call waits for the card. Traced as
+    ``mr.parallel.step``.
     """
-    _check_block(params, state, x_local)
-    _, k, n_t = _coordinate(mesh)
-    nblk = x_local.shape[-1]
-    halo = exchange_halo(state.history, x_local, mesh)
-    y = shard_step(params, state, halo, x_local, k, path)
-    counts = _shard_counts(params, state, nblk, n_t)
-    phase, deficit = _entry_state(params, state.phase, state.deficit,
-                                  n_t * nblk)
-    new_state = FilterState(
-        history=broadcast_tail(x_local, params.h_min, mesh).to(
-            state.history.dtype),
-        phase=phase, deficit=deficit)
-    return y, counts, new_state
+    on = recording()
+    with span("mr.parallel.step", on):
+        _check_block(params, state, x_local)
+        _, k, n_t = _coordinate(mesh)
+        nblk = x_local.shape[-1]
+        halo = exchange_halo(state.history, x_local, mesh, on)
+        y = shard_step(params, state, halo, x_local, k, path)
+        counts = _shard_counts(params, state, nblk, n_t)
+        phase, deficit = _entry_state(params, state.phase, state.deficit,
+                                      n_t * nblk)
+        new_state = FilterState(
+            history=broadcast_tail(x_local, params.h_min, mesh, on).to(
+                state.history.dtype),
+            phase=phase, deficit=deficit)
+        return y, counts, new_state
 
 
-def broadcast_tail(x_local, H: int, mesh: DeviceMesh):
+def broadcast_tail(x_local, H: int, mesh: DeviceMesh, on=None):
     """The last ``H`` samples of the global block, from the last t-rank
-    over ``"t"``, on ``x_local``'s device (a tensor of its own)."""
-    ci, _, n_t = _coordinate(mesh)
-    tail = x_local[:, x_local.shape[-1] - H:]
-    if n_t == 1:
-        return tail.clone(memory_format=torch.contiguous_format)
-    group = mesh.get_group("t")
-    tail = _wire(tail, group, copy=True)
-    dist.broadcast(_collective(tail, group), _peer(mesh, ci, n_t - 1), group)
-    return tail.to(x_local.device)
+    over ``"t"``, on ``x_local``'s device (a tensor of its own). Traced
+    as ``mr.parallel.history`` (``on`` as ``utils.profiling.span``'s)."""
+    with span("mr.parallel.history", on):
+        ci, _, n_t = _coordinate(mesh)
+        tail = x_local[:, x_local.shape[-1] - H:]
+        if n_t == 1:
+            return tail.clone(memory_format=torch.contiguous_format)
+        group = mesh.get_group("t")
+        tail = _wire(tail, group, copy=True)
+        dist.broadcast(_collective(tail, group), _peer(mesh, ci, n_t - 1),
+                       group)
+        return tail.to(x_local.device)
 
 
 def _gather(t, mesh: DeviceMesh, dim_name: str):

@@ -29,7 +29,8 @@ runtests.jl:60, examples/Arb-Farrow Speed Comparison.jl:16-32):
   manager or a decorator; outside a trace it only runs the region.
 
 The program's span sites (``mr.*`` names: ``io/stream.py``,
-``ops/api.py``, ``ops/cuda/polyphase.py``, ``ops/cuda/resample.py``) cost
+``ops/api.py``, ``ops/cuda/polyphase.py``, ``ops/cuda/resample.py``,
+``parallel/sharded.py``) cost
 one ``recording()`` check with no profiler: a public call checks once and
 hands the answer to the private entries it calls, which take the plain
 path, or enter ``span(name, True)`` around it.

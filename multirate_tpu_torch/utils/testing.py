@@ -7,8 +7,10 @@ side-by-side neighborhood for debugging. ``ulps_apart`` measures narrow
 ``rel_max_err`` real or complex outputs against the largest magnitude.
 ``sharded_cases`` is a rank function for ``parallel.multihost.
 spawn_world``: the sharded cases of a test, run on the ranks of a gloo
-world with their results gathered. This module imports no JAX, so that
-spawned ranks stay light.
+world with their results gathered; ``sharded_stream`` another, one
+stream split by time over the world with its state carried, each rank's
+outputs kept on the rank, its steps watched for waits on the card and
+traced. This module imports no JAX, so that spawned ranks stay light.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["first_divergence", "assert_close", "rms", "ulps_apart",
-           "rel_max_err", "sharded_cases"]
+           "rel_max_err", "sharded_cases", "sharded_stream"]
 
 # significant bits and the exponent of the smallest spacing (subnormal)
 _SPACING = {torch.bfloat16: (8, -133), torch.float16: (11, -24)}
@@ -182,3 +184,60 @@ def sharded_cases(rank, device, cases):
     out["world"] = (dist.get_world_size(), dist.get_rank(),
                     multihost.is_multihost())
     return out
+
+
+def sharded_stream(rank, device, h, x, kw, calls):
+    """The rank function of ``spawn_world`` for one stream split by time
+    over a (1, world) mesh: ``x`` (C, calls * N) numpy holds the calls'
+    super-blocks side by side, and call c runs ``shard_filt_block`` on
+    this rank's (C, N / world) block of super-block c, the state carried
+    from call to call (``make_kernel(h, device=device, **kw)``). On the
+    card each step runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    so a step that waits for the card raises. Then the first two calls
+    run again from a fresh state under a profiler session.
+
+    Returns this rank's outputs of each call (numpy), every call's counts,
+    the state after the calls (history as numpy, phase, deficit), the
+    tracer's record after the untraced calls, and its record after the
+    traced ones."""
+    import torch.distributed as dist
+
+    from ..ops.params import init_state, make_kernel
+    from ..parallel import make_mesh, shard_filt_block
+    from . import profiling
+
+    world = dist.get_world_size()
+    N = x.shape[-1] // calls
+    n = N // world
+    mesh = make_mesh(1, world)
+    params = make_kernel(h, device=device, **kw)
+    xd = torch.from_numpy(x).to(device)
+    blocks = [xd[:, c * N + rank * n:c * N + (rank + 1) * n].contiguous()
+              for c in range(calls)]
+
+    def step(state, blk):
+        if not xd.is_cuda:
+            return shard_filt_block(params, state, blk, mesh)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return shard_filt_block(params, state, blk, mesh)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    profiling.clear()
+    state = init_state(params, (x.shape[0],), xd.dtype)
+    ys, counts = [], []
+    for blk in blocks:
+        y, cnt, state = step(state, blk)
+        ys.append(_host(y))
+        counts.append(list(cnt))
+    untraced = profiling.spans()
+    fresh = init_state(params, (x.shape[0],), xd.dtype)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.clear()
+        for blk in blocks[:2]:
+            fresh = step(fresh, blk)[2]
+    return {"y": ys, "counts": counts,
+            "state": (_host(state.history), state.phase, state.deficit),
+            "untraced": untraced, "spans": profiling.spans()}

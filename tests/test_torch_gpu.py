@@ -7,7 +7,9 @@ the run path bit for bit, chunked == whole) and the copy and expand
 probes; the runtime on the card: StreamingResampler's block loop
 with no synchronizing call, and a profiler trace holding the kernel;
 the parallel layer on four gloo ranks sharing the card (halo through the
-host) against ``filt`` of the whole signal; the narrow-read entries of
+host) against ``filt`` of the whole signal, and on four NCCL ranks with a
+card each (a host of four cards), bit for bit, with no step that waits
+for the card; the narrow-read entries of
 both kernels (int16, uint8, float16, bfloat16 and int8 samples against
 float32 taps, float32 or float16 outputs), each against its plain version
 and bit-equal to the float32 entry on the widened values, on every
@@ -704,6 +706,47 @@ def test_sharded_ranks_match_unsharded_on_gpu():
         else:
             tol = 2.0 ** -8 if c["id"] == "bf16" else TOL
             assert rel_max_err(got["y"], want) <= tol, c["id"]
+
+
+@pytest.mark.gpu
+def test_nccl_sharded_stream_equals_filt_on_four_cards():
+    """The 64-channel Farrow stream at 0.9173 split by time over a (1, 4)
+    mesh of NCCL ranks, one card each, its state carried over three
+    super-blocks: each rank's outputs are its slice of ``FIRFilter.filt``
+    on the whole super-blocks, bit for bit, the counts and the carried
+    state exact, and no step waits for the card (each runs under
+    ``torch.cuda.set_sync_debug_mode("error")``)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from multirate_tpu_torch.parallel.multihost import spawn_world
+    from multirate_tpu_torch.utils.testing import sharded_stream
+
+    calls, N = 3, 4 * 65_536
+    h = (mt.firdes(320, 0.45, mt.kaiser, samplerate=32, beta=5.65326)
+         * 32).astype(np.float32)
+    x = np.random.default_rng(18).standard_normal(
+        (64, calls * N)).astype(np.float32)
+    kw = {"rate": 0.9173, "nphi": 32, "polyorder": 4}
+    f = mt.FIRFilter(h, 0.9173, nphi=32, polyorder=4, device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    whole = [f.filt(xd[:, c * N:(c + 1) * N]).cpu() for c in range(calls)]
+    ranks = spawn_world(sharded_stream, 4, args=(h, x, kw, calls),
+                        backend="nccl", timeout_s=300)
+    for c, want in enumerate(whole):
+        counts = ranks[0]["counts"][c]
+        assert sum(counts) == want.shape[-1]
+        edges = np.cumsum([0] + counts)
+        for k, r in enumerate(ranks):
+            assert r["counts"][c] == counts
+            got = torch.from_numpy(r["y"][c])
+            part = want[:, edges[k]:edges[k + 1]]
+            assert torch.equal(got, part), (
+                c, k, float((got - part).abs().max()))
+    for r in ranks:
+        hist, phase, deficit = r["state"]
+        assert (phase, deficit) == (f.state.phase, f.state.deficit)
+        assert np.array_equal(hist, f.state.history.cpu().numpy())
+        assert [s[0] for s in r["spans"]].count("mr.parallel.step") == 2
 
 
 @pytest.mark.gpu
