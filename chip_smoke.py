@@ -406,6 +406,11 @@ VARIANT_GEOMETRIES = ((24, 147, 160), (37, 7, 6), (37, 4, 1), (24, 4, 1),
                       (147, 1, 1), (147, 1, 4), (24, 1, 1), (30, 1000, 999),
                       (24, 1031, 1030), (48, 147, 160))
 VARIANT_XLEN = 80_007
+# 3: reg.tma's streams, (channels, chunk boundaries): one channel in chunks
+# that start at 16-byte boundaries and are no multiple of 4 long, and 8
+# channels in rows of whole 16-byte words
+TMA_CUTS = ((1, (0, 300_004, 700_008, 1_000_003)),
+            (8, (0, 120_000, 200_004, 333_336)))
 
 
 class SmokeFailure(Exception):
@@ -643,7 +648,10 @@ def _sum_bound_ratio(torch, y, yp, s_abs, n):
 
 def _variant_matrix(torch, dev, pp, entries):
     """Each of ``entries`` (polyphase entry points) through the variant
-    ``plan`` picks and through the general variant, against the plain
+    ``plan`` picks, through the general variant and, where it can take the
+    call (float32 at 147//160 on one channel: two channels' rows of 80,007
+    samples are not 16-byte aligned), through ``reg.tma`` with no tile
+    threshold, bit-equal to ``reg``; against the plain
     version, at VARIANT_GEOMETRIES: one channel and two at xlen 80,007,
     fresh and mid-phase entry states, all outputs, 1, 33 and one more than
     a tile. Checks that the planned variant was launched. A float32 or
@@ -688,8 +696,15 @@ def _variant_matrix(torch, dev, pp, entries):
                 s_abs = pp.polyphase_plain(
                     *(_magnitude(torch, t) for t in args[:3]),
                     *args[3:]) if f32_sum else None
-                for variant in (None, "general"):
-                    p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant)
+                aligned = pp.rows_aligned(args[0])
+                for variant in (None, "general", "reg.tma"):
+                    try:
+                        p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant,
+                                    aligned=aligned)
+                    except ValueError:
+                        check(variant == "reg.tma", f"{entry} T={T} "
+                              f"{L}//{M}: no {variant} plan")
+                        continue
                     key = f"{entry}/{p.variant}"
                     before = pp.launches_by_variant[key]
                     y = pp.polyphase(*args, out_dtype=o_dt, variant=variant)
@@ -697,6 +712,10 @@ def _variant_matrix(torch, dev, pp, entries):
                     case = (f"{key} T={T} {L}//{M} C={C} {state} n={n}")
                     check(pp.launches_by_variant[key] == before + 1,
                           f"{case}: not launched once")
+                    if p.variant == "reg.tma":
+                        check(torch.equal(y, pp.polyphase(
+                            *args, out_dtype=o_dt, variant="reg")),
+                            f"{case}: differs from reg")
                     check(y.dtype == yp.dtype and y.shape == yp.shape,
                           f"{case}: {y.dtype} {tuple(y.shape)}")
                     if x_dt in NARROW and b_dt == torch.float32:
@@ -737,6 +756,45 @@ def _variant_matrix(torch, dev, pp, entries):
                     used[p.variant] = used.get(p.variant, 0) + 1
                     n_cases += 1
     return n_cases, worst, used, ratio
+
+
+def _tma_chunked(mt, torch, dev, pp):
+    """reg.tma with no tile threshold on TMA_CUTS' streams at 147//160,
+    entered mid-stream (each chunk's first tile reaches into a real history,
+    its last is ragged): chunked == whole bit for bit, one reg.tma launch a
+    block, and the whole equal to reg's bits. Returns the streams run."""
+    rng = np.random.default_rng(27)
+    p = mt.make_kernel(headline_taps(mt), ratio=Fraction(147, 160),
+                       device=dev)
+    threshold = pp.TMA_MIN_TILES
+    try:
+        for C, cuts in TMA_CUTS:
+            x, x0 = (torch.from_numpy(rng.standard_normal(
+                (C, n)).astype(np.float32)).to(dev) for n in (cuts[-1], 777))
+            st = mt.init_state(p, (C,))
+            _, _, st = mt.filt_block(p, st, x0, path="windows")
+            pp.TMA_MIN_TILES = 1
+            _reset_counts(pp)
+            yw, _, sw = mt.filt_block(p, st, x, path="kernel")
+            parts, s = [], st
+            for a, b in zip(cuts, cuts[1:]):
+                yc, _, s = mt.filt_block(p, s, x[:, a:b], path="kernel")
+                parts.append(yc)
+            torch.cuda.synchronize()
+            case = f"reg.tma, {C} channel(s) cut at {cuts}"
+            check(_by_variant(pp) == {"f32/reg.tma": len(cuts)},
+                  f"{case}: launched {_by_variant(pp)}")
+            check(torch.equal(torch.cat(parts, -1), yw)
+                  and (s.phase, s.deficit) == (sw.phase, sw.deficit),
+                  f"{case}: chunked differs from whole")
+            pp.TMA_MIN_TILES = 1 << 62
+            yr, _, _ = mt.filt_block(p, st, x, path="kernel")
+            torch.cuda.synchronize()
+            check(_by_variant(pp).get("f32/reg") == 1
+                  and torch.equal(yr, yw), f"{case}: differs from reg")
+    finally:
+        pp.TMA_MIN_TILES = threshold
+    return len(TMA_CUTS)
 
 
 def _bound_note(ratio):
@@ -805,10 +863,12 @@ def phase_kernel_vs_plain(mt, torch, dev, pp):
                                             case))
                 n_cases += 1
     n_var, w_var, used, ratio = _variant_matrix(torch, dev, pp, ("f32",))
+    n_tma = _tma_chunked(mt, torch, dev, pp)
     print(f"[3 kernel vs plain] {n_cases} cases, counts and states exact, "
           f"worst max|dy|/max|y| {worst:.3e} (limit {TOL_KERNEL}); "
           f"variants: {n_var} f32 cases {used}, worst max|dy|/max|y| "
-          f"{w_var['f32']:.3e}{_bound_note(ratio)}")
+          f"{w_var['f32']:.3e}{_bound_note(ratio)}; reg.tma: {n_tma} "
+          f"streams chunked == whole == reg bit for bit")
 
 
 def phase_slice(mt, torch, dev, pp):
@@ -830,8 +890,13 @@ def phase_slice(mt, torch, dev, pp):
 
     check(launches == 1 + len(parts) == sum(pp.launches.values()),
           f"kernel launched {pp.launches}, want f32 {1 + len(parts)}")
-    check(_by_variant(pp) == {"f32/reg": launches},
-          f"variants launched {_by_variant(pp)}, want f32/reg {launches}")
+    want = {}
+    for part in (y, *parts):  # one channel, rows aligned
+        v = pp.plan(24, 147, 160, part.shape[-1], torch.float32,
+                    torch.float32).variant
+        want[f"f32/{v}"] = want.get(f"f32/{v}", 0) + 1
+    check(_by_variant(pp) == want,
+          f"variants launched {_by_variant(pp)}, want {want}")
     check(y.device == x.device and y.dtype == torch.float32
           and tuple(y.shape) == (n_want,), f"filt gave {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "non-finite outputs")
@@ -2537,7 +2602,9 @@ def _shard_rank(rank, device, n_head):
     check(tuple(y.shape) == tuple(whole.shape), f"4f headline {y.shape}")
     err_head = rel(y, whole)
     check(err_head <= TOL_SHARD_FULL, f"4f headline: {err_head:.3e}")
-    check(by == {"f32/reg": 1}, f"4f headline: launches {by}")
+    want = pp.plan(24, 147, 160, mt.outputlength(p, n_head // 4),
+                   torch.float32, torch.float32).variant
+    check(by == {f"f32/{want}": 1}, f"4f headline: launches {by}")
     launches["headline (1, 4)"] = n
     oracle = None
     if rank == 0:
@@ -2795,7 +2862,7 @@ BENCH_HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline",
 # bench.py's rows in its order, with the "<entry>/<variant>" each runs
 # (polyphase.plan and resample.plan at the rows' shapes)
 BENCH_VARIANTS = {
-    "rational_147_160": "f32/reg", "rational_147_160_bf16": "bf16/reg",
+    "rational_147_160": "f32/reg.tma", "rational_147_160_bf16": "bf16/reg",
     "rational_147_160_int8": "s8/reg", "rational_147_160_c64": "c64/reg",
     "rational_147_160_f64": "f64/reg", "standard_147taps": "f32/bcast",
     "decim_1_4": "f32/bcast", "interp_4_1": "f32/slide",

@@ -66,7 +66,7 @@
 // full float32 products (TF32's ~1e-3 fails the 8e-5 oracle tripwire), and
 // every mode is bound by bytes once shared reads are cut.
 //
-// Four variants, chosen by the host (ops/cuda/polyphase.py plan()), never
+// Five variants, chosen by the host (ops/cuda/polyphase.py plan()), never
 // after a failure:
 // - "bcast" (L == 1: the FIR and the decimators, any T): every output has
 //   the same taps, read from shared memory at one address per warp (a
@@ -94,12 +94,33 @@
 //   The cost is E/T more multiply-adds and R*U tap registers (ptxas reports
 //   them in build.log). Like the TPU's banded product, a non-finite sample
 //   reaches the E outputs whose padded (zero) taps cover it.
-// - "general" (anything else: other T, Q too large for the mapping, a bank
+// - "reg.tma" ("reg"'s float32 launches at T = 24 with P a multiple of 4,
+//   16-byte aligned channels and enough tiles to keep a persistent grid
+//   busy): "reg"'s outputs, taps and sums, fed another way. "reg" at
+//   147//160 ran at 66% of its bytes bound with no unit saturated (shared
+//   reads ~54% busy, issue ~35%, device memory 66%): latency-bound, with 3
+//   warps a scheduler waiting on 28 scalar shared reads a period, on the
+//   cp.async double buffer (at most ~17.6 KB of input in flight an SM) and
+//   on two block barriers a tile. Here one producer warp a block keeps a
+//   ring of tile buffers full with bulk copies (cp.async.bulk, completing
+//   on an mbarrier: no register or instruction of the consumers goes into
+//   a copy) while four consumer warps wait on each buffer's "full" barrier
+//   and release it on its "empty" one (an arrival a warp), so no block
+//   barrier remains. A thread's window starts at the same word of a
+//   16-byte word in every period, so its taps are stored shifted by that
+//   (UA = 32 registers an output at T = 24, not 28) and it reads 8 aligned
+//   16-byte words a period, not 28 scalars: fewer shared wavefronts and 8
+//   independent loads in flight, for 14% more multiply-adds (zero taps) at
+//   167 registers, 2 blocks of 160 threads an SM. Tiles of 12 periods a
+//   thread (23 KB at 147//160) in a ring of 2 were the fastest of a sweep
+//   on the H100 (tools/polyphase_runs.py): the dot is then ~73% of the
+//   consumers' clocks and the release ~13%, and madi's call runs at ~83%
+//   of its bytes bound, not 66%.// - "general" (anything else: other T, Q too large for the mapping, a bank
 //   over 96 KB such as 48 complex128 taps at 147//160): the first design,
 //   kept as is. Each thread computes whole outputs, two shared reads per
 //   multiply-add (window and bank), the bank in shared memory or read
 //   through L1; each tile is staged synchronously.
-// The three new variants stage each tile's input span with 16-byte
+// "reg", "slide" and "bcast" stage each tile's input span with 16-byte
 // cp.async copies into a double buffer, so tile i + 1 loads while tile i
 // computes (a span that reaches into the history is stored synchronously;
 // there is no [history ++ x] in device memory). "slide" and "bcast" gather
@@ -137,10 +158,12 @@ constexpr int64_t kMaxGridX = 65535;
 constexpr int64_t kMaxGridY = 65535;
 constexpr size_t kSmemLimit = 227 * 1024;
 constexpr size_t kBankSmemLimit = 96 * 1024;
+constexpr int kTmaMaxStages = 8;      // reg.tma: ring buffers, at most
+constexpr int kTmaBarBytes = 2 * kTmaMaxStages * 8;  // its mbarriers
 constexpr int kErrTooLarge = -1;
 constexpr int kErrBadPlan = -2;
 
-enum Variant { kGeneral = 0, kReg = 1, kBcast = 2, kSlide = 3 };
+enum Variant { kGeneral = 0, kReg = 1, kBcast = 2, kSlide = 3, kRegTma = 4 };
 
 // The staged (shared-memory) types of a (signal, tap) pair and its
 // accumulator: the types themselves, but bf16 staged as float, int8 summed
@@ -286,6 +309,100 @@ __device__ __forceinline__ int stage_raw(X* raw, const X* hc, const X* xc,
   }
   return 0;
 }
+
+// The producer-fed variant's ring: mbarriers (mbarrier.* and cp.async.bulk,
+// sm_90). ``full`` completes when a buffer's samples have landed (the
+// producer warp's 32 arrivals and the bulk copy's bytes), ``empty`` when
+// every consumer warp has read it.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+// arrive, and expect ``bytes`` more from a bulk copy before the phase ends
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on ``bar``
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A clock split of the reg and reg.tma kernels for tools/polyphase_runs.py,
+// which builds this source with -DMR_POLYPHASE_CLOCKS: each thread then adds
+// its clock64 intervals, by part, to mr_clocks (read and cleared by
+// mr_polyphase_clocks). Without the define the macros are empty.
+enum ClockPart {
+  kClkTaps = 0,     // the prologue: taps into registers, barriers set up
+  kClkStage = 1,    // staging issued (reg: cp.async; reg.tma: the producer)
+  kClkWait = 2,     // waiting for a tile's samples (and reg's barrier)
+  kClkDot = 3,      // the multiply-adds and their shared reads
+  kClkStore = 4,    // the stores
+  kClkRelease = 5,  // the tile released (reg: its trailing barrier)
+  kClkFree = 6,     // reg.tma's producer waiting for a free buffer
+  kClockParts = 7
+};
+#ifdef MR_POLYPHASE_CLOCKS
+__device__ unsigned long long mr_clocks[kClockParts];
+#define MR_CLOCK_BEGIN            \
+  long long clk_[kClockParts] = {}; \
+  long long clk_at_ = clock64()
+#define MR_CLOCK(part)                 \
+  do {                                 \
+    const long long t_ = clock64();    \
+    clk_[part] += t_ - clk_at_;        \
+    clk_at_ = t_;                      \
+  } while (0)
+#define MR_CLOCK_END                                                    \
+  do {                                                                  \
+    for (int p_ = 0; p_ < kClockParts; ++p_)                            \
+      if (clk_[p_]) atomicAdd(&mr_clocks[p_], (unsigned long long)clk_[p_]); \
+  } while (0)
+#else
+#define MR_CLOCK_BEGIN \
+  do {                 \
+  } while (0)
+#define MR_CLOCK(part) \
+  do {                 \
+  } while (0)
+#define MR_CLOCK_END \
+  do {               \
+  } while (0)
+#endif
 
 // At most as many blocks of ``kern`` as the card holds at once: the plan's
 // grid is an upper bound, and a persistent block loads its taps once.
@@ -464,6 +581,7 @@ polyphase_reg(const X* __restrict__ x, const X* __restrict__ hist,
   constexpr int U = T + Shape<X, W>::kE;
   constexpr bool kInt8 = sizeof(XS) == 1;
   constexpr int U4 = (U + 3) / 4;  // int8: packed words of a tap vector
+  MR_CLOCK_BEGIN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   X* const raw0 = reinterpret_cast<X*>(smem_raw);
   X* const raw1 = reinterpret_cast<X*>(smem_raw + raw_bytes(g.span, sizeof(X)));
@@ -519,6 +637,7 @@ polyphase_reg(const X* __restrict__ x, const X* __restrict__ hist,
   };
   const int64_t total = C * n_tiles;
   int64_t w = blockIdx.x;
+  MR_CLOCK(kClkTaps);
   int lead = w < total ? prefetch(w, raw0) : 0;
   cp_async_commit();
   for (int cur = 0; w < total; w += gridDim.x, cur ^= 1) {
@@ -526,8 +645,10 @@ polyphase_reg(const X* __restrict__ x, const X* __restrict__ hist,
         w + gridDim.x < total ? prefetch(w + gridDim.x, cur ? raw0 : raw1)
                               : 0;
     cp_async_commit();
+    MR_CLOCK(kClkStage);
     cp_async_wait_one();  // tile w has landed
     __syncthreads();
+    MR_CLOCK(kClkWait);
     const int64_t c = w / n_tiles;
     const int64_t n0 = (w - c * n_tiles) * g.K * g.Qp;
     const X* buf = cur ? raw1 : raw0;  // 16-byte aligned
@@ -566,13 +687,17 @@ polyphase_reg(const X* __restrict__ x, const X* __restrict__ hist,
           for (int r = 0; r < R; ++r) acc[r] = mac(acc[r], v, B[r][s]);
         }
       }
+      MR_CLOCK(kClkDot);
 #pragma unroll
       for (int r = 0; r < R; ++r)
         if (r < nvalid && jt + r < nt) store(yc + jt + r, acc[r]);
+      MR_CLOCK(kClkStore);
     }
     __syncthreads();  // buf is read before the next prefetch refills it
+    MR_CLOCK(kClkRelease);
     lead = lead_next;
   }
+  MR_CLOCK_END;
 }
 
 template <typename Entry, typename X, typename W, typename Out, int T>
@@ -595,6 +720,231 @@ int launch_reg_t(const void* x, const void* hist, const void* bank, void* y,
       (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L, M,
       phi0, d0, n_out, g, n_tiles);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- reg.tma
+
+// The modes the producer-fed variant serves: float32 samples against
+// float32 taps (any store type).
+template <typename X, typename W> struct TmaMode {
+  static constexpr bool kOn =
+      std::is_same<X, float>::value && std::is_same<W, float>::value;
+  static constexpr int kV = 4;  // samples a 16-byte word
+};
+
+// Window words a thread reads a period: U = T + E, after up to V - 1 words
+// of alignment, rounded up to whole 16-byte words.
+template <int T, int E, int V>
+__host__ __device__ constexpr int tma_words() {
+  return (T + E + 2 * (V - 1)) / V * V;
+}
+
+// Samples a ring buffer holds: a tile's reads (K periods of Pp, the last
+// group's offset, the alignment, the padded window), in whole 16-byte words.
+int tma_buffer(int K, int Pp, int base_max, int words, int V) {
+  return ((K - 1) * Pp + base_max + V - 1 + words + V - 1) / V * V;
+}
+
+// "reg"'s outputs, taps and periods, fed by a ring of ``stages`` buffers of
+// ``nb`` samples. The last warp is the producer: for each work item (as in
+// "reg": channel w / n_tiles, tile w % n_tiles, the block's items in turn)
+// it waits for a free buffer, stores by hand what no copy can bring (words
+// before x, from the history or zeros; the last partial word of x and zeros
+// past x's end) and starts one bulk copy of the rest, 16-byte aligned at
+// both ends. Buffer word 0 is xext sample d0 - 1 + tile * K * Pp - lead,
+// lead = (d0 - 1 - H) mod V: with Pp a multiple of V and every channel's x
+// 16-byte aligned, each thread's window starts (lead + base) mod V words
+// into a 16-byte word in every period of every tile, so its taps are
+// stored shifted by that too (UA registers an output, zeros outside) and
+// it reads UA / V aligned 16-byte words a period. The sums run in reg's
+// order, zero terms aside: each output equals reg's bit for bit.
+template <typename Entry, typename X, typename W, typename Out, int T>
+__global__ void __launch_bounds__(kRegTarget + 32, 2)
+polyphase_reg_tma(const X* __restrict__ x, const X* __restrict__ hist,
+                  const W* __restrict__ bank, Out* __restrict__ y, int64_t C,
+                  int64_t xlen, int L, int M, int phi0, int64_t d0,
+                  int64_t n_out, RegGeom g, int stages, int nb,
+                  int64_t n_tiles) {
+  using XS = typename Mode<X, W>::XStage;
+  using WS = typename Mode<X, W>::WStage;
+  using Acc = typename Mode<X, W>::Acc;
+  constexpr int R = Shape<X, W>::kR;
+  constexpr int V = TmaMode<X, W>::kV;
+  constexpr int UA = tma_words<T, Shape<X, W>::kE, V>();
+  MR_CLOCK_BEGIN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* const empty = full + kTmaMaxStages;
+  X* const ring = reinterpret_cast<X*>(smem_raw + kTmaBarBytes);
+  const int H = T - 1;
+  const int r0 = phi0 - 1;  // every tile starts at a period: same phase
+  const int tid = threadIdx.x;
+  const int consumers = g.block;  // whole warps; the producer warp after
+  const int lead = (int)(((d0 - 1 - H) % V + V) % V);
+  const int64_t total = C * n_tiles;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, consumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= consumers) {  // the producer warp
+    const int lane = tid - consumers;
+    const int64_t step = (int64_t)g.K * g.Pp;  // samples a tile moves on
+    int stage = 0;
+    uint32_t phase = 0;
+    MR_CLOCK(kClkTaps);
+    for (int64_t w = blockIdx.x; w < total; w += gridDim.x) {
+      mbar_wait(empty + stage, phase ^ 1);
+      MR_CLOCK(kClkFree);
+      const int64_t c = w / n_tiles;
+      const int64_t start = d0 - 1 + (w - c * n_tiles) * step - lead;
+      const X* hc = hist + c * H;
+      const X* xc = x + c * xlen;
+      X* const buf = ring + (size_t)stage * nb;
+      // buffer word j is xext sample start + j: [0, jx0) lies before x,
+      // [jx0, jx1) in x, of which [jx0, jc) is copied
+      const int64_t a0 = H - start, a1 = H + xlen - start;
+      const int jx0 = (int)(a0 < 0 ? 0 : (a0 > nb ? nb : a0));
+      const int jx1 = (int)(a1 < jx0 ? jx0 : (a1 > nb ? nb : a1));
+      const int jc = jx0 + ((jx1 - jx0) & ~(V - 1));
+      for (int j = lane; j < jx0; j += 32) {
+        const int64_t e = start + j;
+        buf[j] = e >= 0 ? hc[e] : X{};
+      }
+      for (int j = jc + lane; j < nb; j += 32)
+        buf[j] = j < jx1 ? xc[start + j - H] : X{};
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t bytes = (uint32_t)(jc - jx0) * sizeof(X);
+        mbar_arrive_tx(full + stage, bytes);
+        if (bytes) bulk_copy(buf + jx0, xc + (start + jx0 - H), bytes,
+                             full + stage);
+      } else {
+        mbar_arrive(full + stage);
+      }
+      MR_CLOCK(kClkStage);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    MR_CLOCK_END;
+    return;
+  }
+
+  const bool active = tid < g.G * g.KT;
+  const int gi = active ? tid % g.G : 0;
+  const int kl = tid / g.G;
+  const int j0 = gi * R;  // first output of the group in a period
+  const int nvalid = g.Qp - j0 < R ? g.Qp - j0 : R;
+  const int base = (int)(((int64_t)r0 + (int64_t)j0 * M) / L);
+  const int sh = (lead + base) % V;          // the same in every period
+  const int q0 = (lead + base - sh) / V;     // period 0's first word
+  const int pq = g.Pp / V;                   // 16-byte words a period
+
+  // Output j0 + r reads window words base + d_r + t, which are words
+  // sh + d_r + t of this thread's read: its taps go there, zeros elsewhere.
+  WS B[R][UA];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t tr = r0 + (int64_t)(j0 + r) * M;
+    const int ph = (int)(tr % L);
+    const int d = (int)(tr / L) - base + sh;
+    const bool ok = active && r < nvalid;
+#pragma unroll
+    for (int s = 0; s < UA; ++s) {
+      const int t = s - d;
+      B[r][s] = ok && t >= 0 && t < T ? widen<WS>(bank[t * L + ph])
+                                      : mr::zero<WS>();
+    }
+  }
+  MR_CLOCK(kClkTaps);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int64_t w = blockIdx.x; w < total; w += gridDim.x) {
+    mbar_wait(full + stage, phase);
+    MR_CLOCK(kClkWait);
+    const int64_t c = w / n_tiles;
+    const int64_t n0 = (w - c * n_tiles) * g.K * g.Qp;
+    const float4* buf =
+        reinterpret_cast<const float4*>(ring + (size_t)stage * nb) + q0;
+    Out* const yc = y + c * n_out + n0;
+    const int nt = (int)(n_out - n0 < (int64_t)g.K * g.Qp
+                             ? n_out - n0 : (int64_t)g.K * g.Qp);
+    for (int k = kl; active && k < g.K; k += g.KT) {
+      const int jt = k * g.Qp + j0;  // tile-relative output
+      if (jt >= nt) break;
+      const float4* wq = buf + k * pq;
+      Acc acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = mr::zero<Acc>();
+#pragma unroll
+      for (int q = 0; q < UA / V; ++q) {
+        const float4 v4 = wq[q];
+        const XS v[V] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            acc[r] = mac(acc[r], v[i], B[r][q * V + i]);
+      }
+      MR_CLOCK(kClkDot);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r < nvalid && jt + r < nt) store(yc + jt + r, acc[r]);
+      MR_CLOCK(kClkStore);
+    }
+    __syncwarp();  // the warp's reads of the buffer are done
+    if ((tid & 31) == 0) mbar_arrive(empty + stage);
+    MR_CLOCK(kClkRelease);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  MR_CLOCK_END;
+}
+
+template <typename Entry, typename X, typename W, typename Out, int T>
+int launch_tma_t(const void* x, const void* hist, const void* bank, void* y,
+                 int64_t C, int64_t xlen, int L, int M, int phi0, int64_t d0,
+                 int64_t n_out, int K, int stages, int64_t grid_x,
+                 cudaStream_t stream) {
+  if constexpr (!TmaMode<X, W>::kOn) {
+    return kErrBadPlan;
+  } else {
+    constexpr int V = TmaMode<X, W>::kV;
+    constexpr int R = Shape<X, W>::kR;
+    RegGeom g;
+    if (reg_geom(T, L, M, K, R, Shape<X, W>::kE, sizeof(X), &g) != 0 ||
+        g.block > kRegTarget || stages < 2 || stages > kTmaMaxStages ||
+        g.Pp % V != 0 || ((uintptr_t)x & 15) != 0 || (C > 1 && xlen % V))
+      return kErrBadPlan;
+    const int base_max =
+        (int)(((int64_t)L - 1 + (int64_t)(g.G - 1) * R * M) / L);
+    const int nb = tma_buffer(K, g.Pp, base_max,
+                              tma_words<T, Shape<X, W>::kE, V>(), V);
+    const size_t smem = kTmaBarBytes + (size_t)stages * nb * sizeof(X);
+    if (smem > kSmemLimit) return kErrTooLarge;
+    const int64_t n_tiles =
+        (n_out + (int64_t)K * g.Qp - 1) / ((int64_t)K * g.Qp);
+    if (C * n_tiles < grid_x) return kErrBadPlan;
+    auto kern = polyphase_reg_tma<Entry, X, W, Out, T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int block = g.block + 32;
+    grid_x = resident_grid(kern, block, smem, grid_x);
+    kern<<<(unsigned)grid_x, block, smem, stream>>>(
+        (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L, M,
+        phi0, d0, n_out, g, stages, nb, n_tiles);
+    return cudaGetLastError();
+  }
 }
 
 // ------------------------------------------------------------------ slide
@@ -872,7 +1222,7 @@ template <typename Entry, typename X, typename W, typename Out>
 int launch(const void* x, const void* hist, const void* bank, void* y,
            int64_t C, int64_t xlen, int T, int L, int M, int phi0,
            int64_t d0, int64_t n_out, int variant, int tile, int64_t grid_x,
-           void* stream) {
+           int depth, void* stream) {
   if (C <= 0 || n_out <= 0) return cudaSuccess;
   if (grid_x < 1 || grid_x > kMaxGridX) return kErrBadPlan;
   cudaStream_t s = (cudaStream_t)stream;
@@ -888,6 +1238,12 @@ int launch(const void* x, const void* hist, const void* bank, void* y,
       if (T == 37)
         return launch_reg_t<Entry, X, W, Out, 37>(
             x, hist, bank, y, C, xlen, L, M, phi0, d0, n_out, tile, grid_x, s);
+      return kErrBadPlan;
+    case kRegTma:
+      if (T == 24)
+        return launch_tma_t<Entry, X, W, Out, 24>(x, hist, bank, y, C, xlen,
+                                                  L, M, phi0, d0, n_out, tile,
+                                                  depth, grid_x, s);
       return kErrBadPlan;
     case kSlide:
       if (T == 24)
@@ -915,9 +1271,10 @@ extern "C" {
 // current device, complex ones 8- or 16-byte aligned. The caller guarantees
 // that every window lies inside [history ++ x]: d0 >= 1, 1 <= phi0 <= L and
 // d0 + ((phi0-1) + (n_out-1)*M) / L <= xlen. ``variant`` (0 general, 1 reg,
-// 2 bcast, 3 slide), ``tile`` (general and bcast: outputs; reg and slide:
-// periods) and
-// ``grid_x`` come from the host's plan (ops/cuda/polyphase.py plan()).
+// 2 bcast, 3 slide, 4 reg.tma), ``tile`` (general and bcast: outputs; reg,
+// reg.tma and slide: periods), ``grid_x`` and ``depth`` (reg.tma's ring
+// buffers; ignored by the others) come from the host's plan
+// (ops/cuda/polyphase.py plan()).
 // Returns a cudaError_t code, kErrTooLarge when one tile's span cannot fit
 // in shared memory, or kErrBadPlan when the variant does not take the
 // geometry. One entry per (signal, tap, output) triple the modes use:
@@ -929,11 +1286,11 @@ extern "C" {
   int mr_polyphase_##name(const void* x, const void* hist, const void* bank, \
                           void* y, int64_t C, int64_t xlen, int T, int L,    \
                           int M, int phi0, int64_t d0, int64_t n_out,        \
-                          int variant, int tile, int64_t grid_x,             \
+                          int variant, int tile, int64_t grid_x, int depth,  \
                           void* stream) {                                    \
     return launch<entry::mr_polyphase_##name, X, W, Out>(                   \
         x, hist, bank, y, C, xlen, T, L, M, phi0, d0, n_out, variant, tile,  \
-        grid_x, stream);                                                     \
+        grid_x, depth, stream);                                              \
   }
 
 MR_POLYPHASE(f32, float, float, float)
@@ -974,6 +1331,17 @@ MR_POLYPHASE(i32, int32_t, int32_t, int32_t)
 MR_POLYPHASE(i64, int64_t, int64_t, int64_t)
 
 #undef MR_POLYPHASE
+
+#ifdef MR_POLYPHASE_CLOCKS
+// The clock split's sums by ClockPart (kClockParts of them) into ``out``,
+// then zeroed; returns a cudaError_t code.
+int mr_polyphase_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, mr_clocks, sizeof(mr_clocks));
+  if (err != cudaSuccess) return err;
+  const unsigned long long zeros[kClockParts] = {};
+  return cudaMemcpyToSymbol(mr_clocks, zeros, sizeof(mr_clocks));
+}
+#endif
 
 const char* mr_error_string(int code) {
   if (code == kErrTooLarge) return "tile span exceeds shared memory";

@@ -54,10 +54,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str, force: bool = False) -> Path:
+def build(name: str, force: bool = False, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` with nvcc, or the host source
     ``csrc/<name>.cpp`` with g++, if needed (always with ``force``); return
-    the library's path."""
+    the library's path. ``defines`` are macro names passed as ``-D``
+    (``tools/polyphase_runs.py``'s clock split): another library."""
     src = CSRC_DIR / f"{name}.cu"
     if src.is_file():
         cmd, flags = [_nvcc()], NVCC_FLAGS
@@ -65,6 +66,7 @@ def build(name: str, force: bool = False) -> Path:
     else:
         src = CSRC_DIR / f"{name}.cpp"
         cmd, flags, headers = ["g++"], GXX_FLAGS, []
+    flags = (*flags, *(f"-D{d}" for d in defines))
     key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in headers:
         key.update(header.read_bytes())
@@ -92,17 +94,19 @@ def build(name: str, force: bool = False) -> Path:
 
 
 @functools.cache
-def load_polyphase() -> ctypes.CDLL:
-    """The polyphase kernel library (built at first use), argtypes set for
-    each entry point ``mr_polyphase_<name>`` of ``polyphase.ENTRIES``."""
+def load_polyphase(defines: tuple = ()) -> ctypes.CDLL:
+    """The polyphase kernel library (built at first use, with ``defines``
+    if any: see ``build``), argtypes set for each entry point
+    ``mr_polyphase_<name>`` of ``polyphase.ENTRIES``."""
     from .polyphase import ENTRIES
 
-    lib = ctypes.CDLL(str(build("polyphase")))
+    lib = ctypes.CDLL(str(build("polyphase", defines=defines)))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name in ENTRIES.values():
         fn = getattr(lib, f"mr_polyphase_{name}")
+        # ..., variant, tile, grid, depth, stream
         fn.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i64, i64,
-                       i32, i32, i64, p]
+                       i32, i32, i64, i32, p]
         fn.restype = i32
     lib.mr_error_string.argtypes = [i32]
     lib.mr_error_string.restype = ctypes.c_char_p

@@ -43,15 +43,18 @@ its header for the design and what bounds it); on a CPU tensor it runs
 ``polyphase_plain``, the same function in plain PyTorch. There is no
 fallback from one to the other.
 
-The kernel has four variants (``VARIANTS``), chosen by ``plan`` from the
+The kernel has five variants (``VARIANTS``), chosen by ``plan`` from the
 shape alone, never after a failure: ``bcast`` broadcasts the one tap vector
 of an L == 1 filter (FIR, decimators) from shared memory, ``slide`` keeps
 one phase's taps in registers and slides over its window (interpolators,
 T in ``REG_TAPS``), ``reg`` keeps the taps of four neighbouring outputs in
-registers (other L > 1, T in ``REG_TAPS``), and ``general`` takes every
-other geometry. ``plan`` also sizes the tile and the grid so that the grid
-fills the card. ``polyphase(..., variant="general")`` forces the general
-variant, for timing against it.
+registers (other L > 1, T in ``REG_TAPS``), ``reg.tma`` is ``reg`` fed by
+a producer warp's bulk copies through a ring of buffers and read in
+aligned 16-byte words (float32 at T = 24, where the launch keeps each
+thread's alignment fixed and has tiles enough: ``TMA_MIN_TILES``), and
+``general`` takes every other geometry. ``plan`` also sizes the tile and
+the grid so that the grid fills the card. ``polyphase(...,
+variant="general")`` forces the general variant, for timing against it.
 """
 
 from __future__ import annotations
@@ -68,8 +71,9 @@ from ..precision import fp32
 from .build import check_aligned, load_polyphase
 
 __all__ = ["polyphase", "polyphase_plain", "plan", "Plan", "launches",
-           "launches_by_variant", "VARIANTS", "REG_TAPS", "ENTRIES",
-           "ACCUMULATOR", "accumulator"]
+           "launches_by_variant", "VARIANTS", "REG_TAPS", "TMA_TAPS",
+           "TMA_MODES", "TMA_MIN_TILES", "ENTRIES", "ACCUMULATOR",
+           "accumulator", "rows_aligned"]
 
 # The kernel's entry point (``mr_polyphase_<name>``, one instantiation of
 # csrc/polyphase.cu) for each (signal, taps, output) dtype triple, and each
@@ -126,9 +130,15 @@ def accumulator(x_dtype, bank_dtype) -> torch.dtype:
     return ACCUMULATOR[x_dtype]
 
 # The kernel's variants, by the number its entry points take.
-VARIANTS = ("general", "reg", "bcast", "slide")
-# Taps per phase the register and sliding variants are compiled for.
+VARIANTS = ("general", "reg", "bcast", "slide", "reg.tma")
+# Taps per phase the register and sliding variants are compiled for, and
+# the producer-fed one.
 REG_TAPS = (24, 37)
+TMA_TAPS = (24,)
+# reg.tma's (signal, taps) modes, and the tiles a launch needs before the
+# planner picks it over reg (a sweep on the H100, PERF.md)
+TMA_MODES = ((torch.float32, torch.float32),)
+TMA_MIN_TILES = 92
 
 # Kernel launches made by ``polyphase`` in this process, by entry point, and
 # by entry point and variant (``"f32/reg"``). Each grows by one where its
@@ -150,6 +160,11 @@ _SLIDE_REPEATS = 8        # slide: periods a thread computes in a tile, at most
 # reg: periods a thread computes in a tile, and periods a tile, at least
 # (the fastest tiles of a sweep on the H100, PERF.md)
 _REG_PERIODS, _REG_MIN_TILE = 3, 6
+# reg.tma: periods a thread computes in a tile, buffers in its ring (at
+# most _TMA_MAX_DEPTH), shared bytes of its barriers, and samples a 16-byte
+# word; a sweep on the H100 (PERF.md)
+_TMA_PERIODS, _TMA_DEPTH, _TMA_MAX_DEPTH = 12, 2, 8
+_TMA_BAR_BYTES, _TMA_V = 2 * 8 * _TMA_MAX_DEPTH, 4
 _MAX_GRID = 65535         # grid.x, at most (the kernels loop over tiles)
 _MAX_GENERAL_GRID = 1024
 # bytes of a staged signal or tap element (bf16 is staged as float, and
@@ -175,16 +190,18 @@ def _raw_bytes(n: int, size: int) -> int:
 
 class Plan(NamedTuple):
     """One launch: the variant, its tile as the kernel takes it (outputs;
-    for ``reg`` and ``slide``, periods of Q = L/gcd(L, M) outputs or
-    more), blocks on grid.x (``reg`` and ``slide``: at most; their
-    launcher keeps no more than the card holds at once), shared bytes a
-    block (at most: the output type may be narrower than the
-    accumulator's), and the outputs of one tile."""
+    for ``reg``, ``reg.tma`` and ``slide``, periods of Q = L/gcd(L, M)
+    outputs or more), blocks on grid.x (``reg``, ``reg.tma`` and
+    ``slide``: at most; their launcher keeps no more than the card holds
+    at once), shared bytes a block (at most: the output type may be
+    narrower than the accumulator's), the outputs of one tile, and
+    ``reg.tma``'s ring buffers (0 for the others)."""
     variant: str
     tile: int
     grid: int
     smem: int
     tile_outputs: int
+    depth: int = 0
 
 
 def _shape(xs: int, ws: int):
@@ -195,13 +212,18 @@ def _shape(xs: int, ws: int):
     return r, (0 if r == 1 else r), (9 if xs <= 4 else (5 if xs <= 8 else 3))
 
 
-def _reg_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
-    R, E, _ = _shape(xs, ws)
+def _periods(L, M, R):
+    """``reg``'s period (csrc/polyphase.cu reg_geom): Qp outputs, Pp
+    inputs, G groups of R outputs."""
     g = math.gcd(L, M)
     Q, P = L // g, M // g
     m = 1 if Q >= R else _ceil(R, Q)
-    Qp, Pp = m * Q, m * P  # a period: Qp outputs, Pp inputs
-    G = _ceil(Qp, R)
+    return m * Q, m * P, _ceil(m * Q, R)
+
+
+def _reg_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
+    R, E, _ = _shape(xs, ws)
+    Qp, Pp, G = _periods(L, M, R)
     if (T not in REG_TAPS or L < 2 or G > _REG_THREADS
             or ((R - 1) * M + L - 1) // L > E):
         return None
@@ -221,6 +243,37 @@ def _reg_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
     K = max(1, min(k_fit, periods * channels // _FILL))
     return Plan("reg", K, min(_ceil(periods, K) * channels, _MAX_GRID),
                 smem(K), K * Qp)
+
+
+def _tma_buffer(K, T, L, M, R, E, Pp, G):
+    """Samples of one reg.tma ring buffer (csrc/polyphase.cu
+    ``tma_buffer``): K periods' reads, each up to 3 words off a 16-byte
+    word and UA = T + E + 3 words rounded up to whole 16-byte words."""
+    V = _TMA_V
+    base_max = (L - 1 + (G - 1) * R * M) // L
+    words = (T + E + 2 * (V - 1)) // V * V
+    return _up((K - 1) * Pp + base_max + V - 1 + words, V)
+
+
+def _tma_plan(T, L, M, n_out, channels, xs, ws, xsz, osz, depth=_TMA_DEPTH,
+              periods=_TMA_PERIODS, min_tiles=0):
+    """reg.tma where ``reg`` takes the geometry with at most a block's
+    consumers in a period and a period moves whole 16-byte words (the
+    caller checks the mode and alignment), with ``depth`` ring buffers and
+    ``periods`` periods a thread a tile; None below ``min_tiles``."""
+    R, E, _ = _shape(xs, ws)
+    Qp, Pp, G = _periods(L, M, R)
+    if (T not in TMA_TAPS or _reg_plan(T, L, M, n_out, channels, xs, ws, xsz,
+                                        osz) is None
+            or G > _REG_TARGET or Pp % _TMA_V):
+        return None
+    K = max(1, _REG_TARGET // G) * periods
+    smem = _TMA_BAR_BYTES + depth * _tma_buffer(K, T, L, M, R, E, Pp,
+                                                G) * xsz
+    tiles = _ceil(_ceil(n_out, Qp), K) * channels
+    if tiles < min_tiles or smem > _SMEM_LIMIT:
+        return None
+    return Plan("reg.tma", K, min(tiles, _MAX_GRID), smem, K * Qp, depth)
 
 
 def _bcast_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
@@ -293,11 +346,16 @@ _PLANNERS = {"reg": _reg_plan, "bcast": _bcast_plan, "slide": _slide_plan,
 
 
 def plan(T: int, L: int, M: int, n_out: int, x_dtype, bank_dtype,
-         channels: int = 1, variant: str | None = None) -> Plan:
+         channels: int = 1, variant: str | None = None,
+         aligned: bool = True) -> Plan:
     """The launch of one polyphase call: the variant (by default the first
-    of ``bcast``, ``slide``, ``reg`` that takes the geometry, else
-    ``general``), the tile and the grid. Pure Python on the shape: the CPU tests check it.
-    Raises ValueError if ``variant`` is named and cannot take the call."""
+    of ``bcast``, ``slide``, ``reg.tma``, ``reg`` that takes the geometry,
+    else ``general``), the tile and the grid. ``aligned`` says that every
+    channel's row of x starts at a 16-byte boundary (x's data, and its row
+    length unless one channel), which ``reg.tma`` needs; by default it
+    also needs ``TMA_MIN_TILES`` tiles, which a named ``"reg.tma"`` does
+    not. Pure Python on the shape: the CPU tests check it. Raises
+    ValueError if ``variant`` is named and cannot take the call."""
     # csrc/polyphase.cu Mode: a narrow read stages float
     narrow = x_dtype in NARROW and bank_dtype in (_F32, NARROW_COMPLEX)
     xs, ws = 4 if narrow else _STAGED[x_dtype], _STAGED[bank_dtype]
@@ -305,14 +363,20 @@ def plan(T: int, L: int, M: int, n_out: int, x_dtype, bank_dtype,
     osz = accumulator(x_dtype, bank_dtype).itemsize
     n_out = max(int(n_out), 1)
     if variant is not None:
-        if variant not in _PLANNERS:
+        if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}; one of "
                              f"{VARIANTS}")
         order = (variant,)
     else:
-        order = ("bcast", "slide", "reg", "general")
+        order = ("bcast", "slide", "reg.tma", "reg", "general")
     for name in order:
-        p = _PLANNERS[name](T, L, M, n_out, channels, xs, ws, xsz, osz)
+        if name == "reg.tma":
+            if not aligned or (x_dtype, bank_dtype) not in TMA_MODES:
+                continue
+            p = _tma_plan(T, L, M, n_out, channels, xs, ws, xsz, osz,
+                          min_tiles=0 if variant else TMA_MIN_TILES)
+        else:
+            p = _PLANNERS[name](T, L, M, n_out, channels, xs, ws, xsz, osz)
         if p is not None:
             return p
     raise ValueError(f"the {'/'.join(order)} variant cannot take T={T} "
@@ -399,8 +463,8 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
     _check(x, hist, bank, L, M, phi0, d0, n_out, out_dtype)
     shape = (bank.shape[0], L, M, n_out, x.dtype, bank.dtype, x.shape[0])
     if x.device.type == "cpu":
-        if variant is not None:
-            plan(*shape, variant)  # a named variant must take the call
+        if variant is not None:  # a named variant must take the call
+            plan(*shape, variant, aligned=rows_aligned(x))
         return polyphase_plain(x, hist, bank, L, M, phi0, d0, n_out,
                                out_dtype)
     if x.device.type != "cuda":
@@ -413,12 +477,19 @@ def polyphase(x, hist, bank, L: int, M: int, phi0: int, d0: int,
                        variant, shape)
 
 
+def rows_aligned(x) -> bool:
+    """Whether every channel's row of x (C, xlen), contiguous, starts at a
+    16-byte boundary: ``plan``'s ``aligned``."""
+    return (x.data_ptr() % 16 == 0
+            and (x.shape[0] == 1 or x.shape[1] * x.element_size() % 16 == 0))
+
+
 def _launch(x, hist, bank, L, M, phi0, d0, n_out, out_dtype, variant,
             shape):
     """y, after one launch of the planned variant, counted by entry point
     and variant; nothing runs for no output."""
     check_aligned(x=x, hist=hist, bank=bank)
-    p = plan(*shape, variant)
+    p = plan(*shape, variant, aligned=rows_aligned(x))
     y = torch.empty((x.shape[0], n_out), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -429,7 +500,7 @@ def _launch(x, hist, bank, L, M, phi0, d0, n_out, out_dtype, variant,
         err = entry(x.data_ptr(), hist.data_ptr(), bank.data_ptr(),
                     y.data_ptr(), x.shape[0], x.shape[1], bank.shape[0], L,
                     M, phi0, d0, n_out, VARIANTS.index(p.variant), p.tile,
-                    p.grid, stream)
+                    p.grid, p.depth, stream)
     if err != 0:
         raise RuntimeError("polyphase kernel launch failed: "
                            + load_polyphase().mr_error_string(err).decode())

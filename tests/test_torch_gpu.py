@@ -282,11 +282,15 @@ def _signal(rng, shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", [None, "general"], ids=["planned",
-                                                            "general"])
+@pytest.mark.parametrize("variant", [None, "general", "reg.tma"],
+                         ids=["planned", "general", "reg.tma"])
 @pytest.mark.parametrize("T,L,M", VARIANT_GEOMETRIES)
 @pytest.mark.parametrize("entry", sorted(set(pp.ENTRIES.values())))
 def test_polyphase_variants_match_plain_on_gpu(entry, T, L, M, variant):
+    # reg.tma, named, runs with no tile threshold where it can (float32 at
+    # 147//160 on one channel: the two channels' rows of 80,007 samples
+    # are not all 16-byte aligned), each output reg's bits; elsewhere the
+    # wrapper refuses it
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x_dt, b_dt, o_dt = {v: k for k, v in pp.ENTRIES.items()}[entry]
@@ -298,9 +302,17 @@ def test_polyphase_variants_match_plain_on_gpu(entry, T, L, M, variant):
     for C, (phi0, d0) in ((1, (1, 1)), (2, (L // 2 + 1, 3))):
         n_all = ((xlen - d0) * L - (phi0 - 1)) // M + 1
         tile = pp.plan(T, L, M, n_all, x_dt, b_dt, C).tile_outputs
+        aligned = pp.rows_aligned(x[:C])
         for n in (n_all, 1, 33, min(tile + 1, n_all)):
             args = (x[:C], hist[:C], bank, L, M, phi0, d0, n)
-            p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant)
+            try:
+                p = pp.plan(T, L, M, n, x_dt, b_dt, C, variant,
+                            aligned=aligned)
+            except ValueError:
+                assert variant == "reg.tma"
+                with pytest.raises(ValueError, match="reg.tma"):
+                    pp.polyphase(*args, out_dtype=o_dt, variant=variant)
+                continue
             key = f"{entry}/{p.variant}"
             before = pp.launches_by_variant[key]
             y = pp.polyphase(*args, out_dtype=o_dt, variant=variant)
@@ -315,6 +327,52 @@ def test_polyphase_variants_match_plain_on_gpu(entry, T, L, M, variant):
                                   TOL * float(yp.abs().max())) <= 1
             else:
                 assert rel_max_err(y, yp) <= _tol(o_dt)
+            if p.variant == "reg.tma":
+                assert torch.equal(y, pp.polyphase(*args, out_dtype=o_dt,
+                                                   variant="reg"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,cuts", [
+    # one channel of 1,000,003 samples in chunks of 300,004, 400,004 and
+    # 299,995 (each starts at a 16-byte boundary: no row of a multiple of 4)
+    (1, (0, 300_004, 700_008, 1_000_003)),
+    # eight channels, rows whole 16-byte words
+    (8, (0, 120_000, 200_004, 333_336))])
+def test_reg_tma_chunked_equals_whole_and_reg_on_gpu(C, cuts, monkeypatch):
+    # every aligned launch through reg.tma (no tile threshold), entered
+    # mid-stream so that each chunk's first tile reaches into a real
+    # history and its last tile is ragged: chunked == whole bit for bit,
+    # and both equal reg's outputs and the plain version's
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(26)
+    h = (mt.firdes(24 * 147, 0.5 / 147, mt.kaiser, beta=7.8562) * 147
+         ).astype(np.float32)
+    p = mt.make_kernel(h, ratio=Fraction(147, 160), device="cuda")
+    x = _wide(rng, (C, cuts[-1]), torch.float32).cuda()
+    st = mt.init_state(p, (C,))
+    _, _, st = mt.filt_block(p, st, _wide(rng, (C, 777), torch.float32)
+                             .cuda(), path="windows")
+    monkeypatch.setattr(pp, "TMA_MIN_TILES", 1)
+    before = pp.launches_by_variant["f32/reg.tma"]
+    yw, _, sw = mt.filt_block(p, st, x, path="kernel")
+    parts, s = [], st
+    for a, b in zip(cuts, cuts[1:]):
+        yc, _, s = mt.filt_block(p, s, x[:, a:b], path="kernel")
+        parts.append(yc)
+    torch.cuda.synchronize()
+    assert pp.launches_by_variant["f32/reg.tma"] == before + len(cuts)
+    assert torch.equal(torch.cat(parts, dim=-1), yw)
+    assert (s.phase, s.deficit) == (sw.phase, sw.deficit)
+    monkeypatch.setattr(pp, "TMA_MIN_TILES", 1 << 62)
+    before = pp.launches_by_variant["f32/reg"]
+    yr, _, _ = mt.filt_block(p, st, x, path="kernel")
+    torch.cuda.synchronize()
+    assert pp.launches_by_variant["f32/reg"] == before + 1
+    assert torch.equal(yr, yw)
+    yp, _, _ = mt.filt_block(p, st, x, path="windows")
+    assert rel_max_err(yw, yp) <= TOL
 
 
 # the resample kernel's variants: each compiled (T, P+1) pair (10 with 2

@@ -39,21 +39,29 @@ MAIN_PATH = {
     "decim_1_4_T24": (24, 1, 4, N_HEAD // 4, F32, F32),
     "interp_4_1_T24": (24, 4, 1, 4 * N_HEAD, F32, F32),
 }
-NEW = {"reg", "bcast", "slide"}
+NEW = {"reg", "bcast", "slide", "reg.tma"}
 
 
-def _expected(L, M):
+def _expected(L, M, n, x_dt, b_dt):
     """The new variant for a geometry: the FIR and decimators broadcast
     their one tap vector, interpolators slide, the rest keep taps in
-    registers."""
-    return "bcast" if L == 1 else ("slide" if M == 1 else "reg")
+    registers, fed by the producer warp where a float32 call has tiles
+    enough."""
+    if L == 1:
+        return "bcast"
+    if M == 1:
+        return "slide"
+    # 37 groups of 4 outputs, 3 a block: 3 * _TMA_PERIODS periods a tile
+    tiles = -(-n // (3 * pp._TMA_PERIODS * 147))
+    return ("reg.tma" if (x_dt, b_dt) == (F32, F32)
+            and tiles >= pp.TMA_MIN_TILES else "reg")
 
 
 @pytest.mark.parametrize("row", list(MAIN_PATH))
 def test_main_path_rows_take_a_new_variant(row):
     T, L, M, n, x_dt, b_dt = MAIN_PATH[row]
     p = pp.plan(T, L, M, n, x_dt, b_dt)
-    assert p.variant == _expected(L, M)
+    assert p.variant == _expected(L, M, n, x_dt, b_dt)
     assert p.variant in NEW
 
 
@@ -104,6 +112,8 @@ def _tile_reach(p, T, L, M, x_dt, b_dt):
     Q, P = L // g, M // g
     m = 1 if Q >= R else -(-R // Q)
     G = -(-m * Q // R)
+    if p.variant == "reg.tma":
+        return pp._tma_buffer(p.tile, T, L, M, R, E, m * P, G)
     return (p.tile - 1) * m * P + (L - 1 + (G - 1) * R * M) // L + T + E
 
 
@@ -131,7 +141,7 @@ def test_a_named_variant_that_cannot_run_raises():
         pp.plan(24, 147, 160, 1000, F32, F32, variant="fast")
 
 
-@pytest.mark.parametrize("variant", [None, "general", "reg"])
+@pytest.mark.parametrize("variant", [None, "general", "reg", "reg.tma"])
 def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(variant):
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 5000, generator=g)
@@ -148,3 +158,117 @@ def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(variant):
 def test_launch_counts_cover_every_entry_and_variant():
     assert set(pp.launches_by_variant) == {
         f"{e}/{v}" for e in pp.ENTRIES.values() for v in pp.VARIANTS}
+    assert {"f32/reg.tma", "f32_bf16out/reg.tma",
+            "f32_f16out/reg.tma"} <= set(pp.launches_by_variant)
+    assert pp.VARIANTS.index("reg.tma") == 4  # csrc/polyphase.cu kRegTma
+
+
+MADI_OUT = mt.outputlength(1 << 20, Fraction(147, 160))
+# (T, L, M, outputs, signal, taps, channels, aligned): calls the planner
+# sends down reg.tma by default
+TMA_TAKES = {
+    "madi_block": (24, 147, 160, MADI_OUT, F32, F32, 64, True),
+    "rational_147_160": (24, 147, 160, N_147_160, F32, F32, 1, True),
+    "441_480": (24, 441, 480, N_147_160, F32, F32, 1, True),
+    "3_4": (24, 3, 4, 6_000_000, F32, F32, 1, True),  # Qp 6, Pp 8
+    "5_4": (24, 5, 4, 6_000_000, F32, F32, 2, True),
+    "401_404": (24, 401, 404, 5_000_000, F32, F32, 8, True),  # G 101
+}
+# calls that keep reg (or another variant) by default
+TMA_KEEPS = {
+    # small launches: a 65,536-sample stream block, 4 channels of 2^16
+    "stream_block": (24, 147, 160, 60_212, F32, F32, 1, True),
+    "four_blocks": (24, 147, 160, 60_212, F32, F32, 4, True),
+    # the rows of x not all 16-byte aligned (an odd row length, or an
+    # offset view)
+    "rows_unaligned": (24, 147, 160, MADI_OUT, F32, F32, 64, False),
+    # other modes
+    "bf16": (24, 147, 160, MADI_OUT, BF16, BF16, 64, True),
+    "int8": (24, 147, 160, MADI_OUT, S8, S8, 64, True),
+    "c64": (24, 147, 160, MADI_OUT, C64, F32, 64, True),
+    "f64": (24, 147, 160, MADI_OUT, F64, F64, 64, True),
+    "s16": (24, 147, 160, MADI_OUT, torch.int16, F32, 64, True),
+    "f32c": (24, 147, 160, MADI_OUT, F32, C64, 64, True),
+    "i32": (24, 147, 160, MADI_OUT, torch.int32, torch.int32, 64, True),
+    # T = 37; a period of 6 inputs (not whole 16-byte words); 601 outputs
+    # a period, 151 groups: more than a block's consumers
+    "T37": (37, 147, 160, MADI_OUT, F32, F32, 64, True),
+    "7_6": (24, 7, 6, 6_000_000, F32, F32, 8, True),
+    "611_604": (24, 611, 604, 5_000_000, F32, F32, 8, True),
+}
+
+
+@pytest.mark.parametrize("row", list(TMA_TAKES))
+def test_calls_with_tiles_and_aligned_words_take_reg_tma(row):
+    T, L, M, n, x_dt, b_dt, C, aligned = TMA_TAKES[row]
+    p = pp.plan(T, L, M, n, x_dt, b_dt, C, aligned=aligned)
+    assert p.variant == "reg.tma" and p.depth == pp._TMA_DEPTH
+    assert p.grid >= pp.TMA_MIN_TILES
+    assert p.tile_outputs % (L // math.gcd(L, M)) == 0
+    # the same call, named, plans the same launch
+    assert pp.plan(T, L, M, n, x_dt, b_dt, C, "reg.tma",
+                   aligned=aligned) == p
+
+
+@pytest.mark.parametrize("row", list(TMA_KEEPS))
+def test_other_calls_keep_their_variant(row):
+    T, L, M, n, x_dt, b_dt, C, aligned = TMA_KEEPS[row]
+    p = pp.plan(T, L, M, n, x_dt, b_dt, C, aligned=aligned)
+    assert p.variant == "reg" and p.depth == 0
+    assert p == pp.plan(T, L, M, n, x_dt, b_dt, C, "reg")
+    if row in ("stream_block", "four_blocks"):  # a named reg.tma runs
+        assert pp.plan(T, L, M, n, x_dt, b_dt, C, "reg.tma").grid < \
+            pp.TMA_MIN_TILES
+    else:
+        with pytest.raises(ValueError, match="reg.tma"):
+            pp.plan(T, L, M, n, x_dt, b_dt, C, "reg.tma", aligned=aligned)
+
+
+@pytest.mark.parametrize("depth", range(2, pp._TMA_MAX_DEPTH + 1))
+@pytest.mark.parametrize("periods", [1, 3, 6, 8, 12, 16])
+@pytest.mark.parametrize("row", list(TMA_TAKES))
+def test_reg_tma_ring_fits_shared_memory(row, periods, depth):
+    T, L, M, n, x_dt, b_dt, C, _ = TMA_TAKES[row]
+    p = pp._tma_plan(T, L, M, n, C, 4, 4, 4, 4, depth=depth,
+                     periods=periods)
+    R, E, _ = pp._shape(4, 4)
+    Qp, Pp, G = pp._periods(L, M, R)
+    K = max(1, 128 // G) * periods
+    nb = pp._tma_buffer(K, T, L, M, R, E, Pp, G)
+    # barriers, then depth buffers of whole 16-byte words; a ring over
+    # 227 KB is planned nowhere (the planned periods fit at every depth)
+    smem = 2 * 8 * 8 + depth * nb * 4
+    if smem > 227 * 1024:
+        assert p is None and periods > pp._TMA_PERIODS
+        return
+    assert p.tile == K and p.depth == depth
+    assert nb % 4 == 0 and p.smem == smem
+    # a buffer holds every word a tile's threads read: the last group's
+    # window in the last period, up to 3 words early, 32 words long
+    base_max = (L - 1 + (G - 1) * R * M) // L
+    assert 3 + (K - 1) * Pp + base_max + 32 <= nb
+
+
+@pytest.mark.parametrize("shape,ok", [((1, 5001), True), ((2, 5001), False),
+                                      ((2, 5000), True), ((3, 4096), True)])
+def test_rows_aligned(shape, ok):
+    x = torch.zeros(shape)
+    assert x.data_ptr() % 16 == 0 and pp.rows_aligned(x) == ok
+    # an offset view: one sample in
+    assert not pp.rows_aligned(torch.zeros(shape[1] + 1)[1:].view(1, -1))
+
+
+def test_a_named_reg_tma_needs_aligned_rows_on_cpu():
+    g = torch.Generator().manual_seed(2)
+    bank = torch.randn(24, 147, generator=g)
+    n = mt.outputlength(5000 - 1, Fraction(147, 160))
+    for xlen, ok in ((5000, True), (5001, False)):
+        x = torch.randn(2, xlen, generator=g)
+        hist = torch.randn(2, 23, generator=g)
+        args = (x, hist, bank, 147, 160, 1, 1, n)
+        if ok:
+            assert torch.equal(pp.polyphase(*args, variant="reg.tma"),
+                               pp.polyphase_plain(*args))
+        else:
+            with pytest.raises(ValueError, match="reg.tma"):
+                pp.polyphase(*args, variant="reg.tma")
