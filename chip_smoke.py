@@ -13,9 +13,9 @@ prints one line:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the polyphase, resample and probe kernels from
    ``multirate_tpu_torch/csrc`` (nvcc once for each part a source names:
-   two, three and one) and the host ring buffer with g++, all started
-   together, and prints ptxas's registers and spills for each
-   instantiation;
+   two, three and one) and the host ring buffer and the launch planner
+   with g++, all started together, and prints ptxas's registers and
+   spills for each instantiation;
 3. kernel vs plain version on the card, for the four rational-family
    filter types at the headline taps and at short taps, plus a bank too
    large for shared memory and a wide decimation, fresh and mid-phase
@@ -450,15 +450,17 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from multirate_tpu_torch.ops.cuda import build
+    from multirate_tpu_torch.ops.cuda import polyphase as pp
+    from multirate_tpu_torch.ops.cuda import probe
+    from multirate_tpu_torch.ops.cuda import resample as rs
 
-    # three CUDA sources (nvcc) and the host ring buffer (g++)
-    names = ("polyphase", "resample", "probe", "mr_ring")
+    # three CUDA sources (nvcc), the host ring buffer and planner (g++)
+    names = ("polyphase", "resample", "probe", "mr_ring", "mr_plan")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
-    build.load_polyphase()
-    build.load_resample()
-    build.load_probe()
+    for name, mod in (("polyphase", pp), ("resample", rs), ("probe", probe)):
+        build.load(name, mod.SIGNATURES)
     secs = time.perf_counter() - t0
     for lib in libs:
         rows = _ptxas_rows((lib.parent / "build.log").read_text())

@@ -66,7 +66,8 @@
 // full float32 products (TF32's ~1e-3 fails the 8e-5 oracle tripwire), and
 // every mode is bound by bytes once shared reads are cut.
 //
-// Five variants, chosen by the host (ops/cuda/polyphase.py plan()), never
+// Five variants, chosen by the host (mr_plan.cpp, through
+// ops/cuda/polyphase.py plan()), never
 // after a failure:
 // - "bcast" (L == 1: the FIR and the decimators, any T): every output has
 //   the same taps, read from shared memory at one address per warp (a
@@ -142,28 +143,20 @@
 
 #include <type_traits>
 
+#include "geometry.cuh"
 #include "mac.cuh"
 
 namespace {
 
 using mr::mac;
 using mr::widen;
+using namespace mr::polyphase;
+using mr::kMaxGridX;
+using mr::launch_kernel;
+using mr::round16;
 
-constexpr int kThreads = 256;          // general
-constexpr int kRegThreads = 256;       // reg: at most this many per block
-constexpr int kRegTarget = 128;        // reg: groups x KT up to this many
-constexpr int kBcastThreads = 128;     // bcast
-constexpr int kSlideThreads = 128;     // slide
-constexpr int64_t kMaxGridX = 65535;
-constexpr int64_t kMaxGridY = 65535;
-constexpr size_t kSmemLimit = 227 * 1024;
-constexpr size_t kBankSmemLimit = 96 * 1024;
-constexpr int kTmaMaxStages = 8;      // reg.tma: ring buffers, at most
-constexpr int kTmaBarBytes = 2 * kTmaMaxStages * 8;  // its mbarriers
 constexpr int kErrTooLarge = -1;
 constexpr int kErrBadPlan = -2;
-
-enum Variant { kGeneral = 0, kReg = 1, kBcast = 2, kSlide = 3, kRegTma = 4 };
 
 // The staged (shared-memory) types of a (signal, tap) pair and its
 // accumulator: the types themselves, but bf16 staged as float, int8 summed
@@ -216,22 +209,21 @@ template <> struct Mode<__nv_bfloat16, float2> : RealSampleMode<float2> {};
 
 // The register variant's outputs per thread R and tap padding E (U = T+E
 // registers a tap vector), and the broadcast variant's outputs per thread:
-// by the size of a staged tap and sample. Mirrored in ops/cuda/polyphase.py.
+// by the size of a staged tap and sample (geometry.cuh).
 // The register variant's blocks an SM must hold: 2 caps int8 and float64
 // (with float64 taps) at 128 registers a thread, which ran them faster on
 // the H100; the other modes spill under that cap and ran slower (PERF.md).
 template <typename X, typename W> struct Shape {
   using XS = typename Mode<X, W>::XStage;
   using WS = typename Mode<X, W>::WStage;
-  static constexpr int kR = sizeof(WS) <= 4 ? 4 : (sizeof(WS) <= 8 ? 2 : 1);
-  static constexpr int kE = kR == 1 ? 0 : kR;
+  static constexpr int kR = reg_r(sizeof(WS));
+  static constexpr int kE = reg_e(sizeof(WS));
   static constexpr int kRegMinBlocks =
       sizeof(XS) == 1 ||
               (std::is_same<X, double>::value && std::is_same<W, double>::value)
           ? 2
           : 1;
-  static constexpr int kBcastR =
-      sizeof(XS) <= 4 ? 9 : (sizeof(XS) <= 8 ? 5 : 3);
+  static constexpr int kBcastR = bcast_r(sizeof(XS));
   static constexpr int kSlideR = kBcastR;
 };
 
@@ -249,19 +241,6 @@ __device__ __forceinline__ void store(int32_t* p, uint32_t v) {
 }
 __device__ __forceinline__ void store(int64_t* p, uint64_t v) {
   *reinterpret_cast<uint64_t*>(p) = v;
-}
-
-// Bytes of a staged bank, rounded up so the span after it is 16-byte
-// aligned (a complex128 span word is a 16-byte load).
-__host__ __device__ __forceinline__ size_t round16(size_t bytes) {
-  return (bytes + 15) & ~(size_t)15;
-}
-
-// Bytes of a raw buffer for n samples of size sz: the copy starts up to 15
-// bytes early (at a 16-byte boundary), and int8 reads whole words past the
-// end.
-__host__ __device__ __forceinline__ size_t raw_bytes(int64_t n, size_t sz) {
-  return round16((size_t)n * sz + 16) + 16;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -404,31 +383,6 @@ __device__ unsigned long long mr_clocks[kClockParts];
   } while (0)
 #endif
 
-// At most as many blocks of ``kern`` as the card holds at once: the plan's
-// grid is an upper bound, and a persistent block loads its taps once.
-template <typename K>
-int64_t resident_grid(K kern, int block, size_t smem, int64_t grid_x) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block,
-                                                    smem) != cudaSuccess ||
-      per_sm < 1)
-    return grid_x;
-  const int64_t cap = (int64_t)per_sm * sms;
-  return grid_x < cap ? grid_x : cap;
-}
-
-int gcd(int a, int b) {
-  while (b) {
-    const int t = a % b;
-    a = b;
-    b = t;
-  }
-  return a;
-}
-
 // ---------------------------------------------------------------- general
 
 // Entry is a tag type named after the extern "C" entry point
@@ -494,17 +448,6 @@ polyphase_kernel(const X* __restrict__ x, const X* __restrict__ hist,
   }
 }
 
-// Shared bytes of the general variant's tile of ``tile`` outputs (-1 when
-// it cannot fit); sets *bank_smem.
-int64_t general_smem(int T, int L, int M, int tile, size_t xs, size_t ws,
-                     bool* bank_smem) {
-  const size_t b_bytes = round16((size_t)T * L * ws);
-  *bank_smem = b_bytes <= kBankSmemLimit;
-  const size_t span = (size_t)((L - 1 + (int64_t)(tile - 1) * M) / L + T);
-  const size_t smem = (*bank_smem ? b_bytes : 0) + span * xs;
-  return smem <= kSmemLimit ? (int64_t)smem : -1;
-}
-
 template <typename Entry, typename X, typename W, typename Out>
 int launch_general(const void* x, const void* hist, const void* bank, void* y,
                    int64_t C, int64_t xlen, int T, int L, int M, int phi0,
@@ -520,53 +463,13 @@ int launch_general(const void* x, const void* hist, const void* bank, void* y,
   const int64_t n_tiles = (n_out + tile - 1) / tile;
   auto kern = bank_smem ? polyphase_kernel<Entry, X, W, Out, true>
                         : polyphase_kernel<Entry, X, W, Out, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)grid_x, (unsigned)(C < kMaxGridY ? C : kMaxGridY));
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, T, L,
-      M, phi0, d0, n_out, tile, n_tiles);
-  return cudaGetLastError();
+  return launch_kernel(kern, grid, kThreads, smem, false, stream,
+                       (const X*)x, (const X*)hist, (const W*)bank, (Out*)y,
+                       C, xlen, T, L, M, phi0, d0, n_out, tile, n_tiles);
 }
 
 // -------------------------------------------------------------------- reg
-
-// The register variant's geometry for one launch (host and device).
-struct RegGeom {
-  int Qp;      // outputs of one period (a multiple of Q, at least R)
-  int Pp;      // inputs of one period
-  int G;       // thread groups of R outputs in a period
-  int KT;      // threads per group: periods k = kl, kl + KT, ... of a tile
-  int K;       // periods per tile
-  int span;    // staged samples of a tile
-  int block;   // threads per block
-  size_t smem;  // shared bytes: a double buffer of raw samples
-};
-
-// -1 if the geometry does not fit the variant (D > E, Q too large). xs is
-// the size of a raw sample (the double buffer holds raw samples).
-int reg_geom(int T, int L, int M, int K, int R, int E, size_t xs,
-             RegGeom* g) {
-  const int gg = gcd(L, M);
-  const int Q = L / gg, P = M / gg;
-  const int m = Q >= R ? 1 : (R + Q - 1) / Q;
-  g->Qp = m * Q;
-  g->Pp = m * P;
-  g->G = (g->Qp + R - 1) / R;
-  if (L < 2 || K < 1 || g->G > kRegThreads) return -1;
-  if (((int64_t)(R - 1) * M + L - 1) / L > E) return -1;  // d_r <= E
-  const int kt = kRegTarget / g->G > 1 ? kRegTarget / g->G : 1;
-  g->KT = kt < K ? kt : K;
-  g->K = K;
-  g->block = (g->G * g->KT + 31) / 32 * 32;
-  const int64_t base_max =
-      ((int64_t)L - 1 + (int64_t)(g->G - 1) * R * M) / L;
-  const int64_t span = (int64_t)(K - 1) * g->Pp + base_max + T + E;
-  g->span = (int)span;
-  g->smem = 2 * raw_bytes(span, xs);
-  return g->smem <= kSmemLimit ? 0 : -1;
-}
 
 template <typename Entry, typename X, typename W, typename Out, int T>
 __global__ void __launch_bounds__(kRegThreads, Shape<X, W>::kRegMinBlocks)
@@ -708,18 +611,12 @@ int launch_reg_t(const void* x, const void* hist, const void* bank, void* y,
   if (reg_geom(T, L, M, K, Shape<X, W>::kR, Shape<X, W>::kE, sizeof(X),
                &g) != 0)
     return kErrBadPlan;
-  const size_t smem = g.smem;
   const int64_t n_tiles = (n_out + (int64_t)K * g.Qp - 1) / ((int64_t)K * g.Qp);
   if (C * n_tiles < grid_x) return kErrBadPlan;
-  auto kern = polyphase_reg<Entry, X, W, Out, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  grid_x = resident_grid(kern, g.block, smem, grid_x);
-  kern<<<(unsigned)grid_x, g.block, smem, stream>>>(
-      (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L, M,
-      phi0, d0, n_out, g, n_tiles);
-  return cudaGetLastError();
+  return launch_kernel(polyphase_reg<Entry, X, W, Out, T>, (unsigned)grid_x,
+                       g.block, g.smem, true, stream, (const X*)x,
+                       (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L,
+                       M, phi0, d0, n_out, g, n_tiles);
 }
 
 // ---------------------------------------------------------------- reg.tma
@@ -729,21 +626,8 @@ int launch_reg_t(const void* x, const void* hist, const void* bank, void* y,
 template <typename X, typename W> struct TmaMode {
   static constexpr bool kOn =
       std::is_same<X, float>::value && std::is_same<W, float>::value;
-  static constexpr int kV = 4;  // samples a 16-byte word
+  static constexpr int kV = kTmaV;  // samples a 16-byte word
 };
-
-// Window words a thread reads a period: U = T + E, after up to V - 1 words
-// of alignment, rounded up to whole 16-byte words.
-template <int T, int E, int V>
-__host__ __device__ constexpr int tma_words() {
-  return (T + E + 2 * (V - 1)) / V * V;
-}
-
-// Samples a ring buffer holds: a tile's reads (K periods of Pp, the last
-// group's offset, the alignment, the padded window), in whole 16-byte words.
-int tma_buffer(int K, int Pp, int base_max, int words, int V) {
-  return ((K - 1) * Pp + base_max + V - 1 + words + V - 1) / V * V;
-}
 
 // "reg"'s outputs, taps and periods, fed by a ring of ``stages`` buffers of
 // ``nb`` samples. The last warp is the producer: for each work item (as in
@@ -770,7 +654,7 @@ polyphase_reg_tma(const X* __restrict__ x, const X* __restrict__ hist,
   using Acc = typename Mode<X, W>::Acc;
   constexpr int R = Shape<X, W>::kR;
   constexpr int V = TmaMode<X, W>::kV;
-  constexpr int UA = tma_words<T, Shape<X, W>::kE, V>();
+  constexpr int UA = tma_words(T, Shape<X, W>::kE, V);
   MR_CLOCK_BEGIN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* const full = reinterpret_cast<uint64_t*>(smem_raw);
@@ -925,56 +809,22 @@ int launch_tma_t(const void* x, const void* hist, const void* bank, void* y,
         g.block > kRegTarget || stages < 2 || stages > kTmaMaxStages ||
         g.Pp % V != 0 || ((uintptr_t)x & 15) != 0 || (C > 1 && xlen % V))
       return kErrBadPlan;
-    const int base_max =
-        (int)(((int64_t)L - 1 + (int64_t)(g.G - 1) * R * M) / L);
-    const int nb = tma_buffer(K, g.Pp, base_max,
-                              tma_words<T, Shape<X, W>::kE, V>(), V);
+    const int nb = (int)tma_buffer(K, g.Pp, reg_base_max(L, M, g.G, R),
+                                   tma_words(T, Shape<X, W>::kE, V), V);
     const size_t smem = kTmaBarBytes + (size_t)stages * nb * sizeof(X);
     if (smem > kSmemLimit) return kErrTooLarge;
     const int64_t n_tiles =
         (n_out + (int64_t)K * g.Qp - 1) / ((int64_t)K * g.Qp);
     if (C * n_tiles < grid_x) return kErrBadPlan;
-    auto kern = polyphase_reg_tma<Entry, X, W, Out, T>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const int block = g.block + 32;
-    grid_x = resident_grid(kern, block, smem, grid_x);
-    kern<<<(unsigned)grid_x, block, smem, stream>>>(
-        (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L, M,
-        phi0, d0, n_out, g, stages, nb, n_tiles);
-    return cudaGetLastError();
+    return launch_kernel(polyphase_reg_tma<Entry, X, W, Out, T>,
+                         (unsigned)grid_x, g.block + 32, smem, true, stream,
+                         (const X*)x, (const X*)hist, (const W*)bank,
+                         (Out*)y, C, xlen, L, M, phi0, d0, n_out, g, stages,
+                         nb, n_tiles);
   }
 }
 
 // ------------------------------------------------------------------ slide
-
-// The sliding variant's geometry: interpolators (M / gcd(L, M) == 1, so the
-// outputs of one phase class read windows one input apart).
-struct SlideGeom {
-  int Q;      // outputs a period (phase classes)
-  int KG;     // threads a class: groups of R periods
-  int K;      // periods per tile (a multiple of R)
-  int span;   // staged samples of a tile
-  int block;  // threads per block
-  size_t out_offset, smem;
-};
-
-int slide_geom(int T, int L, int M, int K, int R, size_t xs, size_t os,
-               SlideGeom* g) {
-  const int gg = gcd(L, M);
-  g->Q = L / gg;
-  if (M / gg != 1 || L < 2 || g->Q > kSlideThreads || K < 1 || K % R)
-    return -1;
-  const int kg = kSlideThreads / g->Q;
-  g->KG = kg < K / R ? kg : K / R;
-  g->K = K;
-  g->block = (g->Q * g->KG + 31) / 32 * 32;
-  g->span = K + T + R;  // windows start at most one sample into a period
-  g->out_offset = 2 * raw_bytes(g->span, xs);
-  g->smem = g->out_offset + round16((size_t)K * g->Q * os);
-  return g->smem <= kSmemLimit ? 0 : -1;
-}
 
 template <typename Entry, typename X, typename W, typename Out, int T>
 __global__ void __launch_bounds__(kSlideThreads)
@@ -1062,44 +912,13 @@ int launch_slide_t(const void* x, const void* hist, const void* bank, void* y,
     return kErrBadPlan;
   const int64_t n_tiles = (n_out + (int64_t)K * g.Q - 1) / ((int64_t)K * g.Q);
   if (C * n_tiles < grid_x) return kErrBadPlan;
-  auto kern = polyphase_slide<Entry, X, W, Out, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
-  if (err != cudaSuccess) return err;
-  grid_x = resident_grid(kern, g.block, g.smem, grid_x);
-  kern<<<(unsigned)grid_x, g.block, g.smem, stream>>>(
-      (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, L, M,
-      phi0, d0, n_out, g, n_tiles);
-  return cudaGetLastError();
+  return launch_kernel(polyphase_slide<Entry, X, W, Out, T>,
+                       (unsigned)grid_x, g.block, g.smem, true, stream,
+                       (const X*)x, (const X*)hist, (const W*)bank, (Out*)y,
+                       C, xlen, L, M, phi0, d0, n_out, g, n_tiles);
 }
 
 // ------------------------------------------------------------------ bcast
-
-// The broadcast variant's layout: the bank and the span split by input phase
-// mod M into rows p < min(M, T) (TQ taps a row, zero-padded to a multiple
-// of R; SP samples a row), after a double buffer of raw samples that the
-// next tile's copy fills.
-struct BcastGeom {
-  int rows, SP, TQ, span;
-  size_t bank_bytes, raw, x_offset, out_offset, smem;
-};
-
-int bcast_geom(int T, int M, int tile, int R, size_t xsz, size_t xs,
-               size_t ws, size_t os, BcastGeom* g) {
-  if (tile < 1 || tile % (kBcastThreads * R)) return -1;
-  g->rows = M < T ? M : T;
-  g->TQ = ((T + M - 1) / M + R - 1) / R * R;  // taps a row, zero-padded
-  g->span = (tile - 1) * M + T;
-  const int row = tile + g->TQ + R;
-  const int skew = M > 1 && M <= 32 ? 32 / M : 1;  // staging stores: banks
-  g->SP = (row + 31) / 32 * 32 + skew;
-  g->bank_bytes = round16((size_t)g->rows * g->TQ * ws);
-  g->raw = raw_bytes(g->span, xsz);
-  g->x_offset = g->bank_bytes + 2 * g->raw;
-  g->out_offset = g->x_offset + round16((size_t)g->rows * g->SP * xs);
-  g->smem = g->out_offset + round16((size_t)tile * os);
-  return g->smem <= kSmemLimit ? 0 : -1;
-}
 
 template <typename Entry, typename X, typename W, typename Out>
 __global__ void __launch_bounds__(kBcastThreads)
@@ -1206,14 +1025,10 @@ int launch_bcast(const void* x, const void* hist, const void* bank, void* y,
     return kErrBadPlan;
   const int64_t n_tiles = (n_out + tile - 1) / tile;
   if (C * n_tiles < grid_x) return kErrBadPlan;
-  auto kern = polyphase_bcast<Entry, X, W, Out>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
-  if (err != cudaSuccess) return err;
-  kern<<<(unsigned)grid_x, kBcastThreads, g.smem, stream>>>(
-      (const X*)x, (const X*)hist, (const W*)bank, (Out*)y, C, xlen, T, M,
-      d0, n_out, tile, g, n_tiles);
-  return cudaGetLastError();
+  return launch_kernel(polyphase_bcast<Entry, X, W, Out>, (unsigned)grid_x,
+                       kBcastThreads, g.smem, false, stream, (const X*)x,
+                       (const X*)hist, (const W*)bank, (Out*)y, C, xlen, T, M,
+                       d0, n_out, tile, g, n_tiles);
 }
 
 // ------------------------------------------------------------------ entry
@@ -1274,7 +1089,7 @@ extern "C" {
 // 2 bcast, 3 slide, 4 reg.tma), ``tile`` (general and bcast: outputs; reg,
 // reg.tma and slide: periods), ``grid_x`` and ``depth`` (reg.tma's ring
 // buffers; ignored by the others) come from the host's plan
-// (ops/cuda/polyphase.py plan()).
+// (mr_plan.cpp, through ops/cuda/polyphase.py plan()).
 // Returns a cudaError_t code, kErrTooLarge when one tile's span cannot fit
 // in shared memory, or kErrBadPlan when the variant does not take the
 // geometry. One entry per (signal, tap, output) triple the modes use:

@@ -77,9 +77,10 @@
 // outputs (31 blocks for a 65,536-sample block at 1/2.123456789), a span
 // loaded synchronously between two barriers, and taps evaluated again for
 // every channel. So:
-// - Variants, chosen by the host (ops/cuda/resample.py plan()), never
-//   after a failure: one compiled for each (T, P+1) pair in use (10 and 2
-//   or 5 for bench.py's bank, 73 and 2 for models.Resampler's design),
+// - Variants, chosen by the host (mr_plan.cpp, through ops/cuda/
+//   resample.py plan()), never after a failure: one compiled for each
+//   (T, P+1) pair in use (10 and 2 or 5 for bench.py's bank, 73 and 2 for
+//   models.Resampler's design),
 //   with both loops unrolled, and "general", the same code with run-time
 //   loops. The launcher takes the plan as given and refuses one it cannot
 //   run (kErrBadPlan). Every variant does the same arithmetic in the same
@@ -149,11 +150,17 @@
 
 #include <type_traits>
 
+#include "geometry.cuh"
 #include "mac.cuh"
 
 namespace {
 
 using mr::mac;
+using namespace mr::resample;
+using mr::gcd;
+using mr::kMaxGridX;
+using mr::launch_kernel;
+using mr::round16;
 
 // The type a stored sample is staged and summed in: itself, or float for a
 // narrow read.
@@ -170,26 +177,9 @@ template <typename X, typename W> struct Sum { using type = X; };
 template <> struct Sum<float, float2> { using type = float2; };
 template <> struct Sum<double, double2> { using type = double2; };
 
-constexpr int kThreadsCM = 128;   // channel-major: threads a block, at most
-constexpr int kThreadsTM = 256;   // time-major
-constexpr int kLanes = 32;        // time-major: channels a block
-constexpr int kGroupCM = 8;       // channel-major: channels a block, C >= 8
-constexpr int kMaxTileCM = 1024;  // outputs a tile, at most
-constexpr int kMaxTileTM = 256;
-constexpr int kThreadsG = 256;     // grouped: threads a block, at most
-constexpr int kMaxTileG = 8192;    // grouped: outputs a tile, at most
-constexpr int64_t kMaxGridX = 65535;
-constexpr size_t kSmemLimit = 226 * 1024;  // dynamic, beside the static
-constexpr size_t kTableSmemLimit = 96 * 1024;
 constexpr int kErrTooLarge = -1;
 constexpr int kErrBadPlan = -2;
 constexpr float kTwoPowMinus32 = 2.3283064365386963e-10f;  // exactly 2^-32
-
-// Variants by the number the entry points take (ops/cuda/resample.py
-// VARIANTS), and the (T, P+1) each compiled one is built for.
-enum Variant {
-  kGeneral = 0, kT10P2 = 1, kT10P5 = 2, kT73P2 = 3, kT10P2G = 4, kT10P5G = 5
-};
 
 // (q, r) = divmod(u0 + n0*delta, nphi << 32), exact for a sum below 2^96.
 __device__ __forceinline__ void tile_base(uint64_t n0, uint64_t delta,
@@ -278,58 +268,6 @@ __device__ __forceinline__ W eval_tap(const W* c, int P1, int stride,
     for (int p = P1 - 2; p >= 0; --p) v = horner(v, alpha, c[p * stride]);
     return v;
   }
-}
-
-__host__ __device__ __forceinline__ size_t round16(size_t bytes) {
-  return (bytes + 15) & ~(size_t)15;
-}
-
-// Input samples a tile of ``tile`` outputs reads, at most (any first
-// remainder below D): the last window's offset from the first, plus T.
-__host__ __device__ __forceinline__ int64_t span_of(int tile, int T,
-                                                    uint32_t nphi,
-                                                    uint64_t delta) {
-  const uint64_t D = (uint64_t)nphi << 32;
-  return (int64_t)((D - 1 + (uint64_t)(tile - 1) * delta) / D) + T;
-}
-
-// Samples a staged channel-major row holds: the span, and room for its
-// first sample to sit up to 15 bytes past a 16-byte boundary, rounded to
-// whole 16-byte chunks.
-__host__ __device__ __forceinline__ int row_samples(int span, size_t xsz) {
-  const int v = 16 / (int)xsz;
-  return (span + v - 1 + v - 1) / v * v;
-}
-
-// Threads of a block: time-major kThreadsTM; channel-major enough for a
-// tile in runs of ``run`` outputs, in whole warps, at most kThreadsCM.
-__host__ __device__ __forceinline__ int block_threads(int tile, int run,
-                                                      bool time_major) {
-  if (time_major) return kThreadsTM;
-  const int need = (tile + run - 1) / run;
-  return need < kThreadsCM ? (need + 31) / 32 * 32 : kThreadsCM;
-}
-
-// Shared bytes of one block: the table (when staged), a double buffer of
-// the spans of cb channels as stored (time-major: span rows of kLanes
-// samples; xsz bytes a sample), for a narrow read one buffer of the span
-// widened (csz bytes a sample), time-major a tile's taps and offsets, and
-// channel-major runs (run > 1) a warp's 32 runs of outputs (asz bytes an
-// accumulator), gathered for coalesced stores.
-size_t smem_bytes(int tile, int cb, int run, int T, int P1, uint32_t nphi,
-                  uint64_t delta, size_t xsz, size_t csz, size_t asz,
-                  size_t wsz, bool table_smem, bool time_major) {
-  size_t b = table_smem ? round16((size_t)P1 * T * nphi * wsz) : 0;
-  const int span = (int)span_of(tile, T, nphi, delta);
-  const size_t row =
-      (size_t)(time_major ? span : row_samples(span, xsz)) * cb;
-  b += 2 * round16(row * xsz);
-  if (csz != xsz) b += round16(row * csz);
-  if (time_major) b += round16((size_t)tile * T * wsz) + round16(tile * 4);
-  if (run > 1)
-    b += round16((size_t)block_threads(tile, run, time_major) * (run + 1) *
-                 asz);
-  return b;
 }
 
 // N bytes copied asynchronously, the first ``bytes`` of them from gmem and
@@ -622,26 +560,6 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
   }
 }
 
-// Words of one phase's row of a grouped block's table: T*(P+1), rounded up
-// to whole 16-byte loads.
-__host__ __device__ constexpr int table_row(int T, int P1) {
-  return (T * P1 + 3) / 4 * 4;
-}
-
-// Shared bytes of one grouped block: the table by phase, a double buffer of
-// spans as stored (xsz bytes a sample) and, for a narrow read, one widened
-// (csz), and the tile's outputs (float, a word of padding every 32).
-size_t grouped_smem_bytes(int tile, int T, int P1, uint32_t nphi,
-                          uint64_t delta, size_t xsz, size_t csz) {
-  const size_t rows =
-      (size_t)row_samples((int)span_of(tile, T, nphi, delta), xsz);
-  size_t b = round16((size_t)nphi * table_row(T, P1) * sizeof(float));
-  b += 2 * round16(rows * xsz);
-  if (csz != xsz) b += round16(rows * csz);
-  b += round16(((size_t)tile + tile / 32) * sizeof(float));
-  return b;
-}
-
 // The grouped one-channel path (variants t10p2.grouped, t10p5.grouped):
 // float32 tables and float32 or narrow-read samples, channel-major blocks
 // of one channel, at a rate with a phase-preserving stride: K outputs whose
@@ -792,40 +710,6 @@ resample_grouped_kernel(const XR* __restrict__ x,
   }
 }
 
-// At most as many blocks of ``kern`` as the card holds at once: the plan's
-// grid is an upper bound, and a persistent block stages its table once.
-template <typename K>
-int64_t resident_grid(K kern, int block, size_t smem, int64_t grid_x) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block,
-                                                    smem) != cudaSuccess ||
-      per_sm < 1)
-    return grid_x;
-  const int64_t cap = (int64_t)per_sm * sms;
-  return grid_x < cap ? grid_x : cap;
-}
-
-template <typename XR, typename W, typename Out, bool kTM, int kT, int kP1,
-          int kCB, bool kTableInSmem>
-int run_kernel(const void* x, const void* hist, const void* table, void* y,
-               int64_t C, int64_t xlen, int T, int nphi, int P1,
-               uint64_t delta, uint64_t u0, int64_t d0, int64_t n_out,
-               int tile, int run, int span, int64_t n_tiles, int64_t groups,
-               int threads, size_t smem, int64_t grid, cudaStream_t stream) {
-  auto kern = resample_kernel<XR, W, Out, kTM, kT, kP1, kCB, kTableInSmem>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  grid = resident_grid(kern, threads, smem, grid);
-  kern<<<(unsigned)grid, threads, smem, stream>>>(
-      (const XR*)x, (const XR*)hist, (const W*)table, (Out*)y, C, xlen, T,
-      nphi, P1, delta, u0, d0, n_out, tile, run, span, n_tiles, groups);
-  return cudaGetLastError();
-}
-
 // One variant's launch on the plan (tile, cb, run, grid); kT = kP1 = 0 is the
 // general variant.
 template <typename XR, typename W, typename Out, bool kTM, int kT, int kP1>
@@ -855,9 +739,10 @@ int launch_variant(const void* x, const void* hist, const void* table,
   const int span = (int)span_of(tile, T, (uint32_t)nphi, delta);
   const int threads = block_threads(tile, run, kTM);
 #define MR_RUN(CB, SMEM)                                                     \
-  run_kernel<XR, W, Out, kTM, kT, kP1, CB, SMEM>(                          \
-      x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out, tile,   \
-      run, span, n_tiles, groups, threads, smem, grid, stream)
+  launch_kernel(resample_kernel<XR, W, Out, kTM, kT, kP1, CB, SMEM>,         \
+                (unsigned)grid, threads, smem, true, stream, (const XR*)x,   \
+                (const XR*)hist, (const W*)table, (Out*)y, C, xlen, T, nphi, \
+                P1, delta, u0, d0, n_out, tile, run, span, n_tiles, groups)
   if constexpr (kTM) {
     if (table_smem) return MR_RUN(kLanes, true);
     if constexpr (kT == 0) return MR_RUN(kLanes, false);
@@ -886,13 +771,7 @@ int launch_grouped(const void* x, const void* hist, const void* table,
   if (stride < 1 || stride > kThreadsG || mult < 1 || tile < stride ||
       tile > kMaxTileG || tile % stride)
     return kErrBadPlan;
-  int a = stride, b = mult % stride;  // gcd(stride, mult) == 1
-  while (b) {
-    const int r = a % b;
-    a = b;
-    b = r;
-  }
-  if (a != 1) return kErrBadPlan;
+  if (gcd(stride, mult % stride) != 1) return kErrBadPlan;
   if ((size_t)P1 * T * nphi * sizeof(float) > kTableSmemLimit)
     return kErrBadPlan;
   const int64_t n_tiles = (n_out + tile - 1) / tile;
@@ -902,15 +781,11 @@ int launch_grouped(const void* x, const void* hist, const void* table,
                                          sizeof(XR), sizeof(float));
   if (smem > kSmemLimit) return kErrTooLarge;
   const int threads = (stride + 31) / 32 * 32;
-  auto kern = resample_grouped_kernel<XR, Out, kT, kP1>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  grid = resident_grid(kern, threads, smem, grid);
-  kern<<<(unsigned)grid, threads, smem, stream>>>(
-      (const XR*)x, (const XR*)hist, (const float*)table, (Out*)y, C, xlen,
-      nphi, delta, u0, d0, n_out, tile, (int)span, n_tiles, stride, mult);
-  return cudaGetLastError();
+  return launch_kernel(resample_grouped_kernel<XR, Out, kT, kP1>,
+                       (unsigned)grid, threads, smem, true, stream,
+                       (const XR*)x, (const XR*)hist, (const float*)table,
+                       (Out*)y, C, xlen, nphi, delta, u0, d0, n_out, tile,
+                       (int)span, n_tiles, stride, mult);
 }
 
 // Launch on x (C, xlen) -> y (C, n_out), or time-major x (xlen, C) ->
@@ -967,8 +842,9 @@ extern "C" {
 // 0 < delta < 2^44, u0 + n_out*delta < 2^96, d0 >= 1, and that every
 // window lies inside [history ++ x]: d0 + (u0 + (n_out-1)*delta) / D <=
 // xlen. (variant, tile, cb, run, grid, stride, mult) is the launch's plan
-// (ops/cuda/resample.py plan()): the variant (0 general, 1 T = 10 with
-// P+1 = 2, 2 T = 10 with P+1 = 5, 3 T = 73 with P+1 = 2, 4 and 5 the
+// (mr_plan.cpp, through ops/cuda/resample.py plan()): the variant (0
+// general, 1 T = 10 with P+1 = 2, 2 T = 10 with P+1 = 5, 3 T = 73 with
+// P+1 = 2, 4 and 5 the
 // grouped paths of 1 and 2), outputs a tile, channels a block (1 or 8
 // channel-major, 32 time-major), neighbouring outputs a thread runs (1, 2,
 // 4, 8 or 16; 1 unless cb == 1), blocks, at most, and for a grouped path

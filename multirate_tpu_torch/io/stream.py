@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 import time
 
 import numpy as np
@@ -39,15 +38,24 @@ import torch
 
 from ..models.resampler import Resampler
 from ..ops.api import FIRFilter
-from ..ops.cuda.build import build
+from ..ops.cuda.build import build, load
 from ..ops.params import default_device
 from ..utils.checkpoint import state_from_host, state_to_host
 from ..utils.profiling import recording, span
 
 __all__ = ["RingBuffer", "StreamingResampler", "build_native"]
 
-_lib = None
-_lib_lock = threading.Lock()
+# The ring's C signatures for ``build.load`` (csrc/mr_ring.cpp).
+_P, _SIZE = ctypes.c_void_p, ctypes.c_size_t
+SIGNATURES = (("mr_ring_create", _P, (_SIZE,)),
+              ("mr_ring_destroy", None, (_P,)),
+              ("mr_ring_capacity", _SIZE, (_P,)),
+              ("mr_ring_size", _SIZE, (_P,)),
+              ("mr_ring_push", _SIZE, (_P, _P, _SIZE)),
+              ("mr_ring_push_i16", _SIZE, (_P, _P, _SIZE)),
+              ("mr_ring_pop_block", ctypes.POINTER(ctypes.c_float),
+               (_P, _SIZE)),
+              ("mr_ring_drain", _SIZE, (_P, _P, _SIZE)))
 
 
 def build_native(force: bool = False) -> str:
@@ -56,39 +64,11 @@ def build_native(force: bool = False) -> str:
     return str(build("mr_ring", force=force))
 
 
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_native())
-            lib.mr_ring_create.restype = ctypes.c_void_p
-            lib.mr_ring_create.argtypes = [ctypes.c_size_t]
-            lib.mr_ring_destroy.argtypes = [ctypes.c_void_p]
-            lib.mr_ring_capacity.restype = ctypes.c_size_t
-            lib.mr_ring_capacity.argtypes = [ctypes.c_void_p]
-            lib.mr_ring_size.restype = ctypes.c_size_t
-            lib.mr_ring_size.argtypes = [ctypes.c_void_p]
-            lib.mr_ring_push.restype = ctypes.c_size_t
-            lib.mr_ring_push.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                         ctypes.c_size_t]
-            lib.mr_ring_push_i16.restype = ctypes.c_size_t
-            lib.mr_ring_push_i16.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                             ctypes.c_size_t]
-            lib.mr_ring_pop_block.restype = ctypes.POINTER(ctypes.c_float)
-            lib.mr_ring_pop_block.argtypes = [ctypes.c_void_p,
-                                              ctypes.c_size_t]
-            lib.mr_ring_drain.restype = ctypes.c_size_t
-            lib.mr_ring_drain.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                          ctypes.c_size_t]
-            _lib = lib
-    return _lib
-
-
 class RingBuffer:
     """Lock-free single-producer/single-consumer f32 ring buffer (native)."""
 
     def __init__(self, min_capacity: int = 1 << 20):
-        lib = _load()
+        lib = load("mr_ring", SIGNATURES)
         self._lib = lib
         self._ptr = lib.mr_ring_create(min_capacity)
         if not self._ptr:

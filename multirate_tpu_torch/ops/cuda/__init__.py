@@ -7,8 +7,9 @@
 - ``probe``: the copy and expand probes (``csrc/probe.cu``) that
   ``utils.metrics`` times as the card's memory ceilings, their launch
   counts and their plain versions.
-- ``build``: nvcc (g++ for the host ring buffer) build at first use into
-  ``build/`` and ctypes loading.
+- ``build``: nvcc (g++ for the host ring buffer and the launch planner,
+  ``csrc/mr_plan.cpp``, which both kernels' ``plan`` call) build at first
+  use into ``build/``, ctypes loading and the one launch call.
 
 Nothing here builds or loads a kernel at import time.
 """

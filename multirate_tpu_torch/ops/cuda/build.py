@@ -11,22 +11,24 @@ takes seconds):
 ``--split-compile=0`` optimises and assembles the many kernel
 instantiations of one source on every host core at once.
 
-The host-only ring buffer ``csrc/mr_ring.cpp`` compiles the same way with
-g++ (``-O3 -std=c++17 -shared -fPIC``), so it builds where there is no
-nvcc.
+The host-only sources, the ring buffer ``csrc/mr_ring.cpp`` and the
+launch planner ``csrc/mr_plan.cpp``, compile the same way with g++
+(``-O3 -std=c++17 -shared -fPIC``), so they build where there is no nvcc.
 
 The output goes to ``build/`` at the repository root, at first use, in a
 directory keyed by a hash of the source, the headers beside it
-(``csrc/*.cuh``, for CUDA sources) and the flags, so an edited source or
-header rebuilds and an unchanged one loads at once. ``-Xptxas=-v`` writes
+(``csrc/*.cuh``: ``geometry.cuh`` is shared by the kernels and the
+planner) and the flags, so an edited source or header rebuilds and an
+unchanged one loads at once. ``-Xptxas=-v`` writes
 each kernel's registers, shared memory and spills to ``build.log`` beside
-the library. Nothing is built when a module is imported.
+the library. Nothing is built when a module is imported. ``load`` types a
+library's functions from its wrapper's signature table; ``launch`` is
+every kernel wrapper's call into one.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -34,8 +36,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 __all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "GXX_FLAGS", "build",
-           "check_aligned", "load_polyphase", "load_resample", "load_probe"]
+           "check_aligned", "load", "launch", "ERROR_STRING"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -54,23 +58,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _recipe(name: str, defines: tuple):
+    """(source, compiler, flags, output directory) of library ``name``: the
+    directory, ``build/<name>-<hash>``, is keyed by all but the compiler."""
+    src, cmd, flags = CSRC_DIR / f"{name}.cu", "nvcc", NVCC_FLAGS
+    if not src.is_file():
+        src, cmd, flags = CSRC_DIR / f"{name}.cpp", "g++", GXX_FLAGS
+    flags = (*flags, *(f"-D{d}" for d in defines))
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        key.update(header.read_bytes())
+    return src, cmd, flags, BUILD_DIR / f"{name}-{key.hexdigest()[:16]}"
+
+
 def build(name: str, force: bool = False, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` with nvcc, or the host source
     ``csrc/<name>.cpp`` with g++, if needed (always with ``force``); return
     the library's path. ``defines`` are macro names passed as ``-D``
     (``tools/polyphase_runs.py``'s clock split): another library."""
-    src = CSRC_DIR / f"{name}.cu"
-    if src.is_file():
-        cmd, flags = [_nvcc()], NVCC_FLAGS
-        headers = sorted(CSRC_DIR.glob("*.cuh"))
-    else:
-        src = CSRC_DIR / f"{name}.cpp"
-        cmd, flags, headers = ["g++"], GXX_FLAGS, []
-    flags = (*flags, *(f"-D{d}" for d in defines))
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    for header in headers:
-        key.update(header.read_bytes())
-    out_dir = BUILD_DIR / f"{name}-{key.hexdigest()[:16]}"
+    src, cmd, flags, out_dir = _recipe(name, defines)
     lib = out_dir / f"lib{name}.so"
     if lib.is_file() and not force:
         return lib
@@ -80,11 +86,12 @@ def build(name: str, force: bool = False, defines: tuple = ()) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
-        proc = subprocess.run([*cmd, *flags, "-o", tmp, str(src)],
+        compiler = _nvcc() if cmd == "nvcc" else cmd
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True, check=False)
         (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"{Path(cmd[0]).name} failed on {src.name}:"
+            raise RuntimeError(f"{cmd} failed on {src.name}:"
                                f"\n{proc.stderr}")
         os.replace(tmp, lib)
     finally:
@@ -93,69 +100,49 @@ def build(name: str, force: bool = False, defines: tuple = ()) -> Path:
     return lib
 
 
-@functools.cache
-def load_polyphase(defines: tuple = ()) -> ctypes.CDLL:
-    """The polyphase kernel library (built at first use, with ``defines``
-    if any: see ``build``), argtypes set for each entry point
-    ``mr_polyphase_<name>`` of ``polyphase.ENTRIES``."""
-    from .polyphase import ENTRIES
+# Every CUDA library's error message for a launch's return code.
+ERROR_STRING = ("mr_error_string", ctypes.c_char_p, (ctypes.c_int,))
 
-    lib = ctypes.CDLL(str(build("polyphase", defines=defines)))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name in ENTRIES.values():
-        fn = getattr(lib, f"mr_polyphase_{name}")
-        # ..., variant, tile, grid, depth, stream
-        fn.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i64, i64,
-                       i32, i32, i64, i32, p]
-        fn.restype = i32
-    lib.mr_error_string.argtypes = [i32]
-    lib.mr_error_string.restype = ctypes.c_char_p
+
+# Loaded libraries by (name, signature table's id, defines); each entry
+# keeps its table alive, so an id is never reused while it is a key.
+_loaded: dict = {}
+
+
+def load(name: str, signatures: tuple, defines: tuple = ()) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>`` (at first use, with
+    ``defines`` if any: see ``build``), each function of ``signatures``, a
+    tuple of (name, restype, argtypes) kept beside its wrapper's entries,
+    typed. Cached by the table's identity, not its value: every launch asks,
+    and hashing a table of 30 entry points costs microseconds. Two threads
+    that load at once share the library (a build is renamed into place
+    whole)."""
+    hit = _loaded.get((name, id(signatures), defines))
+    if hit is not None:
+        return hit[1]
+    lib = ctypes.CDLL(str(build(name, defines=defines)))
+    for fn, restype, argtypes in signatures:
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    _loaded[name, id(signatures), defines] = (signatures, lib)
     return lib
 
 
-@functools.cache
-def load_resample() -> ctypes.CDLL:
-    """The arbitrary/Farrow kernel library (built at first use), argtypes
-    set for each entry point ``mr_resample_<name>`` of
-    ``resample.ENTRIES``; those with a time-major form
-    (``resample.TM_ENTRIES``) also take the layout, and each takes its
-    launch's ``resample.plan``."""
-    from .resample import ENTRIES, TM_ENTRIES
-
-    lib = ctypes.CDLL(str(build("resample")))
-    p, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
-                        ctypes.c_int)
-    args = [p, p, p, p, i64, i64, i32, i32, i32, u64, u64, i64, i64]
-    # variant, tile, channels, run, grid, stride, mult
-    plan = [i32, i32, i32, i32, i64, i32, i32]
-    for key, name in ENTRIES.items():
-        fn = getattr(lib, f"mr_resample_{name}")
-        layout = [i32] if key in TM_ENTRIES else []
-        fn.argtypes = args + layout + plan + [p]
-        fn.restype = i32
-    lib.mr_error_string.argtypes = [i32]
-    lib.mr_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def load_probe() -> ctypes.CDLL:
-    """The copy and expand probe library (built at first use), argtypes set
-    for ``mr_probe_copy`` and each ``mr_probe_<name>`` of
-    ``probe.EXPAND``."""
-    from .probe import EXPAND
-
-    lib = ctypes.CDLL(str(build("probe")))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.mr_probe_copy.argtypes = [p, p, i64, p]
-    lib.mr_probe_copy.restype = i32
-    for name in EXPAND.values():
-        fn = getattr(lib, f"mr_probe_{name}")
-        fn.argtypes = [p, p, i64, i32, i32, p]
-        fn.restype = i32
-    lib.mr_error_string.argtypes = [i32]
-    lib.mr_error_string.restype = ctypes.c_char_p
-    return lib
+def launch(name: str, signatures: tuple, entry: str, device, args: tuple,
+           *counted) -> None:
+    """Call ``entry`` of library ``name`` with ``args`` and ``device``'s
+    current stream, on that device; raise RuntimeError with the library's
+    message for a nonzero code, else add one to each ``counts[key]`` of
+    ``counted`` ((counts, key) pairs: the launch counts)."""
+    lib = load(name, signatures)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.mr_error_string(err).decode())
+    for counts, key in counted:
+        counts[key] += 1
 
 
 def check_aligned(**tensors):

@@ -59,7 +59,8 @@ variant="general")`` forces the general variant, for timing against it.
 
 from __future__ import annotations
 
-import math
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -68,7 +69,7 @@ from ...utils.profiling import recording, span
 from ..dtypes import NARROW, NARROW_COMPLEX, NARROW_OUT
 from ..indexing import rational_indices
 from ..precision import fp32
-from .build import check_aligned, load_polyphase
+from .build import ERROR_STRING, check_aligned, launch, load
 
 __all__ = ["polyphase", "polyphase_plain", "plan", "Plan", "launches",
            "launches_by_variant", "VARIANTS", "REG_TAPS", "TMA_TAPS",
@@ -149,43 +150,18 @@ launches_by_variant = {f"{e}/{v}": 0 for e in ENTRIES.values()
 
 _LIMIT = 1 << 20  # L and M bound: keeps in-tile offsets inside int32
 
-# The launch geometry of csrc/polyphase.cu, mirrored here so that the host
-# plans every launch (the C launcher checks the plan and refuses a bad one).
-_REG_THREADS, _REG_TARGET = 256, 128
-_BCAST_THREADS = _SLIDE_THREADS = 128
-_SMEM_LIMIT, _BANK_SMEM_LIMIT = 227 * 1024, 96 * 1024
-_SMEM_TARGET = 48 * 1024  # per block, so that several blocks share an SM
-_FILL = 2 * 132           # blocks that fill the H100's SMs twice
-_SLIDE_REPEATS = 8        # slide: periods a thread computes in a tile, at most
-# reg: periods a thread computes in a tile, and periods a tile, at least
-# (the fastest tiles of a sweep on the H100, PERF.md)
-_REG_PERIODS, _REG_MIN_TILE = 3, 6
-# reg.tma: periods a thread computes in a tile, buffers in its ring (at
-# most _TMA_MAX_DEPTH), shared bytes of its barriers, and samples a 16-byte
-# word; a sweep on the H100 (PERF.md)
-_TMA_PERIODS, _TMA_DEPTH, _TMA_MAX_DEPTH = 12, 2, 8
-_TMA_BAR_BYTES, _TMA_V = 2 * 8 * _TMA_MAX_DEPTH, 4
-_MAX_GRID = 65535         # grid.x, at most (the kernels loop over tiles)
-_MAX_GENERAL_GRID = 1024
-# bytes of a staged signal or tap element (bf16 is staged as float, and
-# so is every narrow read: ``plan``)
-_STAGED = {torch.float32: 4, torch.bfloat16: 4, torch.int8: 1,
-           torch.float64: 8, torch.complex64: 8, torch.complex128: 16,
-           _I32: 4, _I64: 8}
-
-
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _up(a: int, b: int) -> int:
-    """a rounded up to a multiple of b."""
-    return _ceil(a, b) * b
-
-
-def _raw_bytes(n: int, size: int) -> int:
-    """csrc/polyphase.cu ``raw_bytes``: a buffer of n raw samples."""
-    return _up(n * size + 16, 16) + 16
+# The C signatures for ``build.load``: each entry point of csrc/polyphase.cu
+# (x, hist, bank, y, C, xlen, T, L, M, phi0, d0, n_out, then the plan's
+# variant, tile, grid and depth, and the stream), and the planner's chooser
+# in csrc/mr_plan.cpp.
+_P, _C_I64, _C_INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+SIGNATURES = (*((f"mr_polyphase_{name}", _C_INT,
+                 (_P,) * 4 + (_C_I64, _C_I64) + (_C_INT,) * 4
+                 + (_C_I64, _C_I64, _C_INT, _C_INT, _C_I64, _C_INT, _P))
+                for name in ENTRIES.values()), ERROR_STRING)
+PLAN_SIGNATURES = (("mr_polyphase_plan", _C_INT,
+                    (_C_INT,) * 3 + (_C_I64,) * 2 + (_C_INT,) * 6
+                    + (_C_I64, _C_INT, _C_INT, _P)),)
 
 
 class Plan(NamedTuple):
@@ -204,147 +180,6 @@ class Plan(NamedTuple):
     depth: int = 0
 
 
-def _shape(xs: int, ws: int):
-    """csrc/polyphase.cu ``Shape`` by staged sample and tap size: (R, E) of
-    ``reg`` (outputs a thread, tap padding) and R of ``bcast`` and
-    ``slide``."""
-    r = 4 if ws <= 4 else (2 if ws <= 8 else 1)
-    return r, (0 if r == 1 else r), (9 if xs <= 4 else (5 if xs <= 8 else 3))
-
-
-def _periods(L, M, R):
-    """``reg``'s period (csrc/polyphase.cu reg_geom): Qp outputs, Pp
-    inputs, G groups of R outputs."""
-    g = math.gcd(L, M)
-    Q, P = L // g, M // g
-    m = 1 if Q >= R else _ceil(R, Q)
-    return m * Q, m * P, _ceil(m * Q, R)
-
-
-def _reg_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
-    R, E, _ = _shape(xs, ws)
-    Qp, Pp, G = _periods(L, M, R)
-    if (T not in REG_TAPS or L < 2 or G > _REG_THREADS
-            or ((R - 1) * M + L - 1) // L > E):
-        return None
-    base_max = (L - 1 + (G - 1) * R * M) // L
-
-    def smem(K):  # a double buffer of raw samples
-        return 2 * _raw_bytes((K - 1) * Pp + base_max + T + E, xsz)
-
-    if smem(1) > _SMEM_LIMIT:
-        return None
-    kt = max(1, _REG_TARGET // G)
-    k_want = max(kt * _REG_PERIODS, _REG_MIN_TILE)
-    k_fit = 1
-    while k_fit < k_want and smem(k_fit + 1) <= _SMEM_TARGET:
-        k_fit += 1
-    periods = _ceil(n_out, Qp)
-    K = max(1, min(k_fit, periods * channels // _FILL))
-    return Plan("reg", K, min(_ceil(periods, K) * channels, _MAX_GRID),
-                smem(K), K * Qp)
-
-
-def _tma_buffer(K, T, L, M, R, E, Pp, G):
-    """Samples of one reg.tma ring buffer (csrc/polyphase.cu
-    ``tma_buffer``): K periods' reads, each up to 3 words off a 16-byte
-    word and UA = T + E + 3 words rounded up to whole 16-byte words."""
-    V = _TMA_V
-    base_max = (L - 1 + (G - 1) * R * M) // L
-    words = (T + E + 2 * (V - 1)) // V * V
-    return _up((K - 1) * Pp + base_max + V - 1 + words, V)
-
-
-def _tma_plan(T, L, M, n_out, channels, xs, ws, xsz, osz, depth=_TMA_DEPTH,
-              periods=_TMA_PERIODS, min_tiles=0):
-    """reg.tma where ``reg`` takes the geometry with at most a block's
-    consumers in a period and a period moves whole 16-byte words (the
-    caller checks the mode and alignment), with ``depth`` ring buffers and
-    ``periods`` periods a thread a tile; None below ``min_tiles``."""
-    R, E, _ = _shape(xs, ws)
-    Qp, Pp, G = _periods(L, M, R)
-    if (T not in TMA_TAPS or _reg_plan(T, L, M, n_out, channels, xs, ws, xsz,
-                                        osz) is None
-            or G > _REG_TARGET or Pp % _TMA_V):
-        return None
-    K = max(1, _REG_TARGET // G) * periods
-    smem = _TMA_BAR_BYTES + depth * _tma_buffer(K, T, L, M, R, E, Pp,
-                                                G) * xsz
-    tiles = _ceil(_ceil(n_out, Qp), K) * channels
-    if tiles < min_tiles or smem > _SMEM_LIMIT:
-        return None
-    return Plan("reg.tma", K, min(tiles, _MAX_GRID), smem, K * Qp, depth)
-
-
-def _bcast_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
-    R = _shape(xs, ws)[2]
-    if L != 1:
-        return None
-    rows, TQ = min(M, T), _up(_ceil(T, M), R)  # tap rows, zero-padded
-    skew = 32 // M if 1 < M <= 32 else 1
-    per = _BCAST_THREADS * R
-
-    def smem(kb):  # bank, raw double buffer, split rows, outputs
-        tile = kb * per
-        sp = _up(tile + TQ + R, 32) + skew
-        return (_up(rows * TQ * ws, 16)
-                + 2 * _raw_bytes((tile - 1) * M + T, xsz)
-                + _up(rows * sp * xs, 16) + _up(tile * osz, 16))
-
-    if smem(1) > _SMEM_LIMIT:
-        return None
-    kb_fit = 1
-    while smem(kb_fit + 1) <= _SMEM_TARGET:
-        kb_fit += 1
-    kb = max(1, min(kb_fit, n_out * channels // (_FILL * per)))
-    return Plan("bcast", kb * per,
-                min(_ceil(n_out, kb * per) * channels, _MAX_GRID), smem(kb),
-                kb * per)
-
-
-def _slide_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
-    R = _shape(xs, ws)[2]
-    g = math.gcd(L, M)
-    Q = L // g
-    if T not in REG_TAPS or M // g != 1 or L < 2 or Q > _SLIDE_THREADS:
-        return None
-    kg = _SLIDE_THREADS // Q
-
-    def smem(K):  # a double buffer of raw samples, then a tile's outputs
-        return 2 * _raw_bytes(K + T + R, xsz) + _up(K * Q * osz, 16)
-
-    k_fit = R
-    while (k_fit < kg * R * _SLIDE_REPEATS
-           and smem(k_fit + R) <= _SMEM_TARGET):
-        k_fit += R
-    periods = _ceil(n_out, Q)
-    K = max(R, min(k_fit, periods * channels // _FILL // R * R))
-    return Plan("slide", K, min(_ceil(periods, K) * channels, _MAX_GRID),
-                smem(K), K * Q)
-
-
-def _general_plan(T, L, M, n_out, channels, xs, ws, xsz, osz):
-    b_bytes = _up(T * L * ws, 16)
-    bank = b_bytes if b_bytes <= _BANK_SMEM_LIMIT else 0
-
-    def smem(tile):
-        return bank + ((L - 1 + (tile - 1) * M) // L + T) * xs
-
-    tile = 1024
-    while tile > 32 and _ceil(n_out, tile) * channels < _FILL:
-        tile //= 2
-    while tile > 1 and smem(tile) > _SMEM_LIMIT:
-        tile //= 2
-    if smem(tile) > _SMEM_LIMIT:
-        return None
-    return Plan("general", tile, min(_ceil(n_out, tile), _MAX_GENERAL_GRID),
-                smem(tile), tile)
-
-
-_PLANNERS = {"reg": _reg_plan, "bcast": _bcast_plan, "slide": _slide_plan,
-             "general": _general_plan}
-
-
 def plan(T: int, L: int, M: int, n_out: int, x_dtype, bank_dtype,
          channels: int = 1, variant: str | None = None,
          aligned: bool = True) -> Plan:
@@ -354,33 +189,35 @@ def plan(T: int, L: int, M: int, n_out: int, x_dtype, bank_dtype,
     channel's row of x starts at a 16-byte boundary (x's data, and its row
     length unless one channel), which ``reg.tma`` needs; by default it
     also needs ``TMA_MIN_TILES`` tiles, which a named ``"reg.tma"`` does
-    not. Pure Python on the shape: the CPU tests check it. Raises
-    ValueError if ``variant`` is named and cannot take the call."""
-    # csrc/polyphase.cu Mode: a narrow read stages float
-    narrow = x_dtype in NARROW and bank_dtype in (_F32, NARROW_COMPLEX)
-    xs, ws = 4 if narrow else _STAGED[x_dtype], _STAGED[bank_dtype]
-    xsz = x_dtype.itemsize
-    osz = accumulator(x_dtype, bank_dtype).itemsize
-    n_out = max(int(n_out), 1)
-    if variant is not None:
-        if variant not in VARIANTS:
-            raise ValueError(f"unknown variant {variant!r}; one of "
-                             f"{VARIANTS}")
-        order = (variant,)
-    else:
-        order = ("bcast", "slide", "reg.tma", "reg", "general")
-    for name in order:
-        if name == "reg.tma":
-            if not aligned or (x_dtype, bank_dtype) not in TMA_MODES:
-                continue
-            p = _tma_plan(T, L, M, n_out, channels, xs, ws, xsz, osz,
-                          min_tiles=0 if variant else TMA_MIN_TILES)
-        else:
-            p = _PLANNERS[name](T, L, M, n_out, channels, xs, ws, xsz, osz)
-        if p is not None:
-            return p
-    raise ValueError(f"the {'/'.join(order)} variant cannot take T={T} "
-                     f"L={L} M={M} ({x_dtype} samples, {bank_dtype} taps)")
+    not. Chosen on the shape by the planner library (csrc/mr_plan.cpp,
+    built with g++ at first use) from the launcher's own geometry, and
+    cached. Raises ValueError if ``variant`` is named and cannot take the
+    call."""
+    return _plan(T, L, M, n_out, x_dtype, bank_dtype, channels, variant,
+                 aligned, TMA_MIN_TILES)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(T, L, M, n_out, x_dtype, bank_dtype, channels, variant, aligned,
+          min_tiles, depth=0, periods=0) -> Plan:
+    """``plan`` at reg.tma's tile threshold ``min_tiles`` (a key of the
+    cache: tests and chip_smoke.py change ``TMA_MIN_TILES``); ``depth`` and
+    ``periods`` set its ring buffers and periods a thread a tile (0: the
+    planner's), for the sweeps of tools/polyphase_runs.py."""
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    out = (ctypes.c_int64 * 6)()
+    if load("mr_plan", PLAN_SIGNATURES).mr_polyphase_plan(
+            T, L, M, max(int(n_out), 1), channels, x_dtype.itemsize,
+            bank_dtype.itemsize, accumulator(x_dtype, bank_dtype).itemsize,
+            x_dtype in NARROW and bank_dtype != _S8,  # staged as float32
+            aligned and (x_dtype, bank_dtype) in TMA_MODES,
+            -1 if variant is None else VARIANTS.index(variant), min_tiles,
+            depth, periods, out):
+        raise ValueError(f"the {variant or 'bcast/slide/reg.tma/reg/general'}"
+                         f" variant cannot take T={T} L={L} M={M} "
+                         f"({x_dtype} samples, {bank_dtype} taps)")
+    return Plan(VARIANTS[out[0]], *out[1:])
 
 
 def polyphase_plain(x, hist, bank, L: int, M: int, phi0: int, d0: int,
@@ -494,16 +331,9 @@ def _launch(x, hist, bank, L, M, phi0, d0, n_out, out_dtype, variant,
     if y.numel() == 0:
         return y
     name = ENTRIES[x.dtype, bank.dtype, out_dtype]
-    entry = getattr(load_polyphase(), f"mr_polyphase_{name}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = entry(x.data_ptr(), hist.data_ptr(), bank.data_ptr(),
-                    y.data_ptr(), x.shape[0], x.shape[1], bank.shape[0], L,
-                    M, phi0, d0, n_out, VARIANTS.index(p.variant), p.tile,
-                    p.grid, p.depth, stream)
-    if err != 0:
-        raise RuntimeError("polyphase kernel launch failed: "
-                           + load_polyphase().mr_error_string(err).decode())
-    launches[name] += 1
-    launches_by_variant[f"{name}/{p.variant}"] += 1
+    launch("polyphase", SIGNATURES, f"mr_polyphase_{name}", x.device,
+           (x.data_ptr(), hist.data_ptr(), bank.data_ptr(), y.data_ptr(),
+            x.shape[0], x.shape[1], bank.shape[0], L, M, phi0, d0, n_out,
+            VARIANTS.index(p.variant), p.tile, p.grid, p.depth),
+           (launches, name), (launches_by_variant, f"{name}/{p.variant}"))
     return y

@@ -20,9 +20,11 @@ from one to the other.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .build import load_probe
+from .build import ERROR_STRING, launch
 
 __all__ = ["copy", "expand", "copy_plain", "expand_plain", "launches",
            "ENTRIES", "EXPAND"]
@@ -32,6 +34,13 @@ __all__ = ["copy", "expand", "copy_plain", "expand_plain", "launches",
 EXPAND = {torch.float32: "expand_f32", torch.bfloat16: "expand_bf16",
           torch.float16: "expand_f16", torch.int8: "expand_s8"}
 ENTRIES = ("copy", *EXPAND.values())
+# The C signatures for ``build.load``: the copy (x, y, bytes, stream) and
+# each expand (x, y, R, W, ratio, stream).
+_P = ctypes.c_void_p
+SIGNATURES = (("mr_probe_copy", ctypes.c_int, (_P, _P, ctypes.c_int64, _P)),
+              *((f"mr_probe_{name}", ctypes.c_int,
+                 (_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P))
+                for name in EXPAND.values()), ERROR_STRING)
 
 # Kernel launches made by ``copy`` and ``expand`` in this process, by entry
 # point. Each grows by one where its kernel is launched and nowhere else; a
@@ -54,12 +63,6 @@ def expand_plain(x: torch.Tensor, ratio: int,
     return wide.to(out_dtype)
 
 
-def _raise_on(err: int, lib) -> None:
-    if err != 0:
-        raise RuntimeError("probe kernel launch failed: "
-                           + lib.mr_error_string(err).decode())
-
-
 def _device_of(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no probe kernel for device {x.device}")
@@ -78,12 +81,8 @@ def copy(x: torch.Tensor) -> torch.Tensor:
     nbytes = x.numel() * x.element_size()
     if nbytes == 0:
         return y
-    lib = load_probe()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _raise_on(lib.mr_probe_copy(x.data_ptr(), y.data_ptr(), nbytes,
-                                    stream), lib)
-    launches["copy"] += 1
+    launch("probe", SIGNATURES, "mr_probe_copy", x.device,
+           (x.data_ptr(), y.data_ptr(), nbytes), (launches, "copy"))
     return y
 
 
@@ -108,11 +107,7 @@ def expand(x: torch.Tensor, ratio: int,
     y = torch.empty((R, ratio * W), dtype=out_dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = load_probe()
     name = EXPAND[out_dtype]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _raise_on(getattr(lib, f"mr_probe_{name}")(
-            x.data_ptr(), y.data_ptr(), R, W, int(ratio), stream), lib)
-    launches[name] += 1
+    launch("probe", SIGNATURES, f"mr_probe_{name}", x.device,
+           (x.data_ptr(), y.data_ptr(), R, W, int(ratio)), (launches, name))
     return y

@@ -56,8 +56,8 @@ division-free index walk, for the CPU tests.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-import math
 from typing import NamedTuple
 
 import torch
@@ -67,6 +67,7 @@ from ..dtypes import NARROW, NARROW_COMPLEX, NARROW_OUT
 from ..indexing import ACCUM_OPERAND_BITS, _muladd_divmod, accum_indices
 from ..params import PHASE_FRAC_BITS, FIRArbitrary, FIRFarrow
 from ..precision import fp32
+from .build import ERROR_STRING, check_aligned, launch, load
 
 __all__ = ["resample", "resample_tm", "resample_plain", "resample_tm_plain",
            "plan", "Plan", "walk_positions", "launches",
@@ -123,26 +124,21 @@ launches_by_variant = {f"{e}/{v}": 0 for e in (*ENTRIES.values(),
 
 _N_OUT_LIMIT = 1 << 40  # keeps u0 + n_out*delta_fx below the kernel's 2^96
 
-# The launch geometry of csrc/resample.cu, mirrored here so that the host
-# plans every launch (the C launcher checks the plan and refuses a bad one).
-_THREADS_CM, _THREADS_TM = 128, 256  # threads a block (channel-major: at most)
-_LANES = 32                          # time-major: channels a block
-_GROUP_CM = 8                        # channel-major: channels a block, C >= 8
-_MAX_TILE_CM, _MAX_TILE_TM, _MIN_TILE = 1024, 256, 32
-_SMEM_LIMIT, _TABLE_SMEM_LIMIT = 226 * 1024, 96 * 1024
-_SMEM_TARGET = 64 * 1024  # per block, so that several blocks share an SM
-_FILL = 2 * 132           # blocks that fill the H100's SMs twice
-_MAX_GRID = 65535         # grid.x, at most (blocks loop over tiles)
-_RUNS = (1, 2, 4, 8, 16)  # neighbouring outputs a thread may run
-# the grouped path: threads a block at most (a stride's, in whole warps),
-# outputs a tile at most, shared bytes a block (two blocks an SM), the
-# largest sliver of a stride (|stride*delta_fx mod D|, a phase change in a
-# thread's outputs at most once every 4,096), and outputs a thread a tile
-# at least, for the planner to take it
-_THREADS_G, _MAX_TILE_G = 256, 8192
-_SMEM_TARGET_G = 110 * 1024
-_SLIVER_G = 1 << 20
-_MIN_ROWS_G = 8
+# The C signatures for ``build.load``: each entry point of csrc/resample.cu
+# (x, hist, table, y, C, xlen, T, nphi, P+1, delta_fx, u0, d0, n_out, the
+# layout where it has a time-major form, then the plan's variant, tile,
+# channels, run, grid, stride and mult, and the stream), and the planner's
+# chooser in csrc/mr_plan.cpp.
+_P, _C_I64, _C_U64, _C_INT = (ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_uint64, ctypes.c_int)
+SIGNATURES = (*((f"mr_resample_{name}", _C_INT,
+                 (_P,) * 4 + (_C_I64, _C_I64) + (_C_INT,) * 3
+                 + (_C_U64, _C_U64, _C_I64, _C_I64)
+                 + (_C_INT,) * (1 + (key in TM_ENTRIES)) + (_C_INT,) * 3
+                 + (_C_I64, _C_INT, _C_INT, _P))
+                for key, name in ENTRIES.items()), ERROR_STRING)
+PLAN_SIGNATURES = (("mr_resample_plan", _C_INT,
+                    (_C_INT,) * 3 + (_C_I64,) * 3 + (_C_INT,) * 9 + (_P,)),)
 
 
 def _sum_type(x_dtype, table_dtype):
@@ -151,14 +147,6 @@ def _sum_type(x_dtype, table_dtype):
     if table_dtype.is_complex and not x_dtype.is_complex:
         return table_dtype
     return _F32 if x_dtype in NARROW else x_dtype
-
-
-def _up16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 class Plan(NamedTuple):
@@ -179,142 +167,6 @@ class Plan(NamedTuple):
     mult: int = 0
 
 
-def _threads(tile: int, run: int, tm: bool) -> int:
-    """csrc/resample.cu ``block_threads``."""
-    if tm:
-        return _THREADS_TM
-    return min(_THREADS_CM, _ceil(_ceil(tile, run), 32) * 32)
-
-
-def _run_of(tile: int, cb: int, nphi: int, delta_fx: int) -> int:
-    """Neighbouring outputs a thread runs, so a warp's lanes sit ``run``
-    outputs apart: the least run whose lanes' windows lie within 1/32
-    sample of an odd whole number of samples apart (then 32 lanes' window
-    words hit 32 banks, and their phases cluster), in one-channel blocks of
-    at least two warps of full runs; else 1. ``tools/resample_runs.py``
-    times every run on the card."""
-    D = nphi << PHASE_FRAC_BITS
-    for run in _RUNS[1:]:
-        k = (2 * run * delta_fx + D) // (2 * D)  # nearest whole samples
-        if (cb == 1 and tile >= 64 * run and k % 2
-                and 32 * abs(run * delta_fx - k * D) < D):
-            return run
-    return 1
-
-
-def _span(tile: int, nphi: int, delta_fx: int, T: int) -> int:
-    """Input samples a tile of ``tile`` outputs reads, at most: the last
-    output's window offset from the first, for any first remainder < D,
-    plus T."""
-    D = nphi << PHASE_FRAC_BITS
-    return (D - 1 + (tile - 1) * delta_fx) // D + T
-
-
-def _row_samples(span: int, xsz: int) -> int:
-    """csrc/resample.cu ``row_samples``: a staged channel-major row, the
-    span plus room for a first sample up to 15 bytes past a 16-byte
-    boundary, in whole 16-byte chunks."""
-    v = 16 // xsz
-    return _ceil(span + v - 1, v) * v
-
-
-def _smem(tile, cb, run, T, P1, nphi, delta_fx, xsz, csz, asz, wsz,
-          table_smem, tm):
-    """csrc/resample.cu ``smem_bytes``: the table (when staged), a double
-    buffer of the spans as stored (``xsz`` bytes a sample), for a narrow
-    read one of the spans widened (``csz`` bytes), time-major a tile's taps
-    and offsets, and a gather of each warp's runs of outputs (run > 1,
-    ``asz`` bytes an accumulator)."""
-    b = _up16(P1 * T * nphi * wsz) if table_smem else 0
-    span = _span(tile, nphi, delta_fx, T)
-    row = (span if tm else _row_samples(span, xsz)) * cb
-    b += 2 * _up16(row * xsz)
-    if csz != xsz:
-        b += _up16(row * csz)
-    if tm:
-        b += _up16(tile * T * wsz) + _up16(tile * 4)
-    if run > 1:
-        b += _up16(_threads(tile, run, tm) * (run + 1) * asz)
-    return b
-
-
-def _table_row(T: int, P1: int) -> int:
-    """csrc/resample.cu ``table_row``: a phase's T*(P+1) table words in
-    whole 16-byte loads."""
-    return _ceil(T * P1, 4) * 4
-
-
-def _smem_grouped(tile, T, P1, nphi, delta_fx, xsz, csz):
-    """csrc/resample.cu ``grouped_smem_bytes``: the table by phase, a
-    double buffer of spans as stored (and one widened, for a narrow read)
-    and the tile's outputs, a word of padding every 32."""
-    rows = _row_samples(_span(tile, nphi, delta_fx, T), xsz)
-    b = _up16(nphi * _table_row(T, P1) * 4) + 2 * _up16(rows * xsz)
-    if csz != xsz:
-        b += _up16(rows * csz)
-    return b + _up16((tile + tile // 32) * 4)
-
-
-@functools.lru_cache(maxsize=64)
-def _stride_of(nphi: int, delta_fx: int) -> int | None:
-    """The grouped path's stride: k * (256 // k) for the least k whose
-    multiple keeps a thread's phase (|stride*delta_fx mod D| at most
-    ``_SLIVER_G``), or None at a rate that has none."""
-    D = nphi << PHASE_FRAC_BITS
-    for k in range(1, _THREADS_G + 1):
-        stride = k * (_THREADS_G // k)
-        d = stride * delta_fx % D
-        if min(d, D - d) <= _SLIVER_G:
-            return stride
-    return None
-
-
-def _mult_of(stride: int, nphi: int, delta_fx: int) -> int:
-    """Outputs between neighbouring lanes' progressions: the least m prime
-    to the stride whose windows lie within 1/32 sample of an odd number of
-    samples apart (32 banks), else 1."""
-    D = nphi << PHASE_FRAC_BITS
-    for m in range(1, stride):
-        k = (2 * m * delta_fx + D) // (2 * D)  # nearest whole samples
-        if (math.gcd(m, stride) == 1 and k % 2
-                and 32 * abs(m * delta_fx - k * D) < D):
-            return m
-    return 1
-
-
-def _grouped_plan(variant, n_out, groups, T, P1, nphi, delta_fx, xsz, csz,
-                  forced):
-    """The grouped path's plan: its stride, multiplier and the largest tile
-    of whole progressions that gives the card 2 x 132 work items within
-    two blocks' shared memory an SM; None where the rate has no stride or
-    a thread would run fewer than ``_MIN_ROWS_G`` outputs a tile (unless
-    ``forced``: then any stride, one output a thread at least)."""
-    stride = _stride_of(nphi, delta_fx)
-    if stride is None and not forced:
-        return None
-    stride = stride or _THREADS_G
-    # the most outputs a thread whose tiles still give the card _FILL items
-    need = _ceil(_FILL, groups)
-    rows = _MAX_TILE_G // stride
-    if need > 1:
-        rows = max(min(rows, (n_out - 1) // (need - 1) // stride), 1)
-    if not (forced or rows >= _MIN_ROWS_G):
-        return None
-    while True:
-        tile = stride * rows
-        smem = _smem_grouped(tile, T, P1, nphi, delta_fx, xsz, csz)
-        if smem <= _SMEM_TARGET_G or rows == 1:
-            break
-        rows -= 1
-    if smem > (_SMEM_LIMIT if forced else _SMEM_TARGET_G) or not (
-            forced or rows >= _MIN_ROWS_G):
-        return None
-    return Plan(variant, tile, 1, 1, min(_ceil(n_out, tile) * groups,
-                                         _MAX_GRID),
-                _ceil(stride, 32) * 32, smem, stride,
-                _mult_of(stride, nphi, delta_fx))
-
-
 @functools.lru_cache(maxsize=1024)
 def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
          x_dtype, table_dtype, time_major: bool = False,
@@ -325,55 +177,42 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
     table is float32, the signal float32 or a narrow read, the blocks
     channel-major with one channel, the rate has a phase-preserving stride
     and the card's share of the call gives each thread 8 outputs a tile at
-    least), the tile, the channels a block and the grid. Pure Python on
-    the shape: the CPU tests check it. Raises ValueError if ``variant`` is
-    named and cannot take the call, or if one tile's span cannot fit in
-    shared memory. Cached: a stream plans the same few shapes again."""
-    xsz, wsz = x_dtype.itemsize, table_dtype.itemsize
-    csz = 4 if x_dtype in NARROW else xsz  # staged widened to float32
-    asz = _sum_type(x_dtype, table_dtype).itemsize  # an accumulator
-    t_bytes = P1 * T * nphi * wsz
-    table_smem = t_bytes <= _TABLE_SMEM_LIMIT
-    auto = COMPILED.get((T, P1)) if table_smem else None
-    cb = _LANES if time_major else (_GROUP_CM if C >= _GROUP_CM else 1)
-    groups = _ceil(C, cb)
-    n_out = max(int(n_out), 1)
-    grouped = (GROUPED.get(auto) if cb == 1 and table_dtype == _F32
-               and x_dtype in (_F32, *NARROW) else None)
+    least), the tile, the channels a block and the grid. Chosen on the
+    shape by the planner library (csrc/mr_plan.cpp, built with g++ at first
+    use) from the launcher's own geometry, and cached: a stream plans the
+    same few shapes again. Raises ValueError if ``variant`` is named and
+    cannot take the call, or if one tile's span cannot fit in shared
+    memory."""
+    return _plan(T, P1, nphi, delta_fx, n_out, C, x_dtype, table_dtype,
+                 time_major, variant)
+
+
+def _plan(T, P1, nphi, delta_fx, n_out, C, x_dtype, table_dtype, time_major,
+          variant, run=0, rows=0) -> Plan:
+    """``plan``, uncached; ``run`` and ``rows`` set the run path's outputs
+    a thread and the grouped path's outputs a thread a tile (0: the
+    planner's), for the sweeps of tools/resample_runs.py."""
     if variant not in (None, *VARIANTS):
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    if variant is not None and variant not in ("general", auto, grouped):
+    out = (ctypes.c_int64 * 9)()
+    err = load("mr_plan", PLAN_SIGNATURES).mr_resample_plan(
+        T, P1, nphi, delta_fx, max(int(n_out), 1), C, x_dtype.itemsize,
+        table_dtype.itemsize, _sum_type(x_dtype, table_dtype).itemsize,
+        x_dtype in NARROW, table_dtype == _F32 and x_dtype in (_F32, *NARROW),
+        time_major, -1 if variant is None else VARIANTS.index(variant), run,
+        rows, out)
+    if err == -1:
+        t_bytes = P1 * T * nphi * table_dtype.itemsize
         raise ValueError(f"the {variant} variant cannot take T={T} "
                          f"P+1={P1} with a {t_bytes}-byte {table_dtype} "
                          f"table, {C} channel(s) of {x_dtype}"
                          f"{', time-major' if time_major else ''}")
-    if grouped and variant in (None, grouped):
-        p = _grouped_plan(grouped, n_out, groups, T, P1, nphi, delta_fx, xsz,
-                          csz, variant is not None)
-        if p:
-            return p
-        if variant:
-            raise ValueError(f"no {grouped} tile fits a span at "
-                             f"delta_fx={delta_fx}")
-    variant = variant or auto or "general"
-
-    def smem(tile):
-        return _smem(tile, cb, _run_of(tile, cb, nphi, delta_fx), T, P1, nphi,
-                     delta_fx, xsz, csz, asz, wsz, table_smem, time_major)
-
-    tile = _MAX_TILE_TM if time_major else _MAX_TILE_CM
-    while tile > _MIN_TILE and _ceil(n_out, tile) * groups < _FILL:
-        tile //= 2
-    while tile > _MIN_TILE and smem(tile) > _SMEM_TARGET:
-        tile //= 2
-    while tile > 1 and smem(tile) > _SMEM_LIMIT:
-        tile //= 2
-    if smem(tile) > _SMEM_LIMIT:
+    if err == -2:
+        raise ValueError(f"no {variant} tile fits a span at "
+                         f"delta_fx={delta_fx}")
+    if err:
         raise ValueError("one output's window exceeds shared memory")
-    run = _run_of(tile, cb, nphi, delta_fx)
-    grid = min(_ceil(n_out, tile) * groups, _MAX_GRID)
-    return Plan(variant, tile, cb, run, grid,
-                _threads(tile, run, time_major), smem(tile))
+    return Plan(VARIANTS[out[0]], *out[1:])
 
 
 def _digits(v: int, nphi: int):
@@ -397,7 +236,7 @@ def _tile_bases(p: Plan, nphi: int, delta_fx: int, u0: int, n_out: int):
     kernel's 128-bit product and division)."""
     D = nphi << PHASE_FRAC_BITS
     bases = [divmod(u0 + n0 * delta_fx, D)
-             for n0 in range(0, _ceil(n_out, p.tile) * p.tile, p.tile)]
+             for n0 in range(0, n_out, p.tile)]
     return (torch.tensor([b[0] for b in bases], dtype=torch.int64),
             torch.tensor([b[1] for b in bases], dtype=torch.int64))
 
@@ -407,7 +246,7 @@ def _grouped_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
     """``walk_positions`` of a grouped plan: thread i < stride runs the
     outputs j = (i*mult mod stride) + stride*r (r < tile / stride) of each
     tile, from its first output's digits, by adding the stride's digits."""
-    n_tiles = _ceil(n_out, p.tile)
+    n_tiles = -(-n_out // p.tile)
     q0, r0 = _tile_bases(p, nphi, delta_fx, u0, n_out)
     start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS,
              r0 & ((1 << PHASE_FRAC_BITS) - 1))
@@ -444,13 +283,13 @@ def walk_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
     division per output. (A time-major block's taps take run 1.)"""
     if p.variant in GROUPED.values():
         return _grouped_positions(p, nphi, delta_fx, u0, n_out)
-    n_tiles = _ceil(n_out, p.tile)
+    n_tiles = -(-n_out // p.tile)
     q0, r0 = _tile_bases(p, nphi, delta_fx, u0, n_out)
     start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS,
              r0 & ((1 << PHASE_FRAC_BITS) - 1))
     q = torch.empty(n_tiles, p.tile, dtype=torch.int64)
     phi, fr = torch.empty_like(q), torch.empty_like(q)
-    run = 1 if p.channels == _LANES else p.run
+    run = p.run
     step = _digits(delta_fx, nphi)
     next_round = _digits((p.threads - 1) * run * delta_fx, nphi)
     for t in range(p.threads):
@@ -567,27 +406,19 @@ def _launch(x, hist, params, u0, d0, n_out, out_dtype, time_major,
     if y.numel() == 0:
         return y
     p = _plan_for(x, params, n_out, time_major, variant)
-    from .build import check_aligned, load_resample
-
     check_aligned(x=x, hist=hist, table=params.table)
     key = (x.dtype, params.table.dtype, out_dtype)
     name = ENTRIES[key]
-    lib = load_resample()
     layout = (int(time_major),) if key in TM_ENTRIES else ()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, f"mr_resample_{name}")(
-            x.data_ptr(), hist.data_ptr(), params.table.data_ptr(),
-            y.data_ptr(), C, xlen, params.taps_per_phi, params.nphi,
-            params.table.shape[0], params.delta_fx, u0, d0, n_out,
-            *layout, VARIANTS.index(p.variant), p.tile, p.channels, p.run,
-            p.grid, p.stride, p.mult, stream)
-    if err != 0:
-        raise RuntimeError("resample kernel launch failed: "
-                           + lib.mr_error_string(err).decode())
     counted = TM_ENTRIES[key] if time_major else name
-    launches[counted] += 1
-    launches_by_variant[f"{counted}/{p.variant}"] += 1
+    launch("resample", SIGNATURES, f"mr_resample_{name}", x.device,
+           (x.data_ptr(), hist.data_ptr(), params.table.data_ptr(),
+            y.data_ptr(), C, xlen, params.taps_per_phi, params.nphi,
+            params.table.shape[0], params.delta_fx, u0, d0, n_out, *layout,
+            VARIANTS.index(p.variant), p.tile, p.channels, p.run, p.grid,
+            p.stride, p.mult),
+           (launches, counted),
+           (launches_by_variant, f"{counted}/{p.variant}"))
     return y
 
 

@@ -600,10 +600,10 @@ def kernels_built():
     after, records them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from multirate_tpu_torch.ops.cuda.build import (load_polyphase,
-                                                    load_resample)
-    load_polyphase()
-    load_resample()
+    from multirate_tpu_torch.ops.cuda import build, polyphase, resample
+
+    build.load("polyphase", polyphase.SIGNATURES)
+    build.load("resample", resample.SIGNATURES)
 
 
 @pytest.mark.gpu

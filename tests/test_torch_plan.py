@@ -1,10 +1,13 @@
 """The polyphase kernel's launch planner on the CPU: which variant each
 main-path row takes, the grid it gets and the offsets its tiles reach.
 
-``ops/cuda/polyphase.plan`` is pure Python on the call's shape; the CUDA
-launcher (``csrc/polyphase.cu``) takes its (variant, tile, grid) as given
-and refuses a plan it cannot run, so what is checked here is what the card
-runs. Exact: plans are integers.
+``ops/cuda/polyphase.plan`` asks the planner library (``csrc/mr_plan.cpp``,
+built with g++) on the call's shape; the CUDA launcher
+(``csrc/polyphase.cu``) takes its (variant, tile, grid) as given and
+refuses a plan it cannot run, both with the geometry of
+``csrc/geometry.cuh``, so what is checked here is what the card runs.
+The helpers below transcribe that geometry, to hold the plans to it.
+Exact: plans are integers.
 """
 
 import math
@@ -40,6 +43,34 @@ MAIN_PATH = {
     "interp_4_1_T24": (24, 4, 1, 4 * N_HEAD, F32, F32),
 }
 NEW = {"reg", "bcast", "slide", "reg.tma"}
+# reg.tma's periods a thread a tile, ring buffers by default and at most
+# (csrc/mr_plan.cpp, csrc/geometry.cuh)
+TMA_PERIODS, TMA_DEPTH, TMA_MAX_DEPTH = 12, 2, 8
+# bytes of a staged tap (bf16 is staged as float)
+STAGED = {F32: 4, BF16: 4, S8: 1, F64: 8, C64: 8, C128: 16}
+
+
+def _shape(ws):
+    """reg's outputs a thread R and tap padding E by staged tap size."""
+    r = 4 if ws <= 4 else (2 if ws <= 8 else 1)
+    return r, (0 if r == 1 else r)
+
+
+def _period(L, M, R):
+    """reg's period: Qp outputs, Pp inputs, G groups of R outputs."""
+    g = math.gcd(L, M)
+    Q, P = L // g, M // g
+    m = 1 if Q >= R else -(-R // Q)
+    return m * Q, m * P, -(-m * Q // R)
+
+
+def _tma_buffer(K, T, L, M, R, E, Pp, G, V=4):
+    """Samples of one reg.tma ring buffer: K periods' reads, each up to 3
+    words off a 16-byte word and T + E + 3 words rounded up to whole
+    16-byte words."""
+    base_max = (L - 1 + (G - 1) * R * M) // L
+    words = (T + E + 2 * (V - 1)) // V * V
+    return -(-((K - 1) * Pp + base_max + V - 1 + words) // V) * V
 
 
 def _expected(L, M, n, x_dt, b_dt):
@@ -51,8 +82,8 @@ def _expected(L, M, n, x_dt, b_dt):
         return "bcast"
     if M == 1:
         return "slide"
-    # 37 groups of 4 outputs, 3 a block: 3 * _TMA_PERIODS periods a tile
-    tiles = -(-n // (3 * pp._TMA_PERIODS * 147))
+    # 37 groups of 4 outputs, 3 a block: 3 * TMA_PERIODS periods a tile
+    tiles = -(-n // (3 * TMA_PERIODS * 147))
     return ("reg.tma" if (x_dt, b_dt) == (F32, F32)
             and tiles >= pp.TMA_MIN_TILES else "reg")
 
@@ -107,14 +138,11 @@ def _tile_reach(p, T, L, M, x_dt, b_dt):
         return (p.tile - 1) * M + T
     if p.variant == "slide":
         return p.tile * (L // math.gcd(L, M))
-    R, E, _ = pp._shape(pp._STAGED[x_dt], pp._STAGED[b_dt])
-    g = math.gcd(L, M)
-    Q, P = L // g, M // g
-    m = 1 if Q >= R else -(-R // Q)
-    G = -(-m * Q // R)
+    R, E = _shape(STAGED[b_dt])
+    _, Pp, G = _period(L, M, R)
     if p.variant == "reg.tma":
-        return pp._tma_buffer(p.tile, T, L, M, R, E, m * P, G)
-    return (p.tile - 1) * m * P + (L - 1 + (G - 1) * R * M) // L + T + E
+        return _tma_buffer(p.tile, T, L, M, R, E, Pp, G)
+    return (p.tile - 1) * Pp + (L - 1 + (G - 1) * R * M) // L + T + E
 
 
 @pytest.mark.parametrize("L,M", [(1, 1), (147, 160), (4, 1), (1, 4),
@@ -202,7 +230,7 @@ TMA_KEEPS = {
 def test_calls_with_tiles_and_aligned_words_take_reg_tma(row):
     T, L, M, n, x_dt, b_dt, C, aligned = TMA_TAKES[row]
     p = pp.plan(T, L, M, n, x_dt, b_dt, C, aligned=aligned)
-    assert p.variant == "reg.tma" and p.depth == pp._TMA_DEPTH
+    assert p.variant == "reg.tma" and p.depth == TMA_DEPTH
     assert p.grid >= pp.TMA_MIN_TILES
     assert p.tile_outputs % (L // math.gcd(L, M)) == 0
     # the same call, named, plans the same launch
@@ -224,23 +252,29 @@ def test_other_calls_keep_their_variant(row):
             pp.plan(T, L, M, n, x_dt, b_dt, C, "reg.tma", aligned=aligned)
 
 
-@pytest.mark.parametrize("depth", range(2, pp._TMA_MAX_DEPTH + 1))
+@pytest.mark.parametrize("depth", range(2, TMA_MAX_DEPTH + 1))
 @pytest.mark.parametrize("periods", [1, 3, 6, 8, 12, 16])
 @pytest.mark.parametrize("row", list(TMA_TAKES))
 def test_reg_tma_ring_fits_shared_memory(row, periods, depth):
     T, L, M, n, x_dt, b_dt, C, _ = TMA_TAKES[row]
-    p = pp._tma_plan(T, L, M, n, C, 4, 4, 4, 4, depth=depth,
-                     periods=periods)
-    R, E, _ = pp._shape(4, 4)
-    Qp, Pp, G = pp._periods(L, M, R)
+    # the sweeps' ring depth and periods a thread (tools/polyphase_runs.py)
+    def forced():
+        return pp._plan(T, L, M, n, x_dt, b_dt, C, "reg.tma", True, 0,
+                        depth, periods)
+
+    R, E = _shape(4)
+    Qp, Pp, G = _period(L, M, R)
     K = max(1, 128 // G) * periods
-    nb = pp._tma_buffer(K, T, L, M, R, E, Pp, G)
+    nb = _tma_buffer(K, T, L, M, R, E, Pp, G)
     # barriers, then depth buffers of whole 16-byte words; a ring over
     # 227 KB is planned nowhere (the planned periods fit at every depth)
     smem = 2 * 8 * 8 + depth * nb * 4
     if smem > 227 * 1024:
-        assert p is None and periods > pp._TMA_PERIODS
+        with pytest.raises(ValueError, match="reg.tma"):
+            forced()
+        assert periods > TMA_PERIODS
         return
+    p = forced()
     assert p.tile == K and p.depth == depth
     assert nb % 4 == 0 and p.smem == smem
     # a buffer holds every word a tile's threads read: the last group's

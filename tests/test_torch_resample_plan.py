@@ -2,13 +2,15 @@
 variant each main-path row takes, the grid it gets, and the kernel's
 division-free walk against the accumulator algebra.
 
-``ops/cuda/resample.plan`` is pure Python on the call's shape; the CUDA
-launcher (``csrc/resample.cu``) takes its (variant, tile, channels, run,
-grid) as given and refuses a plan it cannot run, so what is checked here
-is what the card runs. ``walk_positions`` transcribes the kernel's walk
-(tile bases in exact integers, then digit additions with carries); it must
-give exactly the (window, phase, fraction) of ``indexing.accum_indices``
-for every output. Exact: plans and indices are integers.
+``ops/cuda/resample.plan`` asks the planner library (``csrc/mr_plan.cpp``,
+built with g++) on the call's shape; the CUDA launcher
+(``csrc/resample.cu``) takes its (variant, tile, channels, run, grid) as
+given and refuses a plan it cannot run, both with the geometry of
+``csrc/geometry.cuh``, so what is checked here is what the card runs.
+``walk_positions`` transcribes the kernel's walk (tile bases in exact
+integers, then digit additions with carries); it must give exactly the
+(window, phase, fraction) of ``indexing.accum_indices`` for every
+output. Exact: plans and indices are integers.
 """
 
 import math
@@ -39,6 +41,29 @@ def taps():
 def _params(h, rate, polyorder=None, nphi=32):
     return mt.make_kernel(h, rate=rate, nphi=nphi, polyorder=polyorder,
                           device="cpu")
+
+
+def _span(tile, nphi, delta_fx, T):
+    """Input samples a tile of ``tile`` outputs reads, at most."""
+    D = nphi << PHASE_FRAC_BITS
+    return (D - 1 + (tile - 1) * delta_fx) // D + T
+
+
+def _grouped_smem(tile, T, P1, nphi, delta_fx, xsz):
+    """A grouped block's shared bytes: the table by phase (rows of T*(P+1)
+    words in whole 16-byte loads), a double buffer of spans as stored
+    (xsz bytes a sample, rows in whole 16-byte chunks with room for a
+    first sample 15 bytes in) and one widened to float32 for a narrow
+    read, and the tile's outputs, a word of padding every 32."""
+    def up16(b):
+        return -(-b // 16) * 16
+
+    v = 16 // xsz
+    rows = -(-(_span(tile, nphi, delta_fx, T) + v - 1) // v) * v
+    b = up16(nphi * -(-T * P1 // 4) * 4 * 4) + 2 * up16(rows * xsz)
+    if xsz != 4:
+        b += up16(rows * 4)
+    return b + up16((tile + tile // 32) * 4)
 
 
 def _plan(p, n_out, C, x_dtype, table_dtype, time_major=False,
@@ -304,8 +329,7 @@ def test_plans_stay_inside_the_kernel_limits(taps, rate, dtypes):
                         _plan(p, n, C, *dtypes, tm, variant)
                     continue
                 plan = _plan(p, n, C, *dtypes, tm, variant)
-                span = rs._span(plan.tile, p.nphi, p.delta_fx,
-                                p.taps_per_phi)
+                span = _span(plan.tile, p.nphi, p.delta_fx, p.taps_per_phi)
                 if plan.variant.endswith(".grouped"):
                     # whole progressions of the stride, its threads in whole
                     # warps, a multiplier prime to it, one channel a block,
@@ -315,16 +339,15 @@ def test_plans_stay_inside_the_kernel_limits(taps, rate, dtypes):
                     assert plan.threads == -(-plan.stride // 32) * 32
                     assert math.gcd(plan.mult, plan.stride) == 1
                     assert plan.run == 1 and plan.channels == 1
-                    assert plan.smem == rs._smem_grouped(
+                    assert plan.smem == _grouped_smem(
                         plan.tile, 10, 5, p.nphi, p.delta_fx,
-                        dtypes[0].itemsize, 4) <= 110 * 1024
+                        dtypes[0].itemsize) <= 110 * 1024
                     assert variant or plan.tile >= 8 * plan.stride
                 else:
                     assert plan.stride == plan.mult == 0
                     assert 0 < plan.tile <= (256 if tm else 1024)
                 assert 0 < plan.grid <= 65535
-                assert plan.grid <= rs._ceil(n, plan.tile) * rs._ceil(
-                    C, plan.channels)
+                assert plan.grid <= -(-n // plan.tile) * -(-C // plan.channels)
                 assert 0 < plan.smem <= 226 * 1024
                 assert plan.run in (1, 2, 4, 8, 16)
                 assert plan.run == 1 or (plan.channels == 1

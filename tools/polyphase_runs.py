@@ -5,14 +5,15 @@ the headline's 3,528 taps: T = 24), with a clock64 split of each, and sweep
 at which it overtakes ``reg``.
 
 - The split: ``csrc/polyphase.cu`` built once more with
-  ``-DMR_POLYPHASE_CLOCKS`` (``build.load_polyphase``'s ``defines``), so
+  ``-DMR_POLYPHASE_CLOCKS`` (``build.load``'s ``defines``), so
   that every thread adds its clock64 intervals by part (``ClockPart``: the
   prologue, staging issued, the wait for a tile, the dot, the stores, the
   release; ``reg.tma``'s producer warp apart: its wait for a free buffer
   and its staging). Each part is printed as a share of its threads' clocks.
 - The sweeps: plans forced through ``polyphase.plan`` (as
   ``tools/resample_runs.py`` forces ``resample.plan``): ring depths 2-8 and
-  3-16 periods a thread at madi's call; one-channel calls of 2^12 to 2^23
+  3-16 periods a thread at madi's call (the planner library's, asked for
+  them through ``polyphase._plan``); one-channel calls of 2^12 to 2^23
   samples through ``reg`` and ``reg.tma``, for ``TMA_MIN_TILES``.
 
 Every forced plan's output must equal ``reg``'s bit for bit. Times: the
@@ -90,7 +91,7 @@ def main() -> int:
     shape = (24, 147, 160, args[-1], torch.float32, torch.float32, MADI[0])
     variants = ("reg",) if only_reg else ("reg", "reg.tma")
     out = {"madi": {}, "split": {}, "depth": {}, "launch": {}}
-    orig_plan, orig_load = pp.plan, pp.load_polyphase
+    orig_plan, orig_load = pp.plan, build.load
     try:
         want = pp.polyphase(*args, variant="reg")
         for v in variants:
@@ -102,11 +103,14 @@ def main() -> int:
             print(f"madi {v} {orig_plan(*shape, v)}: "
                   f"{out['madi'][v]:.4f} ms a call")
 
-        clocks = build.load_polyphase(("MR_POLYPHASE_CLOCKS",))
+        defines = ("MR_POLYPHASE_CLOCKS",)
+        clocks = orig_load("polyphase", pp.SIGNATURES, defines)
         clocks.mr_polyphase_clocks.argtypes = [np.ctypeslib.ndpointer(
             np.uint64, flags="C_CONTIGUOUS")]
         sums = np.zeros(len(PARTS), np.uint64)
-        pp.load_polyphase = lambda: clocks
+        # the wrapper's launches load the clock build
+        build.load = lambda name, sigs, d=(): orig_load(
+            name, sigs, defines if name == "polyphase" else d)
         for v in variants:
             clocks.mr_polyphase_clocks(sums)  # cleared
             ms = cs._time_ms(torch, lambda v=v: pp.polyphase(
@@ -125,15 +129,16 @@ def main() -> int:
                           f"{k} {100 * s:.1f}%"
                           for k, s in split[name].items()))
             out["split"][v] = split
-        pp.load_polyphase = orig_load
+        build.load = orig_load
 
         if not only_reg:
             for depth in DEPTHS:
                 out["depth"][depth] = {}
                 for per in PERIODS:
-                    forced = pp._tma_plan(*shape[:4], MADI[0], 4, 4, 4, 4,
-                                          depth=depth, periods=per)
-                    if forced is None:
+                    try:
+                        forced = pp._plan(*shape, "reg.tma", True, 0, depth,
+                                          per)
+                    except ValueError:  # the ring exceeds shared memory
                         continue
                     pp.plan = _forced(forced)
                     got = pp.polyphase(*args)
@@ -169,7 +174,7 @@ def main() -> int:
                       f"{row['reg.tma']:.4f} ms; planned "
                       f"{orig_plan(24, 147, 160, a[-1], torch.float32, torch.float32).variant}")
     finally:
-        pp.plan, pp.load_polyphase = orig_plan, orig_load
+        pp.plan, build.load = orig_plan, orig_load
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

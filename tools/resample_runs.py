@@ -5,7 +5,8 @@ at each number of outputs a thread a tile (8 to 32) beside the planned
 one.
 
 The planner picks the least run whose lanes' windows lie within 1/32
-sample of an odd number of samples apart, else 1 (``resample._run_of``);
+sample of an odd number of samples apart, else 1 (the planner library's
+``run_of``, ``csrc/mr_plan.cpp``);
 this sweep measures every run the kernel takes, on the main path's
 one-channel rows (``bench.py``'s bank at 1/2.123456789 and 0.4709, in
 float32 (arbitrary and Farrow at 1/2.123456789), float64 and the four
@@ -110,9 +111,8 @@ def main() -> int:
             planned = orig(*shape, False, base)  # the run path's plan
             want = rs.resample(*args, variant=base)
             ms = {}
-            for run in RUNS:
-                forced = planned._replace(
-                    run=run, threads=rs._threads(planned.tile, run, False))
+            for run in RUNS:  # the run path's plan at each run
+                forced = rs._plan(*shape, False, base, run)
                 rs.plan = lambda *a, _f=forced, **k: _f
                 got = rs.resample(*args)
                 torch.cuda.synchronize()
@@ -126,14 +126,10 @@ def main() -> int:
                     and dt == torch.float32):
                 g = orig(*shape, False, rs.GROUPED[base])
                 for r in ROWS_G:
-                    tile = g.stride * r
-                    smem = rs._smem_grouped(tile, p.taps_per_phi,
-                                            p.table.shape[0], p.nphi,
-                                            p.delta_fx, dt.itemsize, 4)
-                    if tile > rs._MAX_TILE_G or smem > rs._SMEM_LIMIT:
+                    try:  # the grouped plan at r outputs a thread a tile
+                        forced = rs._plan(*shape, False, g.variant, 0, r)
+                    except ValueError:  # past the tile or shared memory
                         continue
-                    forced = g._replace(tile=tile, smem=smem, grid=min(
-                        -(-n // tile), rs._MAX_GRID))
                     rs.plan = lambda *a, _f=forced, **k: _f
                     got = rs.resample(*args)
                     torch.cuda.synchronize()
