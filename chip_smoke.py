@@ -1120,8 +1120,9 @@ def phase_resample_slice(mt, torch, dev, rs):
           f"f32_tm {want[1]}")
     # every row through its compiled variant: T = 10, P+1 = 2 (arbitrary)
     # or 5 (Farrow); the whole block at 1/2.123456789 through its grouped
-    # path (243 outputs keep a phase), its chunks through the run path
-    want_v = {"f32/t10p2.grouped": 1, "f32/t10p2": n_chunks,
+    # path (243 outputs keep a phase) in its grouped.tma form (one float32
+    # channel), its chunks through the run path
+    want_v = {"f32/t10p2.grouped.tma": 1, "f32/t10p2": n_chunks,
               "f32/t10p5": 2 + n_chunks, "f32_tm/t10p5": 1}
     check(by_variant == want_v,
           f"variants launched {by_variant}, want {want_v}")
@@ -2870,8 +2871,8 @@ BENCH_VARIANTS = {
     "decim_1_4": "f32/bcast", "interp_4_1": "f32/slide",
     "interp_4_1_bf16out": "f32_bf16out/slide",
     "arbitrary_0.4709": "f32/t10p2",
-    "arbitrary_refrate": "f32/t10p2.grouped",
-    "farrow_refrate": "f32/t10p5.grouped", "farrow_0.4709": "f32/t10p5",
+    "arbitrary_refrate": "f32/t10p2.grouped.tma",
+    "farrow_refrate": "f32/t10p5.grouped.tma", "farrow_0.4709": "f32/t10p5",
     "farrow_64ch_batched": "f32/t10p5", "farrow_64ch_tmajor": "f32_tm/t10p5"}
 
 

@@ -241,17 +241,23 @@ constexpr int kMaxTileG = 8192;   // grouped: outputs a tile, at most
 constexpr size_t kSmemLimit = 226 * 1024;  // dynamic, beside the static
 constexpr size_t kTableSmemLimit = 96 * 1024;
 
+constexpr int kMaxStagesGT = 8;   // grouped.tma: ring stages, at most
+constexpr int kThreadsGT = kThreadsG + 32;  // grouped.tma: and a producer
+
 // Variants by the number the entry points take (ops/cuda/resample.py
 // VARIANTS), and the (T, P+1) each compiled one is built for with its
-// grouped one-channel path (-1: none): its COMPILED and GROUPED.
+// grouped one-channel paths (-1: none): its COMPILED, GROUPED and
+// GROUPED_TMA.
 enum Variant {
-  kGeneral = 0, kT10P2 = 1, kT10P5 = 2, kT73P2 = 3, kT10P2G = 4, kT10P5G = 5
+  kGeneral = 0, kT10P2 = 1, kT10P5 = 2, kT73P2 = 3, kT10P2G = 4, kT10P5G = 5,
+  kT10P2GT = 6, kT10P5GT = 7
 };
 struct Compiled {
-  int T, P1, variant, grouped;
+  int T, P1, variant, grouped, grouped_tma;
 };
-constexpr Compiled kCompiled[] = {
-    {10, 2, kT10P2, kT10P2G}, {10, 5, kT10P5, kT10P5G}, {73, 2, kT73P2, -1}};
+constexpr Compiled kCompiled[] = {{10, 2, kT10P2, kT10P2G, kT10P2GT},
+                                  {10, 5, kT10P5, kT10P5G, kT10P5GT},
+                                  {73, 2, kT73P2, -1, -1}};
 
 // Input samples a tile of ``tile`` outputs reads, at most (any first
 // remainder below D): the last window's offset from the first, plus T.
@@ -315,6 +321,29 @@ inline size_t grouped_smem_bytes(int tile, int T, int P1, uint32_t nphi,
   if (csz != xsz) b += round16(rows * csz);
   b += round16(((size_t)tile + tile / 32) * sizeof(float));
   return b;
+}
+
+// A grouped.tma block's shared memory, in order: each ring stage's full
+// and empty mbarriers and its tile's (r0, lead) (kMaxStagesGT of each), the
+// table by phase, ``depth`` stages of ``nb`` float32 samples (a tile's
+// span, after up to 3 samples of alignment, in whole 16-byte words), and
+// two output stages of ``tile`` floats (unpadded: the bulk store copies
+// one whole). Offsets in bytes, each 16-byte aligned.
+struct GroupedTmaGeom {
+  int nb;
+  size_t table_at, ring_at, out_at, smem;
+};
+constexpr size_t kStageHeaderGT = kMaxStagesGT * (8 + 8 + 16);
+
+MR_HD GroupedTmaGeom grouped_tma_geom(int tile, int T, int P1, uint32_t nphi,
+                                      uint64_t delta, int depth) {
+  GroupedTmaGeom g;
+  g.nb = row_samples((int)span_of(tile, T, nphi, delta), sizeof(float));
+  g.table_at = kStageHeaderGT;
+  g.ring_at = g.table_at + round16((size_t)nphi * table_row(T, P1) * 4);
+  g.out_at = g.ring_at + (size_t)depth * g.nb * sizeof(float);
+  g.smem = g.out_at + 2 * round16((size_t)tile * sizeof(float));
+  return g;
 }
 
 }  // namespace resample

@@ -167,6 +167,15 @@ constexpr int kRuns[] = {2, 4, 8, 16};  // neighbouring outputs, past 1
 constexpr size_t kSmemTargetG = 110 * 1024;
 constexpr int64_t kSliverG = 1 << 20;
 constexpr int kMinRowsG = 8;
+// grouped.tma: outputs a thread a tile, at most (tiles of whole 16-byte
+// words: a multiple of 4), and ring stages. The fastest of a sweep on the
+// H100 (PERF.md). It takes every call the grouped path would take, within
+// the same shared bytes a block: no tile threshold (the sweep's launch
+// sizes found it no slower at any)
+constexpr int kRowsGT = 16, kDepthGT = 2;
+// what a tile costs a block beyond its outputs (its wait, barrier and
+// store), in outputs a thread: a fit of the sweep's tiles of 8, 12 and 16
+constexpr int kStepRowsGT = 1;
 
 // Whether outputs m apart have windows within 1/32 sample of an odd whole
 // number of samples apart: then 32 lanes m outputs apart load window words
@@ -205,6 +214,32 @@ int mult_of(int stride, int64_t D, int64_t delta) {
   return 1;
 }
 
+// Outputs between neighbouring lanes' progressions where a tile's outputs
+// sit unpadded in shared memory (grouped.tma): the least m prime to the
+// stride whose warps' lanes put their outputs (j mod 32) and their windows'
+// first words (j*delta/D mod 32) fewest to a bank, summed over the warps.
+int tma_mult_of(int stride, int64_t D, int64_t delta) {
+  int best = 1, best_cost = INT32_MAX;
+  for (int m = 1; m < stride; ++m) {
+    if (mr::gcd(m, stride) != 1) continue;
+    int cost = 0;
+    for (int w = 0; w * 32 < stride; ++w) {
+      int outs[32] = {}, wins[32] = {}, most_o = 0, most_w = 0;
+      for (int i = w * 32; i < min(stride, w * 32 + 32); ++i) {
+        const int64_t j = (int64_t)i * m % stride;
+        most_o = max(most_o, ++outs[j % 32]);
+        most_w = max(most_w, ++wins[j * delta / D % 32]);
+      }
+      cost += most_o + most_w;
+    }
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = m;
+    }
+  }
+  return best;
+}
+
 // The grouped path's plan: its stride, multiplier and the largest tile of
 // whole progressions that gives the card kFill work items within two
 // blocks' shared memory an SM; false where the rate has no stride or a
@@ -236,8 +271,60 @@ bool grouped_plan(int variant, int64_t n_out, int64_t groups, int T, int P1,
   const int64_t p[] = {variant, tile, 1, 1,
                        min(ceil_div(n_out, tile) * groups, mr::kMaxGridX),
                        (stride + 31) / 32 * 32, (int64_t)smem(), stride,
-                       mult_of(stride, D, delta)};
-  std::copy(p, p + 9, out);
+                       mult_of(stride, D, delta), 0};
+  std::copy(p, p + 10, out);
+  return true;
+}
+
+// The grouped.tma plan of a one-channel call: the grouped path's stride
+// (256 where none keeps the phase, if ``forced``), and the outputs a thread
+// a tile, a multiple of 4 up to kRowsGT, that cuts each of kFill blocks'
+// even share of the call in the tiles that cost it least (each its rows
+// and kStepRowsGT; a short last tile costs a block nearly a whole one; the
+// larger on a tie), in a ring of kDepthGT stages; false where the rate has no
+// stride, the grouped path would not take the call (kMinRowsG outputs a
+// thread in kFill tiles) or the block's shared memory passes kSmemTargetG
+// (unless ``forced``: then from 4 outputs a thread, up to the limits).
+// ``rows_set`` and
+// ``depth_set`` > 0 set the outputs a thread a tile and the stages
+// (tools/resample_runs.py's sweeps).
+bool grouped_tma_plan(int variant, int64_t n_out, int T, int P1, int nphi,
+                      int64_t delta, bool forced, int rows_set, int depth_set,
+                      int64_t* out) {
+  const int64_t D = (int64_t)nphi << 32;
+  int stride = stride_of(D, delta);
+  if (!stride && !forced) return false;
+  if (!stride) stride = rs::kThreadsG;
+  const int depth = depth_set > 0 ? depth_set : kDepthGT;
+  // the grouped path's own condition: kMinRowsG outputs a thread in each
+  // of kFill tiles
+  const bool fills = (n_out - 1) / (kFill - 1) / stride >= kMinRowsG;
+  if (!fills && !forced) return false;
+  int rows = rows_set;
+  if (rows <= 0) {
+    const int64_t share = ceil_div(ceil_div(n_out, 4), kFill) * 4;
+    int64_t least = INT64_MAX;
+    for (int r = fills ? kMinRowsG : 4; r <= kRowsGT; r += 4) {
+      const int64_t cost =
+          ceil_div(share, (int64_t)stride * r) * (r + kStepRowsGT);
+      if (cost <= least) {
+        least = cost;
+        rows = r;
+      }
+    }
+  }
+  const int tile = stride * rows;
+  const size_t smem =
+      rs::grouped_tma_geom(tile, T, P1, nphi, delta, depth).smem;
+  if (tile % 4 || tile > rs::kMaxTileG || depth < 2 ||
+      depth > rs::kMaxStagesGT ||
+      smem > (forced ? rs::kSmemLimit : kSmemTargetG))
+    return false;
+  const int64_t p[] = {variant, tile, 1, 1,
+                       min(ceil_div(n_out, tile), mr::kMaxGridX),
+                       (stride + 31) / 32 * 32 + 32, (int64_t)smem, stride,
+                       tma_mult_of(stride, D, delta), depth};
+  std::copy(p, p + 10, out);
   return true;
 }
 }  // namespace
@@ -281,32 +368,41 @@ int mr_polyphase_plan(int T, int L, int M, int64_t n_out, int64_t channels,
 // plan() as numbers): the sizes of a stored sample, table word and
 // accumulator; whether the samples are a narrow read (staged widened to
 // float32); whether the call may take a grouped path (a float32 table,
-// float32 or narrow samples); ``variant`` by number or -1. ``run_set`` and
-// ``rows_set``, when positive, set the run path's outputs a thread and the
-// grouped path's outputs a thread a tile (the sweeps of
+// float32 or narrow samples; grouped.tma: float32 samples, one channel);
+// ``variant`` by number or -1. ``run_set``, ``rows_set`` and ``depth_set``,
+// when positive, set the run path's outputs a thread, a grouped path's
+// outputs a thread a tile and grouped.tma's ring stages (the sweeps of
 // tools/resample_runs.py). Writes (variant, tile, channels, run, grid,
-// threads, smem, stride, mult) to ``out`` and returns 0; -1 where the named
-// variant cannot take the call, -2 where no grouped tile fits a span, -3
-// where one output's window exceeds shared memory.
+// threads, smem, stride, mult, depth) to ``out`` and returns 0; -1 where
+// the named variant cannot take the call, -2 where no grouped tile fits a
+// span, -3 where one output's window exceeds shared memory.
 int mr_resample_plan(int T, int P1, int nphi, int64_t delta, int64_t n_out,
                      int64_t C, int xsz, int wsz, int asz, int narrow,
                      int grouped_ok, int time_major, int variant, int run_set,
-                     int rows_set, int64_t* out) {
+                     int rows_set, int depth_set, int64_t* out) {
   const size_t csz = narrow ? 4 : xsz;  // staged widened to float32
   const bool table_smem = (size_t)P1 * T * nphi * wsz <= rs::kTableSmemLimit;
   const int cb = time_major ? rs::kLanes : (C >= rs::kGroupCM ? rs::kGroupCM
                                                                 : 1);
-  int auto_v = -1, grouped = -1;  // the compiled pair's, if any
+  int auto_v = -1, grouped = -1, tma = -1;  // the compiled pair's, if any
   for (const rs::Compiled& k : rs::kCompiled)
     if (table_smem && k.T == T && k.P1 == P1) {
       auto_v = k.variant;
       grouped = cb == 1 && grouped_ok ? k.grouped : -1;
+      tma = grouped >= 0 && C == 1 && xsz == 4 && !narrow ? k.grouped_tma
+                                                          : -1;
     }
   const int64_t groups = ceil_div(C, cb);
   n_out = max<int64_t>(n_out, 1);
   if (variant >= 0 && variant != rs::kGeneral && variant != auto_v &&
-      variant != grouped)
+      variant != grouped && variant != tma)
     return -1;
+  if (tma >= 0 && (variant < 0 || variant == tma)) {
+    if (grouped_tma_plan(tma, n_out, T, P1, nphi, delta, variant >= 0,
+                         rows_set, depth_set, out))
+      return 0;
+    if (variant >= 0) return -2;
+  }
   if (grouped >= 0 && (variant < 0 || variant == grouped)) {
     if (grouped_plan(grouped, n_out, groups, T, P1, nphi, delta, xsz, csz,
                      variant >= 0, rows_set, out))
@@ -329,8 +425,8 @@ int mr_resample_plan(int T, int P1, int nphi, int64_t delta, int64_t n_out,
       variant >= 0 ? variant : (auto_v >= 0 ? auto_v : rs::kGeneral), tile,
       cb, run, min(ceil_div(n_out, tile) * groups, mr::kMaxGridX),
       rs::block_threads(tile, run, time_major), (int64_t)smem(tile, run), 0,
-      0};
-  std::copy(p, p + 9, out);
+      0, 0};
+  std::copy(p, p + 10, out);
   return 0;
 }
 

@@ -145,12 +145,14 @@
 
 #include "geometry.cuh"
 #include "mac.cuh"
+#include "pipeline.cuh"
 
 namespace {
 
 using mr::mac;
 using mr::widen;
 using namespace mr::polyphase;
+using namespace mr::pipe;
 using mr::kMaxGridX;
 using mr::launch_kernel;
 using mr::round16;
@@ -289,62 +291,8 @@ __device__ __forceinline__ int stage_raw(X* raw, const X* hc, const X* xc,
   return 0;
 }
 
-// The producer-fed variant's ring: mbarriers (mbarrier.* and cp.async.bulk,
-// sm_90). ``full`` completes when a buffer's samples have landed (the
-// producer warp's 32 arrivals and the bulk copy's bytes), ``empty`` when
-// every consumer warp has read it.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
-          "r"(smem_addr(bar))
-      : "memory");
-}
-// arrive, and expect ``bytes`` more from a bulk copy before the phase ends
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// one bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into shared memory, completing on ``bar``
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// A clock split of the reg and reg.tma kernels for tools/polyphase_runs.py,
-// which builds this source with -DMR_POLYPHASE_CLOCKS: each thread then adds
-// its clock64 intervals, by part, to mr_clocks (read and cleared by
-// mr_polyphase_clocks). Without the define the macros are empty.
+// The clock split of the reg and reg.tma kernels (pipeline.cuh's macros,
+// built with -DMR_CLOCKS by tools/polyphase_runs.py; mr_polyphase_clocks).
 enum ClockPart {
   kClkTaps = 0,     // the prologue: taps into registers, barriers set up
   kClkStage = 1,    // staging issued (reg: cp.async; reg.tma: the producer)
@@ -355,32 +303,8 @@ enum ClockPart {
   kClkFree = 6,     // reg.tma's producer waiting for a free buffer
   kClockParts = 7
 };
-#ifdef MR_POLYPHASE_CLOCKS
+#ifdef MR_CLOCKS
 __device__ unsigned long long mr_clocks[kClockParts];
-#define MR_CLOCK_BEGIN            \
-  long long clk_[kClockParts] = {}; \
-  long long clk_at_ = clock64()
-#define MR_CLOCK(part)                 \
-  do {                                 \
-    const long long t_ = clock64();    \
-    clk_[part] += t_ - clk_at_;        \
-    clk_at_ = t_;                      \
-  } while (0)
-#define MR_CLOCK_END                                                    \
-  do {                                                                  \
-    for (int p_ = 0; p_ < kClockParts; ++p_)                            \
-      if (clk_[p_]) atomicAdd(&mr_clocks[p_], (unsigned long long)clk_[p_]); \
-  } while (0)
-#else
-#define MR_CLOCK_BEGIN \
-  do {                 \
-  } while (0)
-#define MR_CLOCK(part) \
-  do {                 \
-  } while (0)
-#define MR_CLOCK_END \
-  do {               \
-  } while (0)
 #endif
 
 // ---------------------------------------------------------------- general
@@ -671,7 +595,7 @@ polyphase_reg_tma(const X* __restrict__ x, const X* __restrict__ hist,
       mbar_init(full + s, 32);
       mbar_init(empty + s, consumers / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -1147,7 +1071,7 @@ MR_POLYPHASE(i64, int64_t, int64_t, int64_t)
 
 #undef MR_POLYPHASE
 
-#ifdef MR_POLYPHASE_CLOCKS
+#ifdef MR_CLOCKS
 // The clock split's sums by ClockPart (kClockParts of them) into ``out``,
 // then zeroed; returns a cudaError_t code.
 int mr_polyphase_clocks(unsigned long long* out) {

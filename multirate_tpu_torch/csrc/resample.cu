@@ -119,10 +119,40 @@
 //   registers and reads only T window words an output. The host picks the
 //   path (plan()): where no stride up to 256 keeps the phase, or the call
 //   gives a thread fewer than 8 outputs a tile, the runs above serve it.
-//   What bounds it now is issue: ~70 instructions an output (the same
-//   T*(P+1) Horner FMAs and T multiply-adds as every variant, the digit
-//   walk, the window loads) at about half the SM's issue rate, with two
-//   blocks of 8 warps an SM (PERF.md); device memory comes next.
+//   Its threads also stage the next span (cp.async) and copy the outputs
+//   out, across three block barriers a tile: at capture's 2^26-sample call
+//   a clock64 split gave the dot 53-56% of the clocks, the staging and its
+//   barrier 25-27%, the copy-out 15-16%, and the call 0.194-0.196 ms
+//   against its 117.6-us bytes bound (tools/resample_runs.py, PERF.md).
+//   Narrow reads and calls of 2-7 channels keep it.
+// - Grouped.tma (the grouped path's one-channel float32 calls;
+//   resample_grouped_tma_kernel): the same outputs, by the same threads'
+//   progressions, digit walk, table registers, Horner and mac order, with
+//   the data movement taken off those threads. Each persistent block takes
+//   an even share of the call's outputs; one producer warp fills a ring of
+//   stages with one bulk copy a tile (cp.async.bulk, completing on the
+//   stage's mbarrier; the history and the ends that are not whole 16-byte
+//   words stored by its lanes), the consumer warps wait on "full" and
+//   release "empty", write a tile's outputs unpadded to an output stage
+//   (lanes 7 outputs apart put them, and their windows' first words, on
+//   nearly 32 banks) and, after one named barrier among themselves, one
+//   idle consumer lane stores the tile with one bulk store, waited on only
+//   before that stage is written again. No block barrier is left in the
+//   tile loop. Tiles of 8, 12 or 16 outputs a thread, whichever splits a
+//   block's share of the call most cheaply (a tile costs about one more
+//   output a thread than its work, and a short last tile nearly a whole
+//   one: 16 at capture's call, 12 at the 8 M rows), in a ring of 2, two
+//   blocks of 288 threads an SM (92 registers): capture's call takes
+//   0.1516-0.1522 ms (-22%), ~77% of its bytes bound, and the Farrow 8 M
+//   row 0.0278-0.0283 ms (-17%). What bounds it now is no one unit: the
+//   arbitrary table's calls (P+1 = 2, 60% fewer multiply-adds) take as long
+//   at capture's size, so the dot is mostly hidden and the rest is the
+//   memory pipeline (~2.6 TB/s moved of 3.35). The sweep
+//   (tools/resample_runs.py --tma) found slower: rings of 3-6 or tiles of
+//   20-24 outputs a thread (one block an SM: +20-35%), two outputs of a
+//   phase interleaved in one thread (+6%), Horner level by level across the
+//   taps (+3%), blocks taking whole tiles rather than even shares (+3% at
+//   16 outputs a thread), and a lane multiplier of 8 (+0-9%).
 // - Tiles sized by the host so the grid fills the card (2 x 132 work items
 //   where there are outputs enough) and a block's shared memory stays near
 //   64 KB; blocks persist, at most as many as the card holds at once, and
@@ -152,11 +182,13 @@
 
 #include "geometry.cuh"
 #include "mac.cuh"
+#include "pipeline.cuh"
 
 namespace {
 
 using mr::mac;
 using namespace mr::resample;
+using namespace mr::pipe;
 using mr::gcd;
 using mr::kMaxGridX;
 using mr::launch_kernel;
@@ -180,6 +212,23 @@ template <> struct Sum<double, double2> { using type = double2; };
 constexpr int kErrTooLarge = -1;
 constexpr int kErrBadPlan = -2;
 constexpr float kTwoPowMinus32 = 2.3283064365386963e-10f;  // exactly 2^-32
+
+// The clock split of the grouped and grouped.tma kernels (pipeline.cuh's
+// macros, built with -DMR_CLOCKS by tools/resample_runs.py;
+// mr_resample_clocks).
+enum ClockPart {
+  kClkTable = 0,    // the prologue: the table by phase, barriers set up
+  kClkStage = 1,    // staging (grouped: cp.async issued; tma: the producer)
+  kClkWait = 2,     // waiting for a tile's samples (grouped: and a barrier)
+  kClkDot = 3,      // the outputs: walk, taps, multiply-adds, shared stores
+  kClkBarrier = 4,  // the tile's outputs all written (the block's barrier)
+  kClkStore = 5,    // the outputs stored (grouped: copied out by threads)
+  kClkFree = 6,     // grouped.tma's producer waiting for a free stage
+  kClockParts = 7
+};
+#ifdef MR_CLOCKS
+__device__ unsigned long long mr_clocks[kClockParts];
+#endif
 
 // (q, r) = divmod(u0 + n0*delta, nphi << 32), exact for a sum below 2^96.
 __device__ __forceinline__ void tile_base(uint64_t n0, uint64_t delta,
@@ -560,6 +609,42 @@ resample_kernel(const XR* __restrict__ x, const XR* __restrict__ hist,
   }
 }
 
+// One grouped output: its taps by eval_tap's Horner over alpha (of the
+// 32-bit fraction fr) from its phase's table words tab (row p*kT + t), then
+// mac over t = 0..kT-1 of the window wx into one float.
+template <int kT, int kP1, int kRow>
+__device__ __forceinline__ float grouped_dot(const float (&tab)[kRow],
+                                             uint32_t fr, const float* wx) {
+  float alpha;
+  to_alpha(fr, &alpha);
+  float acc = mr::zero<float>();
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+    float tap = tab[(kP1 - 1) * kT + t];
+#pragma unroll
+    for (int q = kP1 - 2; q >= 0; --q)
+      tap = horner(tap, alpha, tab[q * kT + t]);
+    acc = mac(acc, wx[t], tap);
+  }
+  return acc;
+}
+
+// A phase's row of the table by phase (kRow words, 16-byte aligned) into
+// registers.
+template <int kRow>
+__device__ __forceinline__ void load_row(float (&tab)[kRow],
+                                         const float* row) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int i = 0; i < kRow / 4; ++i) {
+    const float4 v = r4[i];
+    tab[4 * i] = v.x;
+    tab[4 * i + 1] = v.y;
+    tab[4 * i + 2] = v.z;
+    tab[4 * i + 3] = v.w;
+  }
+}
+
 // The grouped one-channel path (variants t10p2.grouped, t10p5.grouped):
 // float32 tables and float32 or narrow-read samples, channel-major blocks
 // of one channel, at a rate with a phase-preserving stride: K outputs whose
@@ -616,6 +701,7 @@ resample_grouped_kernel(const XR* __restrict__ x,
   int64_t w = blockIdx.x * per + min((int64_t)blockIdx.x, extra);
   const int64_t w_end = w + per + (blockIdx.x < extra);
   if (w >= w_end) return;
+  MR_CLOCK_BEGIN;
   const int tid = (int)threadIdx.x;
   // the table by phase: row phi holds table[p, t, phi] at p*kT + t
   for (int i = tid; i < kP1 * kT * nphi_; i += blockDim.x) {
@@ -644,6 +730,7 @@ resample_grouped_kernel(const XR* __restrict__ x,
   cp_async_commit();
   uint32_t cur_phi = 0xffffffffu;
   float tab[kRow];
+  MR_CLOCK(kClkTable);
   for (int cur = 0; w < w_end; ++w, cur ^= 1) {
     if (tid == 0 && w + 1 < w_end) base_of(w + 1, cur ^ 1);
     // the other buffer's and the outputs' last readers are done; the next
@@ -658,6 +745,7 @@ resample_grouped_kernel(const XR* __restrict__ x,
     const int64_t n0 = (w - g * n_tiles) * tile;
     const int nt = (int)(n_out - n0 < tile ? n_out - n0 : tile);
     const uint64_t r0 = s_base[cur][1];
+    MR_CLOCK(kClkStage);
     cp_async_wait_one();  // this item's span has landed (the next may not)
     __syncthreads();
     const X* xw;
@@ -669,45 +757,205 @@ resample_grouped_kernel(const XR* __restrict__ x,
     } else {
       xw = buf0 + cur * buf_stride + lead_cur;
     }
+    MR_CLOCK(kClkWait);
     if (runs) {
       Pos p = add(Pos{0, (uint32_t)(r0 >> 32), (uint32_t)r0}, d_first, nphi);
       for (int r = 0, j = j0; r < rows && j < nt; ++r, j += stride) {
         if (p.phi != cur_phi) {  // once a block, and where the sliver carries
           cur_phi = p.phi;
-          const float4* row =
-              reinterpret_cast<const float4*>(s_tab + cur_phi * kRow);
-#pragma unroll
-          for (int i = 0; i < kRow / 4; ++i) {
-            const float4 v = row[i];
-            tab[4 * i] = v.x;
-            tab[4 * i + 1] = v.y;
-            tab[4 * i + 2] = v.z;
-            tab[4 * i + 3] = v.w;
-          }
+          load_row(tab, s_tab + cur_phi * kRow);
         }
-        float alpha;
-        to_alpha(p.fr, &alpha);
-        const X* const wx = xw + p.off;
-        float acc = mr::zero<float>();
-#pragma unroll
-        for (int t = 0; t < kT; ++t) {
-          float tap = tab[(kP1 - 1) * kT + t];
-#pragma unroll
-          for (int q = kP1 - 2; q >= 0; --q)
-            tap = horner(tap, alpha, tab[q * kT + t]);
-          acc = mac(acc, wx[t], tap);
-        }
-        s_y[j + (j >> 5)] = acc;
+        s_y[j + (j >> 5)] = grouped_dot<kT, kP1>(tab, p.fr, xw + p.off);
         p = add(p, d_step, nphi);
       }
     }
+    MR_CLOCK(kClkDot);
     __syncthreads();  // every output of the tile is written
+    MR_CLOCK(kClkBarrier);
     Out* const yt = y + g * n_out + n0;
 #pragma unroll 4
     for (int i = tid; i < nt; i += blockDim.x)
       yt[i] = mr::narrow<Out>(s_y[i + (i >> 5)]);
     lead_cur = lead_next;
+    MR_CLOCK(kClkStore);
   }
+  MR_CLOCK_END;
+}
+
+// The grouped path fed by a producer warp (variants t10p2.grouped.tma,
+// t10p5.grouped.tma): the grouped path's float32 calls of one channel.
+// Each block persists and takes an even share of the call's outputs (whole
+// 16-byte words), in tiles from its first output. Its last warp is the
+// producer: for each tile it waits for a free ring stage, forms the tile's
+// base, stores by hand what no bulk copy can bring (history samples, the
+// words before the first 16-byte boundary of x, the last partial word and
+// zeros past x's end) and starts one bulk copy of the rest, completing on
+// the stage's full barrier. Stage word 0 is xext sample start = e0 - lead,
+// where e0 is the tile's first window and lead (0-3) puts x[start - H] at
+// a 16-byte boundary. The consumer warps wait on the full barrier, run the
+// grouped path's per-output work unchanged (the same progressions, digit
+// walk, table words in registers, Horner and mac order) into an output
+// stage, and release the ring stage on its empty barrier (an arrival a
+// warp). Once a named barrier among the consumers has seen a tile's outputs
+// written, one thread (the last consumer, idle where the stride leaves
+// lanes over) stores them with one bulk store (a bulk group), which it
+// waits on only before that output stage is written again, two tiles
+// later. No block barrier remains in the tile loop.
+template <int kT, int kP1>
+__global__ void __launch_bounds__(kThreadsGT, 2)
+resample_grouped_tma_kernel(const float* __restrict__ x,
+                            const float* __restrict__ hist,
+                            const float* __restrict__ table,
+                            float* __restrict__ y, int64_t xlen, int nphi_,
+                            uint64_t delta, uint64_t u0, int64_t d0,
+                            int64_t n_out, int tile, int stride, int mult,
+                            int depth) {
+  constexpr int kRow = table_row(kT, kP1);
+  constexpr int H = kT - 1;
+  struct StageInfo {  // 16 bytes (kStageHeaderGT)
+    uint64_t r0;        // the tile's first remainder
+    int lead;           // stage word of its first window
+  };
+  const uint32_t nphi = (uint32_t)nphi_;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const GroupedTmaGeom geo =
+      grouped_tma_geom(tile, kT, kP1, nphi, delta, depth);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* const empty = full + kMaxStagesGT;
+  StageInfo* const info = reinterpret_cast<StageInfo*>(empty + kMaxStagesGT);
+  float* const s_tab = reinterpret_cast<float*>(smem_raw + geo.table_at);
+  float* const ring = reinterpret_cast<float*>(smem_raw + geo.ring_at);
+  float* const s_out = reinterpret_cast<float*>(smem_raw + geo.out_at);
+  const int nb = geo.nb;
+  // this block's outputs: an even share of the call's 16-byte words, a
+  // contiguous run, in tiles from its first (the last one short)
+  const int64_t words = (n_out + 3) / 4;
+  const int64_t b0 = 4 * (words * blockIdx.x / gridDim.x);
+  const int64_t b1 = min(n_out, 4 * (words * (blockIdx.x + 1) / gridDim.x));
+  if (b0 >= b1) return;
+  const int64_t n_tiles = (b1 - b0 + tile - 1) / tile;
+  MR_CLOCK_BEGIN;
+  const int tid = (int)threadIdx.x;
+  const int consumers = (int)blockDim.x - 32;  // whole warps
+  for (int i = tid; i < kP1 * kT * nphi_; i += blockDim.x) {
+    const int pt = i / nphi_;
+    s_tab[(i - pt * nphi_) * kRow + pt] = table[i];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, consumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  MR_CLOCK(kClkTable);
+
+  if (tid >= consumers) {  // the producer warp
+    const int lane = tid - consumers;
+    // x[k] lies at a 16-byte boundary where (xm + k) % 4 == 0
+    const int xm = (int)(((uintptr_t)x >> 2) & 3);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int64_t k = 0; k < n_tiles; ++k) {
+      mbar_wait(empty + stage, phase ^ 1);
+      MR_CLOCK(kClkFree);
+      uint64_t q = 0, r = 0;
+      if (lane == 0)
+        tile_base((uint64_t)(b0 + k * tile), delta, u0, nphi, &q, &r);
+      q = __shfl_sync(0xffffffffu, (unsigned long long)q, 0);
+      const int64_t e0 = d0 - 1 + (int64_t)q;
+      const int lead = (int)(((xm + e0 - H) % 4 + 4) % 4);
+      const int64_t start = e0 - lead;
+      float* const buf = ring + (size_t)stage * nb;
+      // stage word j is xext sample start + j: [jx0, jx1) lies in x, of
+      // which [jb0, jb1) goes by the bulk copy, in whole 16-byte words
+      const int64_t a0 = H - start, a1 = H + xlen - start;
+      const int jx0 = (int)(a0 < 0 ? 0 : (a0 > nb ? nb : a0));
+      const int jx1 = (int)(a1 < jx0 ? jx0 : (a1 > nb ? nb : a1));
+      const int jb1 = jx1 & ~3;
+      const int jb0 = min((jx0 + 3) & ~3, jb1);
+      auto sample = [&](int j) {
+        const int64_t e = start + j;
+        return e < 0 ? 0.0f : (e < H ? hist[e] : (e - H < xlen ? x[e - H]
+                                                               : 0.0f));
+      };
+      for (int j = lane; j < jb0; j += 32) buf[j] = sample(j);
+      for (int j = jb1 + lane; j < nb; j += 32) buf[j] = sample(j);
+      if (lane == 0) info[stage] = StageInfo{r, lead};
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t bytes = (uint32_t)(jb1 - jb0) * sizeof(float);
+        mbar_arrive_tx(full + stage, bytes);
+        if (bytes)
+          bulk_copy(buf + jb0, x + (start + jb0 - H), bytes, full + stage);
+      } else {
+        mbar_arrive(full + stage);
+      }
+      MR_CLOCK(kClkStage);
+      if (++stage == depth) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    MR_CLOCK_END;
+    return;
+  }
+
+  const int lane = tid & 31;
+  const int shift = (nphi & (nphi - 1)) == 0 ? __ffs(nphi_) - 1 : -1;
+  const bool runs = tid < stride;  // lanes past the stride only arrive
+  const int j0 = (int)((int64_t)tid * mult % stride);  // its first output
+  const int rows = tile / stride;
+  // the bulk stores' thread: the last consumer, idle where the stride
+  // leaves lanes over
+  const int storer = consumers - 1;
+  const Digits d_first = split((uint64_t)j0 * delta, nphi, shift);
+  const Digits d_step = split((uint64_t)stride * delta, nphi, shift);
+  uint32_t cur_phi = 0xffffffffu;
+  float tab[kRow];
+  int stage = 0, ob = 0;
+  uint32_t phase = 0;
+  for (int64_t k = 0; k < n_tiles; ++k, ob ^= 1) {
+    mbar_wait(full + stage, phase);
+    MR_CLOCK(kClkWait);
+    const uint64_t r0 = info[stage].r0;
+    const float* const xw = ring + (size_t)stage * nb + info[stage].lead;
+    const int64_t n0 = b0 + k * tile;
+    const int nt = (int)(b1 - n0 < tile ? b1 - n0 : tile);
+    float* const so = s_out + (size_t)ob * tile;
+    if (runs) {
+      Pos p = add(Pos{0, (uint32_t)(r0 >> 32), (uint32_t)r0}, d_first, nphi);
+      for (int r = 0, j = j0; r < rows && j < nt; ++r, j += stride) {
+        if (p.phi != cur_phi) {  // once a block, and where the sliver carries
+          cur_phi = p.phi;
+          load_row(tab, s_tab + cur_phi * kRow);
+        }
+        so[j] = grouped_dot<kT, kP1>(tab, p.fr, xw + p.off);
+        p = add(p, d_step, nphi);
+      }
+    }
+    __syncwarp();  // the warp's reads of the stage are done
+    if (lane == 0) mbar_arrive(empty + stage);
+    MR_CLOCK(kClkDot);
+    fence_async_shared();  // this thread's outputs, for the bulk store
+    if (tid == storer) bulk_wait_read();  // the last tile's store has read
+    named_sync(1, consumers);  // its stage; every output is written
+    MR_CLOCK(kClkBarrier);
+    if (tid == storer) {
+      const int whole = nt & ~3;  // in 16-byte words; the rest by hand
+      if (whole) bulk_store(y + n0, so, (uint32_t)whole * sizeof(float));
+      bulk_commit();
+      for (int i = whole; i < nt; ++i) y[n0 + i] = so[i];
+    }
+    MR_CLOCK(kClkStore);
+    if (++stage == depth) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  if (tid == storer) bulk_wait();  // the stores have completed
+  MR_CLOCK_END;
 }
 
 // One variant's launch on the plan (tile, cb, run, grid); kT = kP1 = 0 is the
@@ -788,13 +1036,43 @@ int launch_grouped(const void* x, const void* hist, const void* table,
                        (int)span, n_tiles, stride, mult);
 }
 
+// A grouped.tma launch (t10p2.grouped.tma, t10p5.grouped.tma) on the plan
+// (tile, cb, run, grid, stride, mult, depth): the grouped plan's checks,
+// one channel, tiles of whole 16-byte words (the bulk store's), a ring of
+// 2 to kMaxStagesGT stages, and y at a 16-byte boundary.
+template <int kT, int kP1>
+int launch_grouped_tma(const float* x, const float* hist, const float* table,
+                       float* y, int64_t C, int64_t xlen, int T, int nphi,
+                       int P1, uint64_t delta, uint64_t u0, int64_t d0,
+                       int64_t n_out, int tile, int cb, int run, int64_t grid,
+                       int stride, int mult, int depth, cudaStream_t stream) {
+  if (T != kT || P1 != kP1 || cb != 1 || run != 1 || C != 1) return kErrBadPlan;
+  if (stride < 1 || stride > kThreadsG || mult < 1 || tile < stride ||
+      tile > kMaxTileG || tile % stride || tile % 4)
+    return kErrBadPlan;
+  if (gcd(stride, mult % stride) != 1 || depth < 2 || depth > kMaxStagesGT)
+    return kErrBadPlan;
+  if ((size_t)P1 * T * nphi * sizeof(float) > kTableSmemLimit ||
+      ((uintptr_t)y & 15))
+    return kErrBadPlan;
+  const int64_t n_tiles = (n_out + tile - 1) / tile;
+  if (grid < 1 || grid > kMaxGridX || grid > n_tiles) return kErrBadPlan;
+  const size_t smem =
+      grouped_tma_geom(tile, T, P1, (uint32_t)nphi, delta, depth).smem;
+  if (smem > kSmemLimit) return kErrTooLarge;
+  const int threads = (stride + 31) / 32 * 32 + 32;
+  return launch_kernel(resample_grouped_tma_kernel<kT, kP1>, (unsigned)grid,
+                       threads, smem, true, stream, x, hist, table, y, xlen,
+                       nphi, delta, u0, d0, n_out, tile, stride, mult, depth);
+}
+
 // Launch on x (C, xlen) -> y (C, n_out), or time-major x (xlen, C) ->
 // y (n_out, C), by the plan's variant; see the extern "C" entries.
 template <typename XR, typename W, typename Out, bool kTM>
 int launch(const void* x, const void* hist, const void* table, void* y,
            int64_t C, int64_t xlen, int T, int nphi, int P1, uint64_t delta,
            uint64_t u0, int64_t d0, int64_t n_out, int variant, int tile,
-           int cb, int run, int64_t grid, int stride, int mult,
+           int cb, int run, int64_t grid, int stride, int mult, int depth,
            void* stream) {
   if (C <= 0 || n_out <= 0) return cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -826,6 +1104,19 @@ int launch(const void* x, const void* hist, const void* table, void* y,
                          d0, n_out, tile, cb, run, grid, stride, mult, s);
       }
       return kErrBadPlan;
+    case kT10P2GT:
+    case kT10P5GT:
+      // float32 samples and tables, float32 outputs, channel-major
+      if constexpr (!kTM && std::is_same<XR, float>::value &&
+                    std::is_same<W, float>::value &&
+                    std::is_same<Out, float>::value) {
+        auto go = variant == kT10P2GT ? launch_grouped_tma<10, 2>
+                                      : launch_grouped_tma<10, 5>;
+        return go((const float*)x, (const float*)hist, (const float*)table,
+                  (float*)y, C, xlen, T, nphi, P1, delta, u0, d0, n_out, tile,
+                  cb, run, grid, stride, mult, depth, s);
+      }
+      return kErrBadPlan;
     default:
       return kErrBadPlan;
   }
@@ -841,14 +1132,15 @@ extern "C" {
 // on the current device. The caller guarantees 0 < nphi << 32 < 2^44,
 // 0 < delta < 2^44, u0 + n_out*delta < 2^96, d0 >= 1, and that every
 // window lies inside [history ++ x]: d0 + (u0 + (n_out-1)*delta) / D <=
-// xlen. (variant, tile, cb, run, grid, stride, mult) is the launch's plan
-// (mr_plan.cpp, through ops/cuda/resample.py plan()): the variant (0
-// general, 1 T = 10 with P+1 = 2, 2 T = 10 with P+1 = 5, 3 T = 73 with
-// P+1 = 2, 4 and 5 the
-// grouped paths of 1 and 2), outputs a tile, channels a block (1 or 8
+// xlen. (variant, tile, cb, run, grid, stride, mult, depth) is the
+// launch's plan (mr_plan.cpp, through ops/cuda/resample.py plan()): the
+// variant (0 general, 1 T = 10 with P+1 = 2, 2 T = 10 with P+1 = 5, 3 T =
+// 73 with P+1 = 2, 4 and 5 the grouped paths of 1 and 2, 6 and 7 their
+// grouped.tma forms), outputs a tile, channels a block (1 or 8
 // channel-major, 32 time-major), neighbouring outputs a thread runs (1, 2,
-// 4, 8 or 16; 1 unless cb == 1), blocks, at most, and for a grouped path
-// its phase-preserving stride and lane multiplier (else ignored). Returns
+// 4, 8 or 16; 1 unless cb == 1), blocks, at most, for a grouped path its
+// phase-preserving stride and lane multiplier, and for grouped.tma its ring
+// stages (else ignored). Returns
 // a cudaError_t code, kErrTooLarge when the plan's shared
 // memory exceeds the limit, or kErrBadPlan when the variant does not take
 // the plan. The narrow reads (MR_RESAMPLE_NARROW) take the same arguments,
@@ -859,11 +1151,11 @@ extern "C" {
                          int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
                          int64_t n_out, int time_major, int variant,         \
                          int tile, int cb, int run, int64_t grid,            \
-                         int stride, int mult, void* stream) {               \
+                         int stride, int mult, int depth, void* stream) {    \
     auto go = time_major ? launch<XR, float, Out, true>                      \
                          : launch<XR, float, Out, false>;                    \
     return go(x, hist, table, y, C, xlen, T, nphi, P1, delta, u0, d0, n_out, \
-              variant, tile, cb, run, grid, stride, mult, stream);           \
+              variant, tile, cb, run, grid, stride, mult, depth, stream);    \
   }
 
 // Channel-major only, as mr_resample_f32 with time_major = 0: x and hist
@@ -876,10 +1168,10 @@ extern "C" {
                          int P1, uint64_t delta, uint64_t u0, int64_t d0,    \
                          int64_t n_out, int variant, int tile, int cb,      \
                          int run, int64_t grid, int stride, int mult,       \
-                         void* stream) {                                     \
+                         int depth, void* stream) {                          \
     return launch<X, W, Out, false>(x, hist, table, y, C, xlen, T, nphi, P1,\
                                   delta, u0, d0, n_out, variant, tile, cb,  \
-                                  run, grid, stride, mult, stream);          \
+                                  run, grid, stride, mult, depth, stream);   \
   }
 
 MR_RESAMPLE_LAYOUT(f32, float, float)
@@ -888,6 +1180,17 @@ MR_RESAMPLE(c64, float2, float, float2)
 MR_RESAMPLE(c64c, float2, float2, float2)
 MR_RESAMPLE(c128, double2, double, double2)
 MR_RESAMPLE(c128c, double2, double2, double2)
+
+#ifdef MR_CLOCKS
+// The clock split's sums by ClockPart (kClockParts of them) into ``out``,
+// then zeroed; returns a cudaError_t code.
+int mr_resample_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, mr_clocks, sizeof(mr_clocks));
+  if (err != cudaSuccess) return err;
+  const unsigned long long zeros[kClockParts] = {};
+  return cudaMemcpyToSymbol(mr_clocks, zeros, sizeof(mr_clocks));
+}
+#endif
 
 const char* mr_error_string(int code) {
   if (code == kErrTooLarge) return "the plan's shared memory exceeds the limit";

@@ -43,10 +43,12 @@ The kernel has variants (``VARIANTS``), chosen by ``plan`` from the shape
 alone, never after a failure: one compiled for each (T, P+1) pair in use
 (``COMPILED``: bench.py's bank at T = 10 with P+1 = 2 or 5, and
 ``models.Resampler``'s own design at T = 73, P+1 = 2), with both loops
-unrolled, and ``general``, which runs both loops to run-time bounds; and
-the grouped one-channel path of bench.py's pairs (``GROUPED``), where a
+unrolled, and ``general``, which runs both loops to run-time bounds; the
+grouped one-channel path of bench.py's pairs (``GROUPED``), where a
 thread runs outputs a phase-preserving stride apart with its phase's table
-words in registers. Every variant gives the same bits. ``plan`` also sizes
+words in registers; and, for float32 samples in one channel, the same path
+fed by a producer warp's bulk copies into a ring and stored by bulk copies
+(``GROUPED_TMA``). Every variant gives the same bits. ``plan`` also sizes
 the tile, the channels a block shares its taps across and the grid, so
 that the grid fills the card. ``resample(..., variant="general")`` forces
 the general variant, and a compiled variant's name its run path, for
@@ -72,7 +74,7 @@ from .build import ERROR_STRING, check_aligned, launch, load
 __all__ = ["resample", "resample_tm", "resample_plain", "resample_tm_plain",
            "plan", "Plan", "walk_positions", "launches",
            "launches_by_variant", "ENTRIES", "TM_ENTRIES", "VARIANTS",
-           "COMPILED", "GROUPED"]
+           "COMPILED", "GROUPED", "GROUPED_TMA"]
 
 _F32, _F16 = torch.float32, torch.float16
 # The kernel's channel-major entry point (``mr_resample_<name>``, one
@@ -106,11 +108,13 @@ TM_ENTRIES = {k: f"{n}_tm" for k, n in ENTRIES.items()
 
 # The kernel's variants, by the number its entry points take, and the
 # (T, P+1) pair each compiled one is built for; the grouped one-channel
-# path of a compiled pair whose table words a thread holds in registers.
+# path of a compiled pair whose table words a thread holds in registers;
+# and that path fed by a producer warp's bulk copies, for float32 samples.
 VARIANTS = ("general", "t10p2", "t10p5", "t73p2", "t10p2.grouped",
-            "t10p5.grouped")
+            "t10p5.grouped", "t10p2.grouped.tma", "t10p5.grouped.tma")
 COMPILED = {(10, 2): "t10p2", (10, 5): "t10p5", (73, 2): "t73p2"}
 GROUPED = {"t10p2": "t10p2.grouped", "t10p5": "t10p5.grouped"}
+GROUPED_TMA = {"t10p2": "t10p2.grouped.tma", "t10p5": "t10p5.grouped.tma"}
 
 # Kernel launches made by ``resample`` and ``resample_tm`` in this
 # process, by entry point (time-major ``"<entry>_tm"``: ``"f32_tm"``,
@@ -127,18 +131,18 @@ _N_OUT_LIMIT = 1 << 40  # keeps u0 + n_out*delta_fx below the kernel's 2^96
 # The C signatures for ``build.load``: each entry point of csrc/resample.cu
 # (x, hist, table, y, C, xlen, T, nphi, P+1, delta_fx, u0, d0, n_out, the
 # layout where it has a time-major form, then the plan's variant, tile,
-# channels, run, grid, stride and mult, and the stream), and the planner's
-# chooser in csrc/mr_plan.cpp.
+# channels, run, grid, stride, mult and depth, and the stream), and the
+# planner's chooser in csrc/mr_plan.cpp.
 _P, _C_I64, _C_U64, _C_INT = (ctypes.c_void_p, ctypes.c_int64,
                               ctypes.c_uint64, ctypes.c_int)
 SIGNATURES = (*((f"mr_resample_{name}", _C_INT,
                  (_P,) * 4 + (_C_I64, _C_I64) + (_C_INT,) * 3
                  + (_C_U64, _C_U64, _C_I64, _C_I64)
                  + (_C_INT,) * (1 + (key in TM_ENTRIES)) + (_C_INT,) * 3
-                 + (_C_I64, _C_INT, _C_INT, _P))
+                 + (_C_I64, _C_INT, _C_INT, _C_INT, _P))
                 for key, name in ENTRIES.items()), ERROR_STRING)
 PLAN_SIGNATURES = (("mr_resample_plan", _C_INT,
-                    (_C_INT,) * 3 + (_C_I64,) * 3 + (_C_INT,) * 9 + (_P,)),)
+                    (_C_INT,) * 3 + (_C_I64,) * 3 + (_C_INT,) * 10 + (_P,)),)
 
 
 def _sum_type(x_dtype, table_dtype):
@@ -154,8 +158,8 @@ class Plan(NamedTuple):
     channel-major, 32 time-major), neighbouring outputs a thread runs (one-
     channel blocks; else 1), blocks on grid.x (at most: the launcher keeps
     no more than the card holds at once), threads a block, shared bytes
-    a block, and a grouped path's phase-preserving stride and lane
-    multiplier (else 0)."""
+    a block, a grouped path's phase-preserving stride and lane multiplier
+    (else 0), and a grouped.tma plan's ring stages (else 0)."""
     variant: str
     tile: int
     channels: int
@@ -165,6 +169,7 @@ class Plan(NamedTuple):
     smem: int
     stride: int = 0
     mult: int = 0
+    depth: int = 0
 
 
 @functools.lru_cache(maxsize=1024)
@@ -177,7 +182,8 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
     table is float32, the signal float32 or a narrow read, the blocks
     channel-major with one channel, the rate has a phase-preserving stride
     and the card's share of the call gives each thread 8 outputs a tile at
-    least), the tile, the channels a block and the grid. Chosen on the
+    least; that path's grouped.tma form where the signal is float32 in one
+    channel), the tile, the channels a block and the grid. Chosen on the
     shape by the planner library (csrc/mr_plan.cpp, built with g++ at first
     use) from the launcher's own geometry, and cached: a stream plans the
     same few shapes again. Raises ValueError if ``variant`` is named and
@@ -188,19 +194,20 @@ def plan(T: int, P1: int, nphi: int, delta_fx: int, n_out: int, C: int,
 
 
 def _plan(T, P1, nphi, delta_fx, n_out, C, x_dtype, table_dtype, time_major,
-          variant, run=0, rows=0) -> Plan:
-    """``plan``, uncached; ``run`` and ``rows`` set the run path's outputs
-    a thread and the grouped path's outputs a thread a tile (0: the
-    planner's), for the sweeps of tools/resample_runs.py."""
+          variant, run=0, rows=0, depth=0) -> Plan:
+    """``plan``, uncached; ``run``, ``rows`` and ``depth`` set the run
+    path's outputs a thread, a grouped path's outputs a thread a tile and
+    grouped.tma's ring stages (0: the planner's), for the sweeps of
+    tools/resample_runs.py."""
     if variant not in (None, *VARIANTS):
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    out = (ctypes.c_int64 * 9)()
+    out = (ctypes.c_int64 * 10)()
     err = load("mr_plan", PLAN_SIGNATURES).mr_resample_plan(
         T, P1, nphi, delta_fx, max(int(n_out), 1), C, x_dtype.itemsize,
         table_dtype.itemsize, _sum_type(x_dtype, table_dtype).itemsize,
         x_dtype in NARROW, table_dtype == _F32 and x_dtype in (_F32, *NARROW),
         time_major, -1 if variant is None else VARIANTS.index(variant), run,
-        rows, out)
+        rows, depth, out)
     if err == -1:
         t_bytes = P1 * T * nphi * table_dtype.itemsize
         raise ValueError(f"the {variant} variant cannot take T={T} "
@@ -231,23 +238,40 @@ def _add(a, d, nphi: int):
     return a[0] + d[0] + c2, phi - c2 * nphi, fr - c1 * one
 
 
-def _tile_bases(p: Plan, nphi: int, delta_fx: int, u0: int, n_out: int):
-    """(q0, r0) = divmod(u0 + n0*delta_fx, D) of every tile, exact (the
-    kernel's 128-bit product and division)."""
+def _tile_bases(starts, nphi: int, delta_fx: int, u0: int):
+    """(q0, r0) = divmod(u0 + n0*delta_fx, D) of every tile's first output
+    n0, exact (the kernel's 128-bit product and division)."""
     D = nphi << PHASE_FRAC_BITS
-    bases = [divmod(u0 + n0 * delta_fx, D)
-             for n0 in range(0, n_out, p.tile)]
+    bases = [divmod(u0 + n0 * delta_fx, D) for n0 in starts]
     return (torch.tensor([b[0] for b in bases], dtype=torch.int64),
             torch.tensor([b[1] for b in bases], dtype=torch.int64))
 
 
+def _tiles(p: Plan, n_out: int, blocks: int):
+    """(first output, outputs) of each tile: tiles of ``p.tile`` from 0, or
+    for a grouped.tma plan from the start of each of ``blocks`` blocks' even
+    shares of the call's 16-byte words, the last of each share short."""
+    if p.variant not in GROUPED_TMA.values():
+        return [(n0, min(p.tile, n_out - n0))
+                for n0 in range(0, n_out, p.tile)]
+    words = -(-n_out // 4)
+    tiles = []
+    for b in range(blocks):
+        b0 = 4 * (words * b // blocks)
+        b1 = min(n_out, 4 * (words * (b + 1) // blocks))
+        tiles += [(n0, min(p.tile, b1 - n0)) for n0 in range(b0, b1, p.tile)]
+    return tiles
+
+
 def _grouped_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
-                       n_out: int):
+                       n_out: int, blocks: int):
     """``walk_positions`` of a grouped plan: thread i < stride runs the
     outputs j = (i*mult mod stride) + stride*r (r < tile / stride) of each
     tile, from its first output's digits, by adding the stride's digits."""
-    n_tiles = -(-n_out // p.tile)
-    q0, r0 = _tile_bases(p, nphi, delta_fx, u0, n_out)
+    tiles = _tiles(p, n_out, blocks)
+    n0 = torch.tensor([t[0] for t in tiles], dtype=torch.int64)
+    nt = torch.tensor([t[1] for t in tiles], dtype=torch.int64)
+    q0, r0 = _tile_bases(n0.tolist(), nphi, delta_fx, u0)
     start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS,
              r0 & ((1 << PHASE_FRAC_BITS) - 1))
     j0 = torch.arange(p.stride) * p.mult % p.stride
@@ -255,23 +279,26 @@ def _grouped_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
                                             for j in j0.tolist()))]
     pos = _add(tuple(a[:, None] for a in start), first, nphi)
     step = _digits(p.stride * delta_fx, nphi)
-    q = torch.empty(n_tiles, p.tile, dtype=torch.int64)
+    q = torch.empty(n_out, dtype=torch.int64)
     phi, fr = torch.empty_like(q), torch.empty_like(q)
     for r in range(p.tile // p.stride):
-        j = j0 + p.stride * r
-        q[:, j] = q0[:, None] + pos[0]
-        phi[:, j], fr[:, j] = pos[1], pos[2]
+        j = (j0 + p.stride * r)[None, :]
+        ok = j < nt[:, None]  # the tile's outputs
+        at = (n0[:, None] + j)[ok]
+        q[at] = (q0[:, None] + pos[0])[ok]
+        phi[at], fr[at] = pos[1][ok], pos[2][ok]
         pos = _add(pos, step, nphi)
-    return (q.reshape(-1)[:n_out], phi.reshape(-1)[:n_out],
-            fr.reshape(-1)[:n_out])
+    return q, phi, fr
 
 
 def walk_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
-                   n_out: int):
+                   n_out: int, blocks: int | None = None):
     """The kernel's index walk, transcribed: (q, phi, frac) of every
     output n < n_out, with (q, phi) = divmod((u0 + n*delta_fx) div 2^32,
     nphi) and frac the low 32 bits, as int64 tensors. A grouped plan's
-    threads walk their progressions (``_grouped_positions``).
+    threads walk their progressions (``_grouped_positions``); a grouped.tma
+    launch's tiles start at each of its ``blocks`` blocks' share of the call
+    (by default ``p.grid``; the card runs as many as it holds at once).
 
     A tile's base (q0, r0) = divmod(u0 + n0*delta_fx, D) is formed once, in
     128 bits. Thread t of a block runs outputs t*run + s (s < run) in each
@@ -281,10 +308,11 @@ def walk_positions(p: Plan, nphi: int, delta_fx: int, u0: int,
     (threads - 1)*run*delta_fx, into digits (quotient by D, phase, 32-bit
     fraction), then walks its outputs by adding digits with carries: no
     division per output. (A time-major block's taps take run 1.)"""
-    if p.variant in GROUPED.values():
-        return _grouped_positions(p, nphi, delta_fx, u0, n_out)
+    if p.variant in (*GROUPED.values(), *GROUPED_TMA.values()):
+        return _grouped_positions(p, nphi, delta_fx, u0, n_out,
+                                  blocks or p.grid)
     n_tiles = -(-n_out // p.tile)
-    q0, r0 = _tile_bases(p, nphi, delta_fx, u0, n_out)
+    q0, r0 = _tile_bases(range(0, n_out, p.tile), nphi, delta_fx, u0)
     start = (torch.zeros_like(r0), r0 >> PHASE_FRAC_BITS,
              r0 & ((1 << PHASE_FRAC_BITS) - 1))
     q = torch.empty(n_tiles, p.tile, dtype=torch.int64)
@@ -416,7 +444,7 @@ def _launch(x, hist, params, u0, d0, n_out, out_dtype, time_major,
             y.data_ptr(), C, xlen, params.taps_per_phi, params.nphi,
             params.table.shape[0], params.delta_fx, u0, d0, n_out, *layout,
             VARIANTS.index(p.variant), p.tile, p.channels, p.run, p.grid,
-            p.stride, p.mult),
+            p.stride, p.mult, p.depth),
            (launches, counted),
            (launches_by_variant, f"{counted}/{p.variant}"))
     return y

@@ -2,8 +2,9 @@
 (rational family, in float32, the quantized modes, float64 and complex),
 resample (arbitrary rate and Farrow, channel-major and time-major in
 float32, channel-major in float64 and complex; each compiled variant and
-the general one, equal bit for bit; the grouped one-channel path equal to
-the run path bit for bit, chunked == whole) and the copy and expand
+the general one, equal bit for bit; the grouped one-channel path and its
+producer-fed float32 form equal to the run path bit for bit, chunked ==
+whole) and the copy and expand
 probes; the runtime on the card: StreamingResampler's block loop
 with no synchronizing call, and a profiler trace holding the kernel;
 the parallel layer on four gloo ranks sharing the card (halo through the
@@ -444,11 +445,44 @@ def test_resample_variants_match_plain_on_gpu(entry, kind, layout):
     assert torch.equal(got[None], got["general"])
 
 
-# the grouped one-channel path (``t10p2.grouped``, ``t10p5.grouped``):
-# forced through ``variant=`` against the run path, bit for bit, at the
-# harness rate (243 outputs keep a phase) and at 0.9173 (no stride keeps
-# one: a thread's phase changes at every output), float32 and int16 reads
+# the grouped one-channel path (``t10p2.grouped``, ``t10p5.grouped``) and
+# its producer-fed form for float32 samples (``t10p2.grouped.tma``,
+# ``t10p5.grouped.tma``): forced through ``variant=`` against the run path,
+# bit for bit, at the harness rate (243 outputs keep a phase) and at 0.9173
+# (no stride keeps one: a thread's phase changes at every output), float32
+# and int16 reads (int16 has no grouped.tma form)
 GROUPED_KINDS = {"t10p2": None, "t10p5": 4}
+
+
+def _grouped_args(kind, x_dt, rate, xlen, offset=0, seed=24):
+    """A one-channel call entered mid-stream (phase 0.37, after 777
+    samples), so that its first tile reads a real history; x starts
+    ``offset`` samples into its allocation (``offset`` % 4 floats past a
+    16-byte boundary)."""
+    rng = np.random.default_rng(seed)
+    p = mt.make_kernel(rng.standard_normal(320).astype(np.float32),
+                       rate=rate, nphi=32, polyorder=GROUPED_KINDS[kind],
+                       device="cuda")
+    x = _wide(rng, (1, xlen + offset), torch.float32)
+    x = (x * 3000).to(x_dt) if x_dt == torch.int16 else x
+    x = x.cuda()[:, offset:]
+    st = mt.setphase(p, mt.init_state(p, (1,), x_dt), 0.37)
+    _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
+    n, _, _ = mt.ops.indexing.host_carry(p, st.phase, st.deficit,
+                                         x.shape[-1])
+    return x, st.history.contiguous(), p, st.phase, st.deficit, n
+
+
+def _launched_once(args, variant):
+    """y of one launch of ``variant``, checked to be the only launch."""
+    entry = rs.ENTRIES[args[0].dtype, torch.float32, torch.float32]
+    before = dict(rs.launches_by_variant)
+    y = rs.resample(*args, variant=variant)
+    torch.cuda.synchronize()
+    after = dict(rs.launches_by_variant)
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {f"{entry}/{variant}": 1}
+    return y
 
 
 @pytest.mark.gpu
@@ -460,37 +494,56 @@ GROUPED_KINDS = {"t10p2": None, "t10p5": 4}
 def test_grouped_path_equals_run_path_on_gpu(kind, x_dt, rate):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.default_rng(24)
-    p = mt.make_kernel(rng.standard_normal(320).astype(np.float32),
-                       rate=rate, nphi=32, polyorder=GROUPED_KINDS[kind],
-                       device="cuda")
-    x = _wide(rng, (1, 700_001), torch.float32)
-    x = (x * 3000).to(x_dt) if x_dt == torch.int16 else x
-    x = x.cuda()
-    st = mt.setphase(p, mt.init_state(p, (1,), x_dt), 0.37)
-    _, _, st = mt.filt_block(p, st, x[:, :777], path="windows")
-    n, _, _ = mt.ops.indexing.host_carry(p, st.phase, st.deficit,
-                                         x.shape[-1])
-    args = (x, st.history.contiguous(), p, st.phase, st.deficit, n)
-    entry = rs.ENTRIES[x_dt, torch.float32, torch.float32]
-    got = {}
-    for variant in (kind, rs.GROUPED[kind]):
-        before = dict(rs.launches_by_variant)
-        got[variant] = rs.resample(*args, variant=variant)
-        torch.cuda.synchronize()
-        after = dict(rs.launches_by_variant)
-        assert {k: after[k] - before[k] for k in after
-                if after[k] != before[k]} == {f"{entry}/{variant}": 1}
-    assert torch.equal(got[kind], got[rs.GROUPED[kind]])
-    assert rel_max_err(got[kind], rs.resample_plain(*args)) <= TOL
+    args = _grouped_args(kind, x_dt, rate, 700_001)
+    fed = [rs.GROUPED[kind]]
+    if x_dt == torch.float32:
+        fed.append(rs.GROUPED_TMA[kind])
+    else:
+        with pytest.raises(ValueError, match="grouped.tma"):
+            rs.resample(*args, variant=rs.GROUPED_TMA[kind])
+    want = _launched_once(args, kind)
+    for variant in fed:
+        assert torch.equal(_launched_once(args, variant), want)
+    assert rel_max_err(want, rs.resample_plain(*args)) <= TOL
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (samples, x's offset in floats, outputs mod 4): outputs not a
+    # multiple of the tile (972 outputs) nor of 4 (the last tile's outputs
+    # past a 16-byte word stored by hand), x off a 16-byte boundary by 1-3
+    # floats (the producer's first words by hand), and a call of fewer
+    # outputs than a tile (a grid of one block, whose only tile reads the
+    # history)
+    (700_001, 0, 0), (700_003, 0, 1), (700_006, 0, 2), (700_008, 1, 3),
+    (700_010, 2, 0), (700_013, 3, 2), (1_500, 0, 3), (1_500, 3, 3)])
 @pytest.mark.parametrize("kind", list(GROUPED_KINDS))
-def test_grouped_path_chunked_equals_whole_on_gpu(kind):
-    # chunks large enough that each plans the grouped path, cut inside
-    # tiles, through filt_block's kernel path: chunked == whole bit for bit,
-    # one grouped launch a call
+def test_grouped_tma_edges_equal_run_path_on_gpu(kind, case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xlen, offset, n_mod_4 = case
+    args = _grouped_args(kind, torch.float32, 1 / 2.123456789, xlen, offset,
+                         seed=27)
+    n = args[-1]
+    tma = rs.GROUPED_TMA[kind]
+    plan = rs.plan(10, args[2].table.shape[0], 32, args[2].delta_fx, n, 1,
+                   torch.float32, torch.float32, False, tma)
+    assert args[0].data_ptr() % 16 == 4 * offset and n % 4 == n_mod_4
+    assert n % plan.tile and (plan.grid == 1) == (n < plan.tile)
+    want = _launched_once(args, kind)
+    assert torch.equal(_launched_once(args, tma), want)
+    assert torch.equal(_launched_once(args, rs.GROUPED[kind]), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dt", [torch.float32, torch.int16],
+                         ids=["f32", "s16"])
+@pytest.mark.parametrize("kind", list(GROUPED_KINDS))
+def test_grouped_path_chunked_equals_whole_on_gpu(kind, x_dt):
+    # chunks large enough that each plans a grouped path (float32: its
+    # grouped.tma form; int16: grouped), cut inside tiles and off 16-byte
+    # boundaries, through filt_block's kernel path: chunked == whole bit
+    # for bit, one grouped launch a call
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(25)
@@ -498,9 +551,12 @@ def test_grouped_path_chunked_equals_whole_on_gpu(kind):
          ).astype(np.float32)
     p = mt.make_kernel(h, rate=1 / 2.123456789, nphi=32,
                        polyorder=GROUPED_KINDS[kind], device="cuda")
-    x = _wide(rng, (1, 9_000_017), torch.float32).cuda()
-    st = mt.init_state(p, (1,))
-    key = f"f32/{rs.GROUPED[kind]}"
+    x = _wide(rng, (1, 9_000_017), torch.float32)
+    x = ((x * 3000).to(x_dt) if x_dt == torch.int16 else x).cuda()
+    st = mt.init_state(p, (1,), x_dt)
+    entry = rs.ENTRIES[x_dt, torch.float32, torch.float32]
+    fed = rs.GROUPED_TMA if x_dt == torch.float32 else rs.GROUPED
+    key = f"{entry}/{fed[kind]}"
     before = rs.launches_by_variant[key]
     yw, cw, sw = mt.filt_block(p, st, x, path="kernel")
     parts, s = [], st

@@ -4,8 +4,10 @@ its sets against the wrappers' public ones; and the build keys of the
 geometry header it shares with the kernels (``csrc/geometry.cuh``).
 
 The pinned plans are the ones the Python planners gave before the planner
-moved into C++ (the same integers, variant for variant): a change to any
-of them changes a launch on the card.
+moved into C++ (the same integers, variant for variant), but for the
+one-channel float32 calls at 1/2.123456789 (capture's and two bench rows'),
+which take the grouped path's grouped.tma form since: a change to any of
+them changes a launch on the card.
 """
 
 import shutil
@@ -53,8 +55,8 @@ PP_PINS = {
 R_REF_DELTA, DELTA_4709, DELTA_9173 = 291845678823, 291864415952, 149829884958
 RS_PINS = {
     "capture_block": ((10, 5, 32, R_REF_DELTA, 31603593, 1, F32, F32, False),
-                      ("t10p5.grouped", 4860, 1, 1, 6503, 256, 109360, 243,
-                       8)),
+                      ("t10p5.grouped.tma", 3888, 1, 1, 8129, 288, 104160,
+                       243, 7, 2)),
     "sdr_block": ((10, 5, 32, R_REF_DELTA, 30863, 1, F32, F32, False),
                   ("t10p5", 64, 1, 1, 483, 64, 7584, 0, 0)),
     "farrow64_shard": ((10, 5, 32, DELTA_9173, 7694871, 64, F32, F32, False),
@@ -64,11 +66,11 @@ RS_PINS = {
                          ("t10p2", 1024, 1, 8, 3679, 128, 24672, 0, 0)),
     "arbitrary_refrate": ((10, 2, 32, R_REF_DELTA, 3767442, 1, F32, F32,
                            False),
-                          ("t10p2.grouped", 5103, 1, 1, 739, 256, 110400,
-                           243, 8)),
+                          ("t10p2.grouped.tma", 2916, 1, 1, 1292, 288,
+                           75776, 243, 7, 2)),
     "farrow_refrate": ((10, 5, 32, R_REF_DELTA, 3767442, 1, F32, F32, False),
-                       ("t10p5.grouped", 4860, 1, 1, 776, 256, 109360, 243,
-                        8)),
+                       ("t10p5.grouped.tma", 2916, 1, 1, 1292, 288, 79872,
+                        243, 7, 2)),
     "farrow_0.4709": ((10, 5, 32, DELTA_4709, 3767201, 1, F32, F32, False),
                       ("t10p5", 1024, 1, 8, 3679, 128, 28512, 0, 0)),
     "farrow_64ch_batched": ((10, 5, 32, DELTA_9173, 114663, 64, F32, F32,
@@ -112,16 +114,22 @@ def test_library_sets_equal_the_public_ones():
     assert tuple(T for T in Ts if takes(T, 4, 1, "slide")) == pp.REG_TAPS
     assert tuple(T for T in Ts
                  if takes(T, 147, 160, "reg.tma")) == pp.TMA_TAPS
-    # the (T, P+1) pairs it compiles, and their grouped paths
-    compiled, grouped = {}, {}
+    # the (T, P+1) pairs it compiles, their grouped paths (a narrow read,
+    # int16, takes the grouped path) and the grouped paths' grouped.tma
+    # forms (float32)
+    compiled, grouped, tma = {}, {}, {}
     for T in range(1, 80):
         for P1 in range(1, 7):
             p = rs.plan(T, P1, 32, R_REF_DELTA, 1 << 20, 1, F32, F32)
+            g = rs.plan(T, P1, 32, R_REF_DELTA, 1 << 20, 1, torch.int16, F32)
             if p.variant != "general":
-                compiled[T, P1] = p.variant.removesuffix(".grouped")
-                if p.variant.endswith(".grouped"):
-                    grouped[compiled[T, P1]] = p.variant
+                compiled[T, P1] = p.variant.split(".")[0]
+                if g.variant.endswith(".grouped"):
+                    grouped[compiled[T, P1]] = g.variant
+                if p.variant.endswith(".grouped.tma"):
+                    tma[compiled[T, P1]] = p.variant
     assert compiled == rs.COMPILED and grouped == rs.GROUPED
+    assert tma == rs.GROUPED_TMA
 
 
 def test_an_edit_to_the_shared_header_changes_both_builds_keys(

@@ -30,6 +30,7 @@ R_REF = 1.0 / 2.123456789
 N_HEAD = 8_000_000
 N_CH, XLEN_CH = 64, 125_000
 COMPILED = {"t10p2", "t10p5", "t73p2"}
+NARROW_READS = (torch.int16, torch.bfloat16)
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +48,19 @@ def _span(tile, nphi, delta_fx, T):
     """Input samples a tile of ``tile`` outputs reads, at most."""
     D = nphi << PHASE_FRAC_BITS
     return (D - 1 + (tile - 1) * delta_fx) // D + T
+
+
+def _grouped_tma_smem(tile, T, P1, nphi, delta_fx, depth):
+    """A grouped.tma block's shared bytes: 8 stages' two mbarriers and
+    16-byte headers, the table by phase, ``depth`` ring stages of a span
+    after up to 3 samples of alignment (whole 16-byte words), and two
+    unpadded output stages."""
+    def up16(b):
+        return -(-b // 16) * 16
+
+    nb = (_span(tile, nphi, delta_fx, T) + 6) // 4 * 4
+    return (8 * 32 + up16(nphi * -(-T * P1 // 4) * 4 * 4) + depth * nb * 4
+            + 2 * up16(tile * 4))
 
 
 def _grouped_smem(tile, T, P1, nphi, delta_fx, xsz):
@@ -98,9 +112,10 @@ def test_main_path_rows_take_a_compiled_variant(taps, row):
     plan = _plan(p, n, C, x_dt, t_dt, tm)
     base = "t10p2" if po is None else "t10p5"
     # one float32 channel at 1/2.123456789 groups its outputs by phase
-    # (243 outputs keep a phase); the rest run (0.4709 has no such stride)
+    # (243 outputs keep a phase), fed by a producer warp (grouped.tma); the
+    # rest run (0.4709 has no such stride)
     grouped = C == 1 and x_dt == t_dt == F32 and rate == R_REF
-    assert plan.variant == (f"{base}.grouped" if grouped else base)
+    assert plan.variant == (f"{base}.grouped.tma" if grouped else base)
     assert plan.grid >= 2 * 132
     assert plan.channels == (32 if tm else (8 if C >= 8 else 1))
     assert 0 < plan.smem <= 226 * 1024
@@ -191,13 +206,16 @@ def test_launch_counts_cover_every_entry_and_variant():
     assert set(rs.COMPILED.values()) == COMPILED <= set(rs.VARIANTS)
 
 
-@pytest.mark.parametrize("variant", [None, "general", "t10p5.grouped"])
+@pytest.mark.parametrize("variant", [None, "general", "t10p5.grouped",
+                                     "t10p5.grouped.tma"])
 @pytest.mark.parametrize("time_major", [False, True])
 def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(
         taps, variant, time_major):
-    if time_major and variant == "t10p5.grouped":
-        with pytest.raises(ValueError, match="t10p5.grouped"):
-            _plan(_params(taps, 0.4709, 4), 2000, 3, F32, F32, True,
+    # grouped.tma takes one channel only: the three here are refused
+    if (time_major and variant == "t10p5.grouped"
+            or variant == "t10p5.grouped.tma"):
+        with pytest.raises(ValueError, match=variant):
+            _plan(_params(taps, 0.4709, 4), 2000, 3, F32, F32, time_major,
                   variant)
         return
     p = _params(taps, 0.4709, 4)
@@ -219,8 +237,8 @@ def test_cpu_wrapper_takes_a_variant_and_runs_the_plain_version(
         rs.resample(x, hist, p, 0, 1, n, variant="t73p2")
 
 
-def _walk_equals_accum(plan, nphi, delta_fx, u0, d0, n):
-    q, phi, fr = rs.walk_positions(plan, nphi, delta_fx, u0, n)
+def _walk_equals_accum(plan, nphi, delta_fx, u0, d0, n, blocks=None):
+    q, phi, fr = rs.walk_positions(plan, nphi, delta_fx, u0, n, blocks)
     inp, phi_ref, frac_ref = idx.accum_indices(nphi, delta_fx, u0, d0, n)
     assert torch.equal(q + d0, inp)
     assert torch.equal(phi, phi_ref)
@@ -296,21 +314,30 @@ def test_walk_past_2_20_outputs_at_nphi_1024(u0, grouped):
 
 @pytest.mark.parametrize("run", [1, 2, 4, 8, 16, "grouped-243-8-20",
                                  "grouped-256-1-32", "grouped-255-1-14",
-                                 "grouped-200-7-40", "grouped-129-2-1"])
+                                 "grouped-200-7-40", "grouped-129-2-1",
+                                 "grouped.tma-42", "grouped.tma-3"])
 def test_walk_is_exact_for_every_run(taps, run):
     # a plan is a NamedTuple: the walk for each run the kernel takes, and
     # the grouped path's progressions at strides, multipliers and outputs a
-    # thread it takes (the last tile partial)
+    # thread it takes (the last tile partial), and the planner's grouped.tma
+    # plan (multiplier 7, 4 outputs a thread a tile) on its 42 blocks (a
+    # short tile each) or on 3 (whole tiles, then a short one, each)
     p = _params(taps, R_REF)
     n = 9_000 if isinstance(run, int) else 40_123
     plan = _plan(p, n, 1, F32, F32)
+    blocks = None
     if isinstance(run, int):
         plan = plan._replace(tile=2048, run=run, threads=128)
+    elif run.startswith("grouped.tma"):
+        plan = _plan(p, n, 1, F32, F32, variant="t10p2.grouped.tma")
+        assert (plan.stride, plan.mult, plan.tile, plan.grid) == (
+            243, 7, 972, 42)
+        blocks = int(run.split("-")[1])
     else:
         stride, mult, rows = map(int, run.split("-")[1:])
         plan = _grouped(plan, rows, stride, mult)
     assert n % plan.tile
-    _walk_equals_accum(plan, 32, p.delta_fx, 987_654_321, 4, n)
+    _walk_equals_accum(plan, 32, p.delta_fx, 987_654_321, 4, n, blocks)
 
 
 @pytest.mark.parametrize("rate", [0.3, R_REF, 0.9173, 1.0, 2.5, 17.0])
@@ -322,15 +349,32 @@ def test_plans_stay_inside_the_kernel_limits(taps, rate, dtypes):
             continue
         p = _params(taps, rate, 4)
         grouped = C < 8 and not tm and dtypes[1] == F32
+        tma = C == 1 and not tm and dtypes == (F32, F32)
         for n in (1, 33, 10_000, 10_000_000):
-            for variant in (None, "general", "t10p5.grouped"):
-                if variant == "t10p5.grouped" and not grouped:
+            for variant in (None, "general", "t10p5.grouped",
+                            "t10p5.grouped.tma"):
+                if (variant == "t10p5.grouped" and not grouped
+                        or variant == "t10p5.grouped.tma" and not tma):
                     with pytest.raises(ValueError, match="grouped"):
                         _plan(p, n, C, *dtypes, tm, variant)
                     continue
                 plan = _plan(p, n, C, *dtypes, tm, variant)
                 span = _span(plan.tile, p.nphi, p.delta_fx, p.taps_per_phi)
-                if plan.variant.endswith(".grouped"):
+                if plan.variant.endswith(".grouped.tma"):
+                    # the grouped path's, in tiles of whole 16-byte words,
+                    # with a producer warp, a ring of 2-8 stages, two
+                    # blocks' shared memory an SM unless named
+                    assert plan.tile % plan.stride == 0 and plan.tile % 4 == 0
+                    assert plan.tile <= 8192 and plan.stride <= 256
+                    assert plan.threads == -(-plan.stride // 32) * 32 + 32
+                    assert math.gcd(plan.mult, plan.stride) == 1
+                    assert plan.run == 1 and plan.channels == 1
+                    assert 2 <= plan.depth <= 8
+                    assert plan.smem == _grouped_tma_smem(
+                        plan.tile, 10, 5, p.nphi, p.delta_fx, plan.depth)
+                    assert plan.smem <= (226 if variant else 110) * 1024
+                    assert variant or plan.tile >= 8 * plan.stride
+                elif plan.variant.endswith(".grouped"):
                     # whole progressions of the stride, its threads in whole
                     # warps, a multiplier prime to it, one channel a block,
                     # two blocks' shared memory an SM
@@ -339,12 +383,13 @@ def test_plans_stay_inside_the_kernel_limits(taps, rate, dtypes):
                     assert plan.threads == -(-plan.stride // 32) * 32
                     assert math.gcd(plan.mult, plan.stride) == 1
                     assert plan.run == 1 and plan.channels == 1
+                    assert plan.depth == 0
                     assert plan.smem == _grouped_smem(
                         plan.tile, 10, 5, p.nphi, p.delta_fx,
                         dtypes[0].itemsize) <= 110 * 1024
                     assert variant or plan.tile >= 8 * plan.stride
                 else:
-                    assert plan.stride == plan.mult == 0
+                    assert plan.stride == plan.mult == plan.depth == 0
                     assert 0 < plan.tile <= (256 if tm else 1024)
                 assert 0 < plan.grid <= 65535
                 assert plan.grid <= -(-n // plan.tile) * -(-C // plan.channels)
@@ -353,7 +398,8 @@ def test_plans_stay_inside_the_kernel_limits(taps, rate, dtypes):
                 assert plan.run == 1 or (plan.channels == 1
                                          and plan.threads * plan.run
                                          <= plan.tile)
-                assert plan.threads % 32 == 0 and plan.threads <= 256
+                assert plan.threads % 32 == 0 and plan.threads <= (
+                    288 if plan.depth else 256)
                 # the last window of a tile stays inside int32 offsets
                 assert span < 2**31
 
@@ -381,19 +427,57 @@ def test_one_channel_float32_tables_take_the_grouped_path(taps, row):
     n = mt.outputlength(p, xlen)
     plan = _plan(p, n, 1, x_dt, F32)
     base = "t10p2" if po is None else "t10p5"
-    assert plan.variant == f"{base}.grouped" == rs.GROUPED[base]
+    # float32 samples take the grouped.tma form, narrow reads the grouped
+    # path itself
+    tma = x_dt == F32
+    assert plan.variant == (rs.GROUPED_TMA if tma else rs.GROUPED)[base]
     # outputs 243 apart step 516.0000087 samples: their phase holds; lanes
-    # 8 outputs apart, 16.99 samples
-    assert (plan.stride, plan.mult) == (243, 8)
+    # 8 outputs apart, 16.99 samples (grouped), or 7 apart, 14.86 samples,
+    # whose outputs fall on 32 banks unpadded (grouped.tma)
+    assert (plan.stride, plan.mult) == (243, 7 if tma else 8)
     assert plan.tile >= 8 * plan.stride and plan.grid >= 2 * 132
-    assert (plan.channels, plan.run, plan.threads) == (1, 1, 256)
+    assert (plan.channels, plan.run) == (1, 1)
+    assert (plan.threads, plan.depth) == ((288, 2) if tma else (256, 0))
     # two blocks an SM
     assert 2 * (plan.smem + 1024) <= 228 * 1024
-    if (po, xlen, x_dt) == (4, CAPTURE_N, F32):
-        assert plan.tile == 243 * 20
-    # the run path is still there by name
+    if (po, xlen, x_dt) == (4, CAPTURE_N, F32):  # 16 tiles a block
+        assert plan.tile == 243 * 16
+    elif tma:  # 8 M samples: 59 outputs a thread would fill the card
+        assert plan.tile == 243 * 12
+    # the run path, and for float32 the grouped path, are still there by
+    # name
     run = _plan(p, n, 1, x_dt, F32, variant=base)
     assert run.variant == base and run.run == 8
+    if tma:
+        g = _plan(p, n, 1, x_dt, F32, variant=rs.GROUPED[base])
+        assert (g.variant, g.threads, g.mult) == (rs.GROUPED[base], 256, 8)
+
+
+@pytest.mark.parametrize("rate", [R_REF, 1.0, 0.5, 0.4709, 0.9173, 2.5])
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("x_dt", [F32, torch.int16, torch.bfloat16, F64,
+                                  C64])
+def test_grouped_tma_takes_one_float32_channel_where_grouped_would(
+        taps, rate, C, x_dt):
+    # over call sizes from a few outputs to capture's: the grouped.tma form
+    # exactly where the grouped path would take the call (its int16 twin's
+    # plan) and the signal is float32 in one channel; a named grouped.tma
+    # is refused for anything else
+    p = _params(taps, rate, 4)
+    t_dt = x_dt if x_dt in (F64, C64) else F32
+    for xlen in (1_000, 100_000, 1 << 20, 1 << 21, 1 << 23, CAPTURE_N):
+        n = mt.outputlength(p, xlen)
+        plan = _plan(p, n, C, x_dt, t_dt)
+        twin = _plan(p, n, C, torch.int16, F32)
+        tma = C == 1 and x_dt == F32 and twin.variant == "t10p5.grouped"
+        assert (plan.variant == "t10p5.grouped.tma") == tma
+        if tma:
+            assert plan.smem <= 110 * 1024 and plan.tile % 4 == 0
+        elif x_dt == F32 or x_dt in NARROW_READS:
+            assert plan.variant == twin.variant
+    if C > 1 or x_dt != F32:
+        with pytest.raises(ValueError, match="grouped.tma"):
+            _plan(p, 100_000, C, x_dt, t_dt, variant="t10p5.grouped.tma")
 
 
 @pytest.mark.parametrize("why", ["sdr_stream", "t73p2", "complex table",

@@ -5,7 +5,7 @@ the headline's 3,528 taps: T = 24), with a clock64 split of each, and sweep
 at which it overtakes ``reg``.
 
 - The split: ``csrc/polyphase.cu`` built once more with
-  ``-DMR_POLYPHASE_CLOCKS`` (``build.load``'s ``defines``), so
+  ``-DMR_CLOCKS`` (``build.load``'s ``defines``), so
   that every thread adds its clock64 intervals by part (``ClockPart``: the
   prologue, staging issued, the wait for a tile, the dot, the stores, the
   release; ``reg.tma``'s producer warp apart: its wait for a free buffer
@@ -103,7 +103,7 @@ def main() -> int:
             print(f"madi {v} {orig_plan(*shape, v)}: "
                   f"{out['madi'][v]:.4f} ms a call")
 
-        defines = ("MR_POLYPHASE_CLOCKS",)
+        defines = ("MR_CLOCKS",)
         clocks = orig_load("polyphase", pp.SIGNATURES, defines)
         clocks.mr_polyphase_clocks.argtypes = [np.ctypeslib.ndpointer(
             np.uint64, flags="C_CONTIGUOUS")]
